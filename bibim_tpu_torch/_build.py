@@ -28,8 +28,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
-SOURCES = ("raster.cu", "overlay.cu", "shade.cu", "sort.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("raster.cu", "overlay.cu", "shade.cu", "sort.cu",
+           "gbuffer_shade.cu", "sample.cu")
+HEADERS = ("common.cuh", "shading.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
@@ -83,27 +84,60 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs: list) -> str:
+    """Wait for every (name, Popen); raise on the first failure."""
+    logs = []
+    for name, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            for _, other in procs:
+                if other.poll() is None:
+                    other.kill()
+                    other.communicate()
+            raise RuntimeError(f"nvcc failed on {name} ({proc.returncode}):"
+                               f"\n{stdout}\n{stderr}")
+        logs.append(stdout + stderr)
+    return "".join(logs)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernel library if the hashed build is missing; returns
-    its path. ``verbose`` prints ptxas register/shared-memory usage."""
+    its path. One nvcc per source, all started together, then one link.
+    ``verbose`` prints ptxas register/shared-memory usage."""
     global build_seconds
-    out = BUILD_DIR / f"libbibim_kernels_{_digest()}.so"
+    digest = _digest()
+    out = BUILD_DIR / f"libbibim_kernels_{digest}.so"
     if out.is_file() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC)]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    tag = f"{digest}.{os.getpid()}"
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    objs, procs = [], []
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        for s in SOURCES:
+            obj = BUILD_DIR / f"{Path(s).stem}.{tag}.o"
+            cmd = [nvcc, *compile_flags, "-I", str(CSRC), "-c"]
+            if verbose:
+                cmd += ["-Xptxas", "-v"]
+            cmd += ["-o", str(obj), str(CSRC / s)]
+            procs.append((s, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+            objs.append(obj)
+        log = _run(procs)
+        log += _run([("link", subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
+    finally:
+        # A failed compile or link leaves no partial objects behind.
+        for f in objs:
+            f.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     if verbose:
-        print(proc.stdout + proc.stderr)
+        print(log)
     os.replace(tmp, out)
     return out
 
@@ -121,11 +155,19 @@ def _declare(lib) -> None:
         # tile_w, rec_stride, stream
         "bb_overlay": [p, p, p, i, p, i, p, p, p, p, p, p, i, i, i, i, i, i,
                        p],
-        # groups, u, v, world×3, normal×3, tangent×3, valid, lights,
-        # n_lights, view_pos, nm_enable, gbuffer_mode, quantize, n,
-        # out r/g/b, stream
-        "bb_shade": [ctypes.POINTER(Groups)] + [p] * 13
+        # groups, u, v, world×3, normal×3, tangent×3, valid, vis (or
+        # NULL), lights, n_lights, view_pos, nm_enable, gbuffer_mode,
+        # quantize, n, out r/g/b, stream
+        "bb_shade": [ctypes.POINTER(Groups)] + [p] * 14
                     + [i, p, p, i, i, i, p, p, p, p],
+        # world×3, normal×3, albedo×3, metallic, roughness, ao, valid,
+        # vis (or NULL), ambient×3 (or NULL), lights, n_lights, view_pos,
+        # exposure, tonemap enable, quantize, tonemap, n, out r/g/b, stream
+        "bb_shade_gbuffer": [p] * 18 + [i, p, p, p, i, i, i, p, p, p, p],
+        # blocks, row_bytes, h, w, cpad, n_out, u, v, n, out, stream
+        "bb_sample_block": [p, i, i, i, i, i, p, p, i, p, p],
+        # quads, rows, cpad, n_out, idx, tx, ty, n, out, stream
+        "bb_sample_small": [p, i, i, i, p, p, p, i, p, p],
         "bb_sort_i32": [p, i, p],
         "bb_sort_i64": [p, i, p],
     }

@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from bibim_tpu_torch.ops import ibl as ibl_ops
 from bibim_tpu_torch.ops import texture_quad as tq
 from bibim_tpu_torch.pipeline.framegraph import (
     FrameParams,
@@ -83,6 +84,26 @@ def material_tables(tables, device="cpu") -> tuple:
         else:
             raise NotImplementedError(f"material table {kind}")
     return tuple(out)
+
+
+def ibl(j, device="cpu"):
+    """The JAX package's ``IblSH`` (analytic fits) or ``IblMaps`` (quad
+    tables) → the port's ``ops.ibl`` counterpart."""
+    kind = type(j).__name__
+    if kind == "IblSH":
+        def poly(p):
+            return ibl_ops.sph_poly(np.asarray(p.coef), np.asarray(p.sg_axis),
+                                    np.asarray(p.sg_amp),
+                                    np.asarray(p.sg_sharp), p.degree, device)
+
+        return ibl_ops.IblSH(poly(j.irradiance), poly(j.spec_gloss),
+                             poly(j.spec_rough))
+    if kind == "IblMaps":
+        return ibl_ops.IblMaps(material_tables(j.irradiance, device),
+                               material_tables(j.spec_gloss, device),
+                               material_tables(j.spec_rough, device),
+                               float(j.hdr_scale))
+    raise NotImplementedError(f"IBL probe {kind}")
 
 
 def overlay_resources(ov, device="cpu") -> OverlayResources:

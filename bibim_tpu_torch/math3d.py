@@ -105,6 +105,26 @@ def perspective(fov_degrees, aspect, near, far, device=None):
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
+def orthographic(left, right, bottom, top, near, far, device=None):
+    """Reversed-Z orthographic projection, the conventions of
+    :func:`perspective` (Y negated, near → depth 1, far → 0, w = 1); the
+    shadow pass's light projection."""
+    left = _t(left, device)
+    right, bottom, top, near, far = (_t(x, left.device)
+                                     for x in (right, bottom, top, near, far))
+    z = torch.zeros_like(left)
+    o = torch.ones_like(left)
+    sx = 2.0 / (right - left)
+    sy = 2.0 / (top - bottom)
+    rows = [
+        [sx, z, z, -(right + left) / (right - left)],
+        [z, -sy, z, (top + bottom) / (top - bottom)],
+        [z, z, -o / (far - near), far / (far - near)],
+        [z, z, z, o],
+    ]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Full-f32 matrix product (TF32 stays off for float32 matmuls)."""
     return torch.matmul(a, b)

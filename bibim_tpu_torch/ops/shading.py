@@ -1,17 +1,23 @@
-"""Fused sampled shade — kernel K2 (replaces the JAX package's
-``ops/shading_pallas.shade_sampled_pallas`` and its ``block_prep`` /
-``small_prep`` glue, per-pixel sampling).
+"""The shading kernels (port of the JAX package's
+``ops/shading_pallas``).
 
-One pass from material tables to masked HDR planes: bilinear samples of
-every size group (block tables and quad tables, rows read by index),
-tangent-space normal map, the deferred G-buffer miss mask and RGBA16F
-(fp16) round trip, the GGX light loop and the 0.03·albedo·ao ambient term.
-The fp16 round trip of the HDR result and the tone map stay outside, as
-torch ops, like the reference's.
+K2, fused sampled shade (replaces ``shade_sampled_pallas`` and its
+``block_prep`` / ``small_prep`` glue, per-pixel sampling): one pass from
+material tables to masked HDR planes — bilinear samples of every size
+group (block tables and quad tables, rows read by index), tangent-space
+normal map, the deferred G-buffer miss mask and RGBA16F (fp16) round trip,
+the GGX light loop with the optional shadow visibility plane, and the
+0.03·albedo·ao ambient term. The fp16 round trip of the HDR result and the
+tone map stay outside, as torch ops, like the reference's.
 
-:func:`shade_sampled` is the kernel wrapper (csrc/shade.cu for CUDA
-tensors); :func:`shade_sampled_plain` is its plain version, run for CPU
-tensors.
+K5, G-buffer shade (replaces ``shade_tonemap_pallas``): the GGX light loop
+over G-buffer planes with the optional visibility plane and IBL ambient
+planes, fp16 round trip and exposure tone map.
+
+:func:`shade_sampled` and :func:`shade_tonemap` are the kernel wrappers
+(csrc/shade.cu, csrc/gbuffer_shade.cu for CUDA tensors);
+:func:`shade_sampled_plain` and :func:`shade_tonemap_plain` are their plain
+versions, run for CPU tensors.
 """
 
 from __future__ import annotations
@@ -26,7 +32,9 @@ from bibim_tpu_torch.ops.shading_planar import (
     apply_normal_map,
     ggx_light_sum,
     normalize3,
+    shade_pbr_planar,
 )
+from bibim_tpu_torch.ops.tonemap import tone_map
 from bibim_tpu_torch.scene.lights import Lights, pack_lights
 
 
@@ -35,32 +43,21 @@ def q16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float16).to(torch.float32)
 
 
-def _sample_quad_blend(table: tq.QuadTable, u, v) -> dict:
-    """Quad-table bilinear sample in the kernel's blend order:
-    top/bottom rows first, then the vertical mix."""
-    shape = u.shape
-    idx, tx, ty = tq._footprint(u.reshape(-1), v.reshape(-1), table.height,
-                                table.width)
-    q = table.quads[idx.long()].to(torch.float32) * tq._INV255
-    cpad = q.shape[1] // 4
-    out = {}
-    for k, slot in enumerate(table.present):
-        top = q[:, k] * (1.0 - tx) + q[:, cpad + k] * tx
-        bot = q[:, 2 * cpad + k] * (1.0 - tx) + q[:, 3 * cpad + k] * tx
-        out[slot] = (top * (1.0 - ty) + bot * ty).reshape(shape)
-    return out
+def _light_vis(vis_plane, vis_light: int) -> dict | None:
+    return None if vis_plane is None else {vis_light: vis_plane}
 
 
 def shade_sampled_plain(tables, u, v, world, normal, tangent, valid,
                         lights: Lights, view_pos, enable_normal_map,
-                        gbuffer_mode: bool = True, quantize: bool = True):
+                        gbuffer_mode: bool = True, quantize: bool = True,
+                        vis_plane=None, vis_light: int = -1):
     """Plain version of K2 → (r, g, b) masked HDR planes."""
     slots = {}
     for t in tables:
         if isinstance(t, tq.BlockTable):
             slots.update(tq.sample_table_block(t, u, v))
         else:
-            slots.update(_sample_quad_blend(t, u, v))
+            slots.update(tq.sample_table_small_plain(t, u, v))
     zero = torch.zeros_like(u)
     for s in tq.SLOTS:
         slots.setdefault(s, zero)
@@ -84,7 +81,8 @@ def shade_sampled_plain(tables, u, v, world, normal, tangent, valid,
     n3 = normalize3(nrm_q)
     v3 = normalize3(tuple(view_pos[c] - world_q[c] for c in range(3)))
     f0 = tuple(0.04 * (1.0 - met_q) + alb_q[c] * met_q for c in range(3))
-    lo = ggx_light_sum(lights, world_q, n3, v3, alb_q, f0, met_q, rough_q)
+    lo = ggx_light_sum(lights, world_q, n3, v3, alb_q, f0, met_q, rough_q,
+                       _light_vis(vis_plane, vis_light))
     hdr = tuple(0.03 * alb_q[c] * ao_q + lo[c] for c in range(3))
     return tuple(torch.where(valid, c, zero) for c in hdr)
 
@@ -123,33 +121,49 @@ def _groups(tables, device) -> _build.Groups:
     return g
 
 
+def _check_planes(fn: str, names, planes, valid, shape, dev) -> None:
+    """Every plane a contiguous float32 ``shape`` tensor on ``dev``;
+    ``valid`` a bool plane of that shape."""
+    for name, t in zip(names, planes):
+        if (t.dtype != torch.float32 or t.device != dev
+                or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
+            raise ValueError(f"{fn}: plane {name} must be a contiguous "
+                             f"float32 {tuple(shape)} tensor on {dev}")
+    if valid.dtype != torch.bool or tuple(valid.shape) != tuple(shape) \
+            or valid.device != dev:
+        raise ValueError(f"{fn}: valid must be a bool plane")
+
+
+def _optional_ptr(t):
+    return None if t is None else _build.ptr(t)
+
+
 def shade_sampled(tables, u, v, world, normal, tangent, valid,
                   lights: Lights, view_pos, enable_normal_map,
-                  gbuffer_mode: bool = True, quantize: bool = True):
+                  gbuffer_mode: bool = True, quantize: bool = True,
+                  vis_plane=None, vis_light: int = -1):
     """K2 wrapper. ``tables``: tuple of QuadTable/BlockTable; pixel args
     (NT, NPX) float32 planes, ``valid`` bool; ``view_pos`` (3,) float32;
-    ``enable_normal_map`` a 0-dim int tensor. Returns (r, g, b)."""
+    ``enable_normal_map`` a 0-dim int tensor; ``vis_plane`` an optional
+    [0, 1] plane scaling the radiance of light ``vis_light``. Returns
+    (r, g, b)."""
     dev = u.device
     shape = u.shape
     planes = [u, v, *world, *normal, *tangent]
-    for name, t in zip(("u", "v", "wx", "wy", "wz", "nx", "ny", "nz", "tx",
-                        "ty", "tz"), planes):
-        if (t.dtype != torch.float32 or t.device != dev
-                or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
-            raise ValueError(f"shade_sampled: plane {name} must be a "
-                             f"contiguous float32 {tuple(shape)} tensor on "
-                             f"{dev}")
-    if valid.dtype != torch.bool or tuple(valid.shape) != tuple(shape) \
-            or valid.device != dev:
-        raise ValueError("shade_sampled: valid must be a bool plane")
+    names = ["u", "v", "wx", "wy", "wz", "nx", "ny", "nz", "tx", "ty", "tz"]
+    if vis_plane is not None:
+        planes.append(vis_plane)
+        names.append("vis")
+    _check_planes("shade_sampled", names, planes, valid, shape, dev)
     if dev.type == "cpu":
         return shade_sampled_plain(tables, u, v, world, normal, tangent,
                                    valid, lights, view_pos,
-                                   enable_normal_map, gbuffer_mode, quantize)
+                                   enable_normal_map, gbuffer_mode, quantize,
+                                   vis_plane, vis_light)
     if dev.type != "cuda":
         raise RuntimeError(f"shade_sampled: unsupported device {dev}")
     groups = _groups(tables, dev)
-    lparams = pack_lights(lights)
+    lparams = pack_lights(lights, vis_light)
     vp = view_pos.to(device=dev, dtype=torch.float32).reshape(3).contiguous()
     nm = enable_normal_map.to(device=dev, dtype=torch.int32).reshape(
         1).contiguous()
@@ -158,13 +172,88 @@ def shade_sampled(tables, u, v, world, normal, tangent, valid,
     p = _build.ptr
     n = u.numel()
     err = _build.library().bb_shade(
-        ctypes.byref(groups), *(p(t) for t in planes), p(valid_u8),
-        p(lparams), lights.num_lights, p(vp), p(nm), int(gbuffer_mode),
-        int(quantize), n, p(out[0]), p(out[1]), p(out[2]),
-        _build.stream_ptr(dev))
+        ctypes.byref(groups), *(p(t) for t in planes[:11]), p(valid_u8),
+        _optional_ptr(vis_plane), p(lparams), lights.num_lights, p(vp),
+        p(nm), int(gbuffer_mode), int(quantize), n, p(out[0]), p(out[1]),
+        p(out[2]), _build.stream_ptr(dev))
     _build.check(err, "shade")
     shade_sampled.launches += 1
     return out[0], out[1], out[2]
 
 
 shade_sampled.launches = 0
+
+
+def shade_tonemap_plain(world, normal, albedo, metallic, roughness, ao,
+                        valid, lights: Lights, view_pos, enable_tone_mapping,
+                        exposure, vis_plane=None, vis_light: int = -1,
+                        ambient=None, quantize: bool = True,
+                        tonemap: bool = True):
+    """Plain version of K5 → (r, g, b): GGX over G-buffer planes, masked
+    by ``valid``, then the optional fp16 round trip and exposure tone
+    map."""
+    hdr = shade_pbr_planar(world, normal, albedo, metallic, roughness, ao,
+                           lights, view_pos,
+                           light_vis=_light_vis(vis_plane, vis_light),
+                           ambient=ambient)
+    zero = torch.zeros_like(metallic)
+    hdr = tuple(torch.where(valid, c, zero) for c in hdr)
+    if quantize:
+        hdr = tuple(q16(c) for c in hdr)
+    if tonemap:
+        hdr = tuple(tone_map(c, enable_tone_mapping, exposure) for c in hdr)
+    return hdr
+
+
+def shade_tonemap(world, normal, albedo, metallic, roughness, ao, valid,
+                  lights: Lights, view_pos, enable_tone_mapping, exposure,
+                  vis_plane=None, vis_light: int = -1, ambient=None,
+                  quantize: bool = True, tonemap: bool = True):
+    """K5 wrapper. Pixel args are (NT, NPX) float32 planes (``valid``
+    bool); ``view_pos`` (3,), ``exposure`` and ``enable_tone_mapping``
+    0-dim tensors; ``vis_plane`` an optional visibility plane for light
+    ``vis_light``; ``ambient`` optional (r, g, b) planes replacing
+    0.03·albedo·ao. Returns (r, g, b)."""
+    dev = metallic.device
+    shape = metallic.shape
+    planes = [*world, *normal, *albedo, metallic, roughness, ao]
+    names = ["wx", "wy", "wz", "nx", "ny", "nz", "ar", "ag", "ab",
+             "metallic", "roughness", "ao"]
+    if vis_plane is not None:
+        planes.append(vis_plane)
+        names.append("vis")
+    if ambient is not None:
+        planes.extend(ambient)
+        names.extend(["amb_r", "amb_g", "amb_b"])
+    _check_planes("shade_tonemap", names, planes, valid, shape, dev)
+    if dev.type == "cpu":
+        return shade_tonemap_plain(
+            world, normal, albedo, metallic, roughness, ao, valid, lights,
+            view_pos, enable_tone_mapping, exposure, vis_plane, vis_light,
+            ambient, quantize, tonemap)
+    if dev.type != "cuda":
+        raise RuntimeError(f"shade_tonemap: unsupported device {dev}")
+    lparams = pack_lights(lights, vis_light)
+
+    def scalar(x, dtype, n=1):
+        return x.to(device=dev, dtype=dtype).reshape(n).contiguous()
+
+    vp = scalar(view_pos, torch.float32, 3)
+    expo = scalar(exposure, torch.float32)
+    tm = scalar(enable_tone_mapping, torch.int32)
+    valid_u8 = valid.to(torch.uint8).contiguous()
+    amb = ambient if ambient is not None else (None, None, None)
+    out = torch.empty((3,) + tuple(shape), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    err = _build.library().bb_shade_gbuffer(
+        *(p(t) for t in planes[:12]), p(valid_u8), _optional_ptr(vis_plane),
+        *(_optional_ptr(a) for a in amb), p(lparams), lights.num_lights,
+        p(vp), p(expo), p(tm), int(quantize), int(tonemap),
+        metallic.numel(), p(out[0]), p(out[1]), p(out[2]),
+        _build.stream_ptr(dev))
+    _build.check(err, "shade_gbuffer")
+    shade_tonemap.launches += 1
+    return out[0], out[1], out[2]
+
+
+shade_tonemap.launches = 0

@@ -54,8 +54,11 @@ def light_terms(lights: Lights, i: int):
     return dn, lights.inner_cutoff[i] - lights.outer_cutoff[i]
 
 
-def ggx_light_sum(lights: Lights, world, n, v, albedo, f0, met, rough):
-    """The brdf.frag light loop → (r, g, b) outgoing radiance planes."""
+def ggx_light_sum(lights: Lights, world, n, v, albedo, f0, met, rough,
+                  light_vis: dict | None = None):
+    """The brdf.frag light loop → (r, g, b) outgoing radiance planes.
+    ``light_vis`` maps a light index to a [0, 1] visibility plane that
+    scales that light's radiance (shadow mapping)."""
     lo = (torch.zeros_like(met),) * 3
     # A tensor divisor: PyTorch's CUDA division by a Python scalar
     # multiplies by its reciprocal instead, which is not x / PI.
@@ -102,6 +105,8 @@ def ggx_light_sum(lights: Lights, world, n, v, albedo, f0, met, rough):
 
         spec_den = 1.0 / torch.clamp(4.0 * ndv * ndl, min=0.001)
         radiance = att * lights.intensity[i]
+        if light_vis and i in light_vis:
+            radiance = radiance * light_vis[i]
         new = []
         for c in range(3):
             specular = (d * f[c] * g) * spec_den
@@ -113,15 +118,20 @@ def ggx_light_sum(lights: Lights, world, n, v, albedo, f0, met, rough):
 
 
 def shade_pbr_planar(world, normal, albedo, metallic, roughness, ao,
-                     lights: Lights, view_pos):
-    """Full brdf.frag lighting → (r, g, b) linear HDR planes (ambient
-    0.03·albedo·ao)."""
+                     lights: Lights, view_pos, light_vis: dict | None = None,
+                     ambient=None):
+    """Full brdf.frag lighting → (r, g, b) linear HDR planes. ``light_vis``
+    (light index → visibility plane) scales that light's radiance;
+    ``ambient`` (r, g, b planes, IBL) replaces the 0.03·albedo·ao term."""
     n = normalize3(normal)
     v = normalize3(tuple(view_pos[c] - world[c] for c in range(3)))
     f0 = tuple(0.04 * (1.0 - metallic) + albedo[c] * metallic
                for c in range(3))
-    lo = ggx_light_sum(lights, world, n, v, albedo, f0, metallic, roughness)
-    return tuple(0.03 * albedo[c] * ao + lo[c] for c in range(3))
+    lo = ggx_light_sum(lights, world, n, v, albedo, f0, metallic, roughness,
+                       light_vis)
+    if ambient is None:
+        ambient = tuple(0.03 * albedo[c] * ao for c in range(3))
+    return tuple(ambient[c] + lo[c] for c in range(3))
 
 
 def shade_flat_planar(color, normal, view_rot):

@@ -1,5 +1,5 @@
 """The frame function (port of ``bibim_tpu.pipeline.framegraph``, the
-deferred PBR branch).
+deferred PBR branch with shadows and IBL).
 
 Stages of :func:`render_frame`:
 
@@ -7,15 +7,24 @@ Stages of :func:`render_frame`:
    and record table;
 2. binning (pair sort K3) and raster + resolve (K1) of the main pass;
 3. optional live-tile compaction of the shading stage (``live_tile_cap``);
-4. sampled shade (K2): materials, normal map, fp16 G-buffer, GGX; then the
-   fp16 HDR round trip and the exposure tone map as torch ops;
-5. scatter-back, light spheres through the overlay composite (K4, depth
+4. with ``enable_shadows``: the light-view depth pass (K3 + K1 on the
+   shadow map's grid, depth plane only) and the screen-side PCF
+   visibility of the shadow-casting light (``ops.shadow``);
+5. shading, either
+   - without IBL: the sampled shade (K2) — materials, normal map, fp16
+     G-buffer, GGX with the visibility plane; or
+   - with IBL: the G-buffer planes sampled through the block-table (K6)
+     and small-table (K7) samplers, the split-sum IBL ambient
+     (``ops.ibl``) and the G-buffer shade (K5);
+   then the fp16 HDR round trip and the exposure tone map as torch ops;
+6. scatter-back, light spheres through the overlay composite (K4, depth
    tested against the scene's keys), the corner gizmo (K1 in its own
    viewport), sRGB encode and u8.
 
-Settings outside this slice (forward lighting, shadows, IBL, pair sampling,
-anisotropic taps, early-z and the other raster schedule variants, HUD, TBN,
-G-buffer visualization, flat main-frame shading) raise NotImplementedError.
+Settings outside this slice (forward lighting, pair sampling and pair
+visibility, anisotropic taps, early-z and the other raster schedule
+variants, HUD, TBN, G-buffer visualization, flat main-frame shading) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,11 +38,19 @@ import torch
 
 from bibim_tpu_torch import math3d as m3
 from bibim_tpu_torch.ops import fused
+from bibim_tpu_torch.ops import shadow as sh
 from bibim_tpu_torch.ops import sort as sort_ops
 from bibim_tpu_torch.ops import texture_quad as tq
 from bibim_tpu_torch.ops.geometry import PlanarSoup, assemble_scene_planar
+from bibim_tpu_torch.ops.ibl import ibl_ambient
 from bibim_tpu_torch.ops.raster import triangle_setup, triangle_setup_planar
-from bibim_tpu_torch.ops.shading import q16, shade_sampled, shade_sampled_plain
+from bibim_tpu_torch.ops.shading import (
+    q16,
+    shade_sampled,
+    shade_sampled_plain,
+    shade_tonemap,
+    shade_tonemap_plain,
+)
 from bibim_tpu_torch.ops.shading_planar import (
     apply_normal_map,
     shade_flat_planar,
@@ -148,20 +165,26 @@ class RenderSettings:
 
 
 class Kernels(NamedTuple):
-    """The four kernel entry points the frame calls."""
+    """The kernel entry points the frame calls."""
 
-    raster: Callable
-    overlay: Callable
-    sort: Callable
-    shade: Callable
+    raster: Callable  # K1
+    overlay: Callable  # K4
+    sort: Callable  # K3
+    shade: Callable  # K2
+    shade_gbuffer: Callable  # K5
+    sample_block: Callable  # K6: (BlockTable, u, v) → slot planes
+    sample_small: Callable  # K7: (QuadTable, u, v) → slot planes
 
 
 # The kernel wrappers (CUDA kernels for CUDA tensors) ...
 KERNELS = Kernels(fused.raster_tiles, fused.overlay_tiles,
-                  sort_ops.sort_keys, shade_sampled)
+                  sort_ops.sort_keys, shade_sampled, shade_tonemap,
+                  tq.sample_table_block_kernel, tq.sample_table_small)
 # ... and their plain PyTorch versions on any device (reference renders).
 PLAIN = Kernels(fused.raster_tiles_plain, fused.overlay_tiles_plain,
-                sort_ops.sort_keys_plain, shade_sampled_plain)
+                sort_ops.sort_keys_plain, shade_sampled_plain,
+                shade_tonemap_plain, tq.sample_table_block,
+                tq.sample_table_small_plain)
 
 
 def check_supported(settings: RenderSettings, materials) -> None:
@@ -174,8 +197,6 @@ def check_supported(settings: RenderSettings, materials) -> None:
          f"gbuffer_viz={s.gbuffer_viz!r}"),
         (s.show_tbn, "show_tbn"),
         (s.show_hud, "show_hud"),
-        (s.enable_shadows, "enable_shadows"),
-        (s.enable_ibl, "enable_ibl"),
         (s.aniso_taps != 1, f"aniso_taps={s.aniso_taps}"),
         (bool(s.pair_sampling), f"pair_sampling={s.pair_sampling}"),
         (s.pair_lossy, "pair_lossy"),
@@ -209,7 +230,10 @@ def _prunable_fields(settings: RenderSettings) -> tuple:
 
 def _raster(rec, setup, width, height, settings: RenderSettings,
             kernels: Kernels, cap=None, init_zkey=None, overflow_cap=None,
-            passes=None, main_pass=False, span_cap=None, drop_fields=None):
+            passes=None, main_pass=False, span_cap=None, drop_fields=None,
+            tile_cap=None):
+    """``tile_cap``: the pass-0 tile compaction of a pass that is not the
+    main one (the main pass takes ``settings.raster_tile_cap``)."""
     if passes is None:
         passes = settings.raster_passes if cap is None else 1
     return fused.raster_fused(
@@ -219,7 +243,7 @@ def _raster(rec, setup, width, height, settings: RenderSettings,
         overflow_cap=overflow_cap or settings.overflow_cap,
         span_cap=span_cap or settings.span_cap, init_zkey=init_zkey,
         pair_budget=settings.pair_budget, passes=passes,
-        raster_tile_cap=settings.raster_tile_cap if main_pass else None,
+        raster_tile_cap=settings.raster_tile_cap if main_pass else tile_cap,
         span_mid_cap=settings.span_mid_cap if main_pass else None,
         dense_tile_cap=settings.dense_tile_cap if main_pass else None,
         drop_fields=(drop_fields if drop_fields is not None
@@ -261,10 +285,12 @@ def _tile_diag(dropped, device) -> fused.BinDiag:
 
 
 def _materialize_gbuffer_planes(px, materials, view_block,
-                                settings: RenderSettings):
-    """Plain G-buffer: material samples + normal map + mask + fp16."""
+                                settings: RenderSettings,
+                                kernels: Kernels | None = None):
+    """G-buffer planes: material samples (through ``kernels``' K6/K7, or
+    the plain XLA-order samplers with None) + normal map + mask + fp16."""
     valid = px.tri_id >= 0
-    slots = tq.sample_material(materials, px.uv[0], px.uv[1])
+    slots = tq.sample_material(materials, px.uv[0], px.uv[1], kernels)
     albedo = (slots["alb_r"], slots["alb_g"], slots["alb_b"])
     nmap = (slots["nrm_x"], slots["nrm_y"], slots["nrm_z"])
     normal = apply_normal_map(px.normal, px.tangent, nmap,
@@ -281,6 +307,134 @@ def _materialize_gbuffer_planes(px, materials, view_block,
     g_mrah = tuple(mq(slots[k]) for k in ("metallic", "roughness", "ao",
                                           "height"))
     return g_pos, g_nrm, g_alb, g_mrah, valid
+
+
+def _vis_plane(light_vis, settings: RenderSettings):
+    return light_vis[settings.shadow_light] if light_vis else None
+
+
+def _pbr_hdr(g_pos, g_nrm, g_alb, g_mrah, valid, lights, view_block,
+             light_vis=None, ambient=None):
+    """Deferred lighting on G-buffer planes → masked HDR (plain chain)."""
+    hdr3 = shade_pbr_planar(g_pos, g_nrm, g_alb, g_mrah[0], g_mrah[1],
+                            g_mrah[2], lights, view_block.view_pos,
+                            light_vis=light_vis, ambient=ambient)
+    zero = torch.zeros_like(g_mrah[0])
+    return tuple(torch.where(valid, c, zero) for c in hdr3)
+
+
+def _pbr_ldr_fused(g_pos, g_nrm, g_alb, g_mrah, valid, lights, view_block,
+                   frame_params, settings: RenderSettings, kernels: Kernels,
+                   light_vis=None, ambient=None):
+    """Deferred lighting through the G-buffer shade (K5), then the fp16
+    HDR round trip and tone map as torch ops → LDR planes."""
+    hdr3 = kernels.shade_gbuffer(
+        g_pos, g_nrm, g_alb, g_mrah[0], g_mrah[1], g_mrah[2], valid, lights,
+        view_block.view_pos, frame_params.enable_tone_mapping,
+        frame_params.exposure, vis_plane=_vis_plane(light_vis, settings),
+        vis_light=settings.shadow_light, ambient=ambient, quantize=False,
+        tonemap=False)
+    if settings.quantize_fp16:
+        hdr3 = tuple(q16(c) for c in hdr3)
+    return tuple(tone_map(c, frame_params.enable_tone_mapping,
+                          frame_params.exposure) for c in hdr3)
+
+
+# The shadow raster reads only the depth plane (and idf, always emitted).
+_SHADOW_DROP = tuple(f for f in fused._OUT_FIELDS
+                     if f not in ("depth", "idf"))
+
+
+def _shadow_fit_ranges(scene: SceneData, settings: RenderSettings):
+    """(start, end) slices of the concatenated triangle planes of the
+    ``settings.shadow_fit_batches`` batches (None: the fit covers the
+    whole scene)."""
+    if settings.shadow_fit_batches is None:
+        return None
+    out = []
+    t0 = 0
+    for bi, b in enumerate(scene.batches):
+        t1 = t0 + int(b.model.shape[0]) * int(b.indices.shape[0])
+        if bi in settings.shadow_fit_batches:
+            out.append((t0, t1))
+        t0 = t1
+    return tuple(out)
+
+
+def _world_bounds_planar(world, ranges=None):
+    """(min, max) (3,) bounds of corner-planar world planes, optionally
+    over (start, end) triangle slices."""
+    sl = ranges if ranges else ((0, None),)
+
+    def bound(k, fn):
+        return fn(torch.stack([fn(world[k][c][s:e]) for c in range(3)
+                               for (s, e) in sl]))
+
+    return (torch.stack([bound(k, torch.min) for k in range(3)]),
+            torch.stack([bound(k, torch.max) for k in range(3)]))
+
+
+def _shadow_map_planar(psoup: PlanarSoup, lights: Lights,
+                       settings: RenderSettings, kernels: Kernels,
+                       fit_ranges=None):
+    """Depth-only light pass through the frame's raster (K1, every plane
+    but depth dropped) → (ShadowMap, BinDiag of the pass)."""
+    size = settings.shadow_size
+    d = lights.dir[settings.shadow_light]
+    wmin, wmax = _world_bounds_planar(psoup.world)
+    fmin = fmax = None
+    if fit_ranges:
+        fmin, fmax = _world_bounds_planar(psoup.world, fit_ranges)
+    lvp = sh.light_view_proj(d, wmin, wmax, fit_min=fmin, fit_max=fmax)
+    w = psoup.world
+    clip_l = tuple(
+        tuple(lvp[m, 0] * w[0][c] + lvp[m, 1] * w[1][c]
+              + lvp[m, 2] * w[2][c] + lvp[m, 3] for c in range(3))
+        for m in range(4))
+    setup_l = triangle_setup_planar(clip_l, size, size)
+    zero = torch.zeros_like(w[0][0])
+    z3 = ((zero,) * 3,) * 3
+    zero_soup = PlanarSoup(clip=clip_l, world=z3, normal=z3, tangent=z3,
+                           uv=((zero,) * 3,) * 2, color=z3, mat=zero)
+    rec_l = fused.build_record_table_planar(setup_l, zero_soup)
+    px_l, _, sh_diag = _raster(
+        rec_l, setup_l, size, size, settings, kernels,
+        cap=settings.shadow_candidates,
+        passes=settings.shadow_passes or settings.raster_passes,
+        drop_fields=_SHADOW_DROP, tile_cap=settings.shadow_tile_cap)
+    tiles_x = -(-size // settings.tile_w)
+    depth_img = fused.untile(px_l.depth, size, size, tiles_x,
+                             settings.tile_h, settings.tile_w)
+    return sh.build_shadow_map(depth_img, lvp, size), sh_diag
+
+
+def _pcf_vis(smap: sh.ShadowMap, px, settings: RenderSettings, sh_diag):
+    """Screen-side PCF visibility; compacted to the frustum footprint's
+    tiles when ``shadow_query_tile_cap`` is set (dropped footprint tiles
+    add to the shadow pass's BinDiag)."""
+    if settings.shadow_query_tile_cap is not None:
+        vis, dropped = sh.shadow_factor_compact(
+            smap, px.world, px.tri_id >= 0, settings.shadow_query_tile_cap,
+            settings.shadow_bias)
+        return vis, sh_diag._replace(
+            dropped_tiles=sh_diag.dropped_tiles + dropped)
+    return sh.shadow_factor(smap, px.world, settings.shadow_bias), sh_diag
+
+
+def _shadow_visibility_planar(psoup, px, lights, settings: RenderSettings,
+                              kernels: Kernels, fit_ranges=None):
+    smap, sh_diag = _shadow_map_planar(psoup, lights, settings, kernels,
+                                       fit_ranges=fit_ranges)
+    return _pcf_vis(smap, px, settings, sh_diag)
+
+
+def _shadow_vis_any(psoup, px, scene: SceneData, settings: RenderSettings,
+                    kernels: Kernels):
+    """Visibility plane of the shadow-casting light and the shadow pass's
+    BinDiag (the port's frame is planar only)."""
+    return _shadow_visibility_planar(psoup, px, scene.lights, settings,
+                                     kernels,
+                                     _shadow_fit_ranges(scene, settings))
 
 
 def _light_sphere_planar_soup(lights: Lights, overlay: OverlayResources,
@@ -400,12 +554,14 @@ def _composite_gizmo(ldr3_img, view, proj, overlay: OverlayResources,
 def render_frame(scene: SceneData, view_block: ViewBlock,
                  frame_params: FrameParams, materials,
                  overlay: OverlayResources | None, settings: RenderSettings,
-                 kernels: Kernels = KERNELS):
+                 ibl=None, kernels: Kernels = KERNELS):
     """Render one deferred PBR frame.
 
     ``settings.outputs``: "image" → {'image': (H,W,3) u8}; "image+diag"
     adds the summed BinDiag of every raster pass; "full" shades through
-    the plain G-buffer chain and adds ldr/hdr/depth/tri_id/gbuffer images.
+    the plain G-buffer chain (XLA-order samplers, planar GGX) and adds
+    ldr/hdr/depth/tri_id/gbuffer images. ``ibl`` (``ops.ibl.IblSH`` or
+    ``IblMaps``) is the light probe ``settings.enable_ibl`` shades with.
     ``kernels`` selects the kernel entry points (default: the wrappers;
     :data:`PLAIN` renders a reference frame with the plain versions on any
     device)."""
@@ -451,32 +607,59 @@ def render_frame(scene: SceneData, view_block: ViewBlock,
 
     valid = px.tri_id >= 0
     gb = {}
-    if settings.outputs != "full":
+    light_vis = None
+    if settings.enable_shadows and scene.lights.num_lights > 0:
+        vis_plane, sh_diag = _shadow_vis_any(psoup, px, scene, settings,
+                                             kernels)
+        light_vis = {settings.shadow_light: vis_plane}
+        diags.append(sh_diag)
+
+    ldr3 = None
+    production = settings.outputs != "full"
+    if production and not settings.enable_ibl:
         hdr3 = kernels.shade(
             materials, px.uv[0], px.uv[1], px.world, px.normal, px.tangent,
             valid, scene.lights, view_block.view_pos,
             view_block.enable_normal_map, gbuffer_mode=True,
-            quantize=settings.quantize_fp16)
+            quantize=settings.quantize_fp16,
+            vis_plane=_vis_plane(light_vis, settings),
+            vis_light=settings.shadow_light)
     else:
+        # The production frame samples through K6/K7 and shades on K5;
+        # "full" keeps the plain chain.
+        sampling = kernels if production else None
         g_pos, g_nrm, g_alb, g_mrah, valid = _materialize_gbuffer_planes(
-            px, materials, view_block, settings)
-        hdr3 = shade_pbr_planar(g_pos, g_nrm, g_alb, g_mrah[0], g_mrah[1],
-                                g_mrah[2], scene.lights, view_block.view_pos)
+            px, materials, view_block, settings, sampling)
         zero = torch.zeros_like(px.depth)
-        hdr3 = tuple(torch.where(valid, c, zero) for c in hdr3)
+        ambient = None
+        if settings.enable_ibl and ibl is not None:
+            view_dir = tuple(view_block.view_pos[c] - g_pos[c]
+                             for c in range(3))
+            ambient = ibl_ambient(ibl, g_nrm, view_dir, g_alb, g_mrah[0],
+                                  g_mrah[1], g_mrah[2], sampling)
+            ambient = tuple(torch.where(valid, a, zero) for a in ambient)
+        if production:
+            ldr3 = _pbr_ldr_fused(g_pos, g_nrm, g_alb, g_mrah, valid,
+                                  scene.lights, view_block, frame_params,
+                                  settings, kernels, light_vis, ambient)
+        else:
+            hdr3 = _pbr_hdr(g_pos, g_nrm, g_alb, g_mrah, valid,
+                            scene.lights, view_block, light_vis, ambient)
 
-        def img3(planes):
-            return torch.stack([_untile(c, settings) for c in planes], -1)
+            def img3(planes):
+                return torch.stack([_untile(c, settings) for c in planes],
+                                   -1)
 
-        gb = {
-            "position": img3(g_pos), "normal": img3(g_nrm),
-            "albedo": img3(g_alb), "mrah": img3(g_mrah),
-            "matindex": img3((torch.where(valid, 1.0, 0.0), zero, zero)),
-        }
-    if settings.quantize_fp16:
-        hdr3 = tuple(q16(c) for c in hdr3)
-    ldr3 = tuple(tone_map(c, frame_params.enable_tone_mapping,
-                          frame_params.exposure) for c in hdr3)
+            gb = {
+                "position": img3(g_pos), "normal": img3(g_nrm),
+                "albedo": img3(g_alb), "mrah": img3(g_mrah),
+                "matindex": img3((torch.where(valid, 1.0, 0.0), zero, zero)),
+            }
+    if ldr3 is None:
+        if settings.quantize_fp16:
+            hdr3 = tuple(q16(c) for c in hdr3)
+        ldr3 = tuple(tone_map(c, frame_params.enable_tone_mapping,
+                              frame_params.exposure) for c in hdr3)
 
     if compact_ids is not None:
         npx = ldr3[0].shape[1]

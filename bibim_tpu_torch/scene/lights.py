@@ -62,17 +62,23 @@ def make_lights(entries: list[dict], device="cpu") -> Lights:
     )
 
 
-# Per-light parameter row consumed by the sampled-shade kernel (K2):
-# px py pz | type | dx dy dz | intensity | cr cg cb | inner | outer | 0 0 0
+# Per-light parameter row consumed by the shading kernels (K2, K5):
+# px py pz | type | dx dy dz | intensity | cr cg cb | inner | outer |
+# vis_flag | 0 0
 LIGHT_ROW = 16
 
 
-def pack_lights(lights: Lights) -> torch.Tensor:
-    """(L, 16) float32 rows, on the lights' device (no host round trip)."""
+def pack_lights(lights: Lights, vis_light: int = -1) -> torch.Tensor:
+    """(L, 16) float32 rows, on the lights' device (no host round trip);
+    light ``vis_light`` carries the visibility flag (the shadow-casting
+    light, whose radiance the kernels scale by a visibility plane)."""
     n = lights.num_lights
     dev = lights.pos.device
     if n == 0:
         return torch.zeros((1, LIGHT_ROW), dtype=torch.float32, device=dev)
+    flag = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    if 0 <= vis_light < n:
+        flag[vis_light, 0] = 1.0
     return torch.cat([
         lights.pos,
         lights.type.to(torch.float32)[:, None],
@@ -81,5 +87,5 @@ def pack_lights(lights: Lights) -> torch.Tensor:
         lights.color,
         lights.inner_cutoff[:, None],
         lights.outer_cutoff[:, None],
-        torch.zeros((n, 3), dtype=torch.float32, device=dev),
+        flag,
     ], dim=1).contiguous()

@@ -63,6 +63,10 @@ class ShaderBallScene:
     selected_material_index: int = 1
     angle: float = -90.0
     device: str = "cpu"
+    # The ball (batch 0) is the shadow caster the light frustum's XY fits
+    # (RenderSettings.shadow_fit_batches); the plane still rasterizes into
+    # the shadow map as an occluder and receiver.
+    shadow_fit_batches = (0,)
     _plane: DrawBatch | None = field(default=None, repr=False)
     _ball: DrawBatch | None = field(default=None, repr=False)
     _lights: object = field(default=None, repr=False)

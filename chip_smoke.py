@@ -3,24 +3,32 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It
 
-1. builds the four CUDA kernels from ``bibim_tpu_torch/csrc`` (into
-   ``build/``) and prints the build time;
-2. builds a 1920×1080 deferred PBR frame from repository-only inputs: the
-   ShaderBall scene's structure (100× ground plane at y=-10, the three
-   ShaderBall lights, the default camera) with a ~10k-triangle UV sphere at
-   the ball's instance transform standing in for ShaderBall.fbx, and seeded
-   random materials bound like the headline frame — 2048² metallic /
-   roughness / ao as one block table, 16² albedo / normal / height as one
-   quad table; light spheres on, gizmo off (gizmo.obj is not in the
-   repository);
-3. checks each kernel (K1 raster, K2 sampled shade, K3 pair sort, K4
-   overlay) against its plain PyTorch version on the inputs the frame
-   itself produces, and times both (median of CUDA-event timings);
-4. renders 4 frames at 4 camera yaws through ``render_frame`` with launch
-   counters reset just before, checks zero capacity drops, coverage, that
-   the image is not background, and each frame against the all-plain
-   render of the same frame at the golden-image bound;
-5. prints the GPU's ``nvidia-smi`` name/power-limit line, one JSON line of
+1. builds the seven CUDA kernels from ``bibim_tpu_torch/csrc`` (into
+   ``build/``, one nvcc per source in parallel) and prints the build time;
+2. builds the frames from repository-only inputs: the ShaderBall scene's
+   structure (100× ground plane at y=-10, the three ShaderBall lights, the
+   default camera) with a ~10k-triangle UV sphere at the ball's instance
+   transform standing in for ShaderBall.fbx, and seeded random materials
+   bound like the headline frame — 2048² metallic / roughness / ao as one
+   block table, 16² albedo / normal / height as one quad table; light
+   spheres on, gizmo off (gizmo.obj is not in the repository);
+3. the 1920×1080 deferred PBR path (BASELINE config 3): checks K1 raster,
+   K2 sampled shade (with and without a shadow visibility plane), K3 pair
+   sort and K4 overlay against their plain PyTorch versions on the inputs
+   the frame itself produces and times both (median of CUDA-event
+   timings); renders 4 frames at 4 camera yaws through ``render_frame``
+   with launch counters reset just before;
+4. the 3840×2160 shadows + IBL path (BASELINE config 5: shadow map of the
+   ball at 1024², analytic IBL from the procedural sky): checks K1 (the
+   4K main pass and the 1024² shadow pass), K3 (every sort), K4, K5
+   G-buffer shade, K6 block-table and K7 small-table samplers against
+   their plain versions on that path's inputs and times both; renders 3
+   frames with the counters reset just before, the shadow pass's K1
+   launches counted apart;
+5. checks, on every frame, zero capacity drops (shadow pass included),
+   coverage, that the image is not background, and the frame against the
+   all-plain render of the same frame at the golden-image bound;
+6. prints the GPU's ``nvidia-smi`` name/power-limit line, one JSON line of
    kernel results and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is non-zero. Without a GPU, or without
@@ -48,6 +56,19 @@ CAPS = dict(
     raster_tile_cap=1536, overlay_candidates=384, overlay_overflow_cap=512,
     overlay_max_tiles=512,
 )
+# BASELINE config 5 (bench.py bench_stretch_4k): 4K, shadows fit to the
+# ball, analytic IBL, light spheres.
+C5_WIDTH, C5_HEIGHT = 3840, 2160
+# -75: the ball is out of view and a light sphere in it, so K4
+# composites pixels on this path too.
+C5_YAWS = (0.0, -25.0, -75.0)
+C5_CAPS = dict(
+    max_candidates=128, raster_passes=1, overflow_cap=64, span_cap=32,
+    span_mid_cap=8192, pair_budget=262144, live_tile_cap=4096,
+    raster_tile_cap=4096, overlay_candidates=384, overlay_overflow_cap=512,
+    overlay_max_tiles=1024, shadow_size=1024, shadow_candidates=256,
+    shadow_passes=1, shadow_tile_cap=1024,
+)
 KERNEL_INFO = {
     "raster": ("K1 raster", "bibim_tpu_torch/csrc/raster.cu",
                "bibim_tpu/ops/fused.py:670"),
@@ -57,6 +78,15 @@ KERNEL_INFO = {
              "bibim_tpu/ops/sort_pallas.py:43"),
     "overlay": ("K4 overlay composite", "bibim_tpu_torch/csrc/overlay.cu",
                 "bibim_tpu/ops/fused.py:1882"),
+    "shade_gbuffer": ("K5 G-buffer shade",
+                      "bibim_tpu_torch/csrc/gbuffer_shade.cu",
+                      "bibim_tpu/ops/shading_pallas.py:160"),
+    "sample_block": ("K6 block-table sample",
+                     "bibim_tpu_torch/csrc/sample.cu",
+                     "bibim_tpu/ops/texture_quad.py:312"),
+    "sample_small": ("K7 small-table sample",
+                     "bibim_tpu_torch/csrc/sample.cu",
+                     "bibim_tpu/ops/texture_quad.py:754"),
 }
 
 
@@ -85,7 +115,7 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def build_inputs(dev):
+def build_inputs(dev, width=WIDTH, height=HEIGHT, caps=CAPS, **extra):
     import numpy as np
     import torch
 
@@ -128,12 +158,13 @@ def build_inputs(dev):
     if sorted(kinds) != ["BlockTable", "QuadTable"]:
         raise AssertionError(f"unexpected material binding {kinds}")
     overlay = make_overlay_resources(dev, with_gizmo=False)
-    proj = m3.perspective(60.0, WIDTH / HEIGHT, 0.1, 1000.0, device=dev)
+    proj = m3.perspective(60.0, width / height, 0.1, 1000.0, device=dev)
     fp = FrameParams(
         enable_tone_mapping=torch.tensor(1, dtype=torch.int32, device=dev),
         exposure=torch.tensor(1.0, dtype=torch.float32, device=dev))
-    settings = RenderSettings(width=WIDTH, height=HEIGHT,
-                              outputs="image+diag", show_gizmo=False, **CAPS)
+    settings = RenderSettings(width=width, height=height,
+                              outputs="image+diag", show_gizmo=False,
+                              **caps, **extra)
     return scene, mats, overlay, proj, fp, settings
 
 
@@ -151,6 +182,15 @@ def view_block(yaw: float, proj, dev):
         enable_normal_map=torch.tensor(0, dtype=torch.int32, device=dev))
 
 
+def shadow_fields() -> tuple:
+    """The planes the shadow pass's K1 writes (it drops ``_SHADOW_DROP``);
+    they tell its raster calls from the main pass's."""
+    from bibim_tpu_torch.ops import fused
+    from bibim_tpu_torch.pipeline.framegraph import _SHADOW_DROP
+
+    return tuple(f for f in fused._OUT_FIELDS if f not in _SHADOW_DROP)
+
+
 def capture_kernels(kernels, calls: dict):
     """Kernels that record every call's arguments and result."""
     from bibim_tpu_torch.pipeline import Kernels
@@ -165,6 +205,23 @@ def capture_kernels(kernels, calls: dict):
     return Kernels(*(wrap(n, f) for n, f in zip(Kernels._fields, kernels)))
 
 
+def assert_shade_close(got, want, what: str, rel: bool = False) -> float:
+    """tests/test_shading_pallas.py _assert_close (``rel``: relative to
+    1 + |want|, its _assert_close_rel); returns the max abs error."""
+    errs = []
+    for c in range(3):
+        diff = (got[c] - want[c]).abs()
+        errs.append(float(diff.max()))
+        if rel:
+            diff = diff / (1.0 + want[c].abs())
+        frac = float((diff > 5e-5).float().mean())
+        mx = float(diff.max())
+        if frac >= 1e-3 or mx >= 2e-3:
+            raise AssertionError(f"{what} channel {c}: {frac:.4%} > 5e-5, "
+                                 f"max {mx}")
+    return max(errs)
+
+
 def assert_golden_bound(got, want, what: str) -> None:
     d = (got.to(int) - want.to(int)).abs()
     frac = float((d > 0).any(dim=-1).float().mean())
@@ -173,28 +230,14 @@ def assert_golden_bound(got, want, what: str) -> None:
                              f"{frac:.4%} pixels differ")
 
 
-def check_kernels(calls: dict) -> dict:
-    """Each kernel vs its plain version on the frame's own inputs."""
+def check_raster(call) -> dict:
+    """K1 on one captured raster call: zkey and tri_id bit-equal to the
+    plain raster, attribute planes within tests/test_fused.py's bound."""
     import torch
 
     from bibim_tpu_torch.ops import fused
-    from bibim_tpu_torch.ops.shading import shade_sampled, shade_sampled_plain
-    from bibim_tpu_torch.ops.sort import sort_keys, sort_keys_plain
 
-    res = {}
-
-    # K3: the largest sort of the frame (the main pass's pair keys).
-    keys = max((c[0][0] for c in calls["sort"]), key=lambda k: k.numel())
-    got, want = sort_keys(keys), sort_keys_plain(keys)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("K3 sort differs from torch.sort")
-    res["sort"] = dict(max_abs_err=0.0, shape=list(keys.shape),
-                       ms=cuda_ms(lambda: sort_keys(keys)),
-                       plain_ms=cuda_ms(lambda: sort_keys_plain(keys)))
-
-    # K1: the main raster pass of the first frame.
-    args, kw, _ = calls["raster"][0]
+    args, kw, _ = call
     zk, f = fused.raster_tiles(*args, **kw)
     zk_p, f_p = fused.raster_tiles_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -202,37 +245,43 @@ def check_kernels(calls: dict) -> dict:
     if not torch.equal(zk, zk_p) or not torch.equal(f[idf], f_p[idf]):
         raise AssertionError("K1: zkey / tri_id differ from the plain raster")
     err = float((f - f_p).abs().max())
-    if err > 1e-3:  # attribute planes (tests/test_fused.py bound)
+    if err > 1e-3:
         raise AssertionError(f"K1 attribute planes differ by {err}")
-    res["raster"] = dict(max_abs_err=err, slots=int(args[4].shape[0]),
-                         ms=cuda_ms(lambda: fused.raster_tiles(*args, **kw)),
-                         plain_ms=cuda_ms(
-                             lambda: fused.raster_tiles_plain(*args, **kw)))
+    return dict(max_abs_err=err, slots=int(args[4].shape[0]),
+                planes=len(args[11]),
+                ms=cuda_ms(lambda: fused.raster_tiles(*args, **kw)),
+                plain_ms=cuda_ms(lambda: fused.raster_tiles_plain(*args,
+                                                                  **kw)))
 
-    # K2: the first frame's sampled shade, with its normal-map toggle
-    # (off, as on the headline frame) and with the normal map on.
-    args, kw, _ = calls["shade"][0]
-    errs = []
-    for nm in (args[9], torch.ones_like(args[9])):
-        a2 = args[:9] + (nm,) + args[10:]
-        got = shade_sampled(*a2, **kw)
-        want = shade_sampled_plain(*a2, **kw)
+
+def check_sorts(calls: list) -> dict:
+    """K3 on every captured sort (bit-equal to torch.sort); the largest
+    is timed."""
+    import torch
+
+    from bibim_tpu_torch.ops.sort import sort_keys, sort_keys_plain
+
+    for args, _, _ in calls:
+        keys = args[0]
+        got, want = sort_keys(keys), sort_keys_plain(keys)
         torch.cuda.synchronize()
-        for c in range(3):
-            diff = (got[c] - want[c]).abs()
-            frac = float((diff > 5e-5).float().mean())
-            mx = float(diff.max())
-            if frac >= 1e-3 or mx >= 2e-3:  # test_shading_pallas bound
-                raise AssertionError(f"K2 channel {c}: {frac:.4%} > 5e-5, "
-                                     f"max {mx}")
-            errs.append(mx)
-    res["shade"] = dict(max_abs_err=max(errs), pixels=int(args[1].numel()),
-                        ms=cuda_ms(lambda: shade_sampled(*args, **kw)),
-                        plain_ms=cuda_ms(
-                            lambda: shade_sampled_plain(*args, **kw)))
+        if not torch.equal(got, want):
+            raise AssertionError(f"K3 sort of {tuple(keys.shape)} "
+                                 f"{keys.dtype} differs from torch.sort")
+    keys = max((c[0][0] for c in calls), key=lambda k: k.numel())
+    return dict(max_abs_err=0.0, sorts=len(calls), shape=list(keys.shape),
+                ms=cuda_ms(lambda: sort_keys(keys)),
+                plain_ms=cuda_ms(lambda: sort_keys_plain(keys)))
 
-    # K4: the light-sphere composite with the most live tiles.
-    args, kw, _ = max(calls["overlay"], key=lambda c: int(c[0][7]))
+
+def check_overlay(calls: list) -> dict:
+    """K4 on the light-sphere composite with the most live tiles
+    (bit-equal to its plain version)."""
+    import torch
+
+    from bibim_tpu_torch.ops import fused
+
+    args, kw, _ = max(calls, key=lambda c: int(c[0][7]))
     got = fused.overlay_tiles(*args, **kw)
     want = fused.overlay_tiles_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -241,14 +290,228 @@ def check_kernels(calls: dict) -> dict:
     changed = int((got != args[9]).any(dim=0).sum())
     if changed == 0:
         raise AssertionError("K4 composited no pixel")
-    res["overlay"] = dict(max_abs_err=0.0, live_slots=int(args[7]),
-                          pixels_changed=changed,
-                          ms=cuda_ms(lambda: fused.overlay_tiles(*args,
-                                                                 **kw)),
-                          plain_ms=cuda_ms(
-                              lambda: fused.overlay_tiles_plain(*args,
-                                                                **kw)))
+    return dict(max_abs_err=0.0, live_slots=int(args[7]),
+                pixels_changed=changed,
+                ms=cuda_ms(lambda: fused.overlay_tiles(*args, **kw)),
+                plain_ms=cuda_ms(lambda: fused.overlay_tiles_plain(*args,
+                                                                   **kw)))
+
+
+def check_kernels(calls: dict) -> dict:
+    """K1-K4 vs their plain versions on the 1080p frames' own inputs."""
+    import torch
+
+    from bibim_tpu_torch.ops.shading import shade_sampled, shade_sampled_plain
+
+    res = {"sort": check_sorts(calls["sort"]),
+           # K1: the main raster pass of the first frame.
+           "raster": check_raster(calls["raster"][0])}
+
+    # K2: the first frame's sampled shade, with its normal-map toggle
+    # (off, as on the headline frame) and with the normal map on; then
+    # with a seeded [0, 1] shadow visibility plane on light 0 (the
+    # shadows-without-IBL path).
+    args, kw, _ = calls["shade"][0]
+    errs = []
+    for nm in (args[9], torch.ones_like(args[9])):
+        a2 = args[:9] + (nm,) + args[10:]
+        got = shade_sampled(*a2, **kw)
+        want = shade_sampled_plain(*a2, **kw)
+        torch.cuda.synchronize()
+        errs.append(assert_shade_close(got, want, "K2"))
+    gen = torch.Generator(device=args[1].device).manual_seed(SEED)
+    vis = torch.rand(args[1].shape, generator=gen, device=args[1].device)
+    kw_vis = dict(kw, vis_plane=vis, vis_light=0)
+    got = shade_sampled(*args, **kw_vis)
+    want = shade_sampled_plain(*args, **kw_vis)
+    torch.cuda.synchronize()
+    vis_err = assert_shade_close(got, want, "K2 with visibility")
+    if torch.equal(got[0], shade_sampled(*args, **kw)[0]):
+        raise AssertionError("K2: the visibility plane changed nothing")
+    res["shade"] = dict(max_abs_err=max(errs + [vis_err]),
+                        vis_max_abs_err=vis_err,
+                        pixels=int(args[1].numel()),
+                        ms=cuda_ms(lambda: shade_sampled(*args, **kw)),
+                        plain_ms=cuda_ms(
+                            lambda: shade_sampled_plain(*args, **kw)),
+                        vis_ms=cuda_ms(lambda: shade_sampled(*args,
+                                                             **kw_vis)),
+                        vis_plain_ms=cuda_ms(
+                            lambda: shade_sampled_plain(*args, **kw_vis)))
+
+    res["overlay"] = check_overlay(calls["overlay"])
     return res
+
+
+def check_kernels_c5(calls: dict) -> dict:
+    """K1 (main and shadow pass), K3, K4, K5, K6 and K7 vs their plain
+    versions on the config-5 frames' own inputs."""
+    import torch
+
+    from bibim_tpu_torch.ops import texture_quad as tq
+    from bibim_tpu_torch.ops.shading import shade_tonemap, shade_tonemap_plain
+
+    shadow = shadow_fields()
+    res = {
+        "raster": check_raster(next(
+            c for c in calls["raster"] if tuple(c[0][11]) != shadow)),
+        "raster_shadow_pass": check_raster(next(
+            c for c in calls["raster"] if tuple(c[0][11]) == shadow)),
+        "sort": check_sorts(calls["sort"]),
+        "overlay": check_overlay(calls["overlay"]),
+    }
+    # K5 as the frame calls it (IBL ambient, shadow visibility, no
+    # quantize, no tonemap), and with fp16 + tone map on.
+    args, kw, _ = calls["shade_gbuffer"][0]
+    got = shade_tonemap(*args, **kw)
+    want = shade_tonemap_plain(*args, **kw)
+    torch.cuda.synchronize()
+    errs = [assert_shade_close(got, want, "K5", rel=True)]
+    kw_tm = dict(kw, quantize=True, tonemap=True)
+    got = shade_tonemap(*args, **kw_tm)
+    want = shade_tonemap_plain(*args, **kw_tm)
+    torch.cuda.synchronize()
+    errs.append(assert_shade_close(got, want, "K5 quantize+tonemap"))
+    res["shade_gbuffer"] = dict(
+        max_abs_err=max(errs), pixels=int(args[3].numel()),
+        vis=kw.get("vis_plane") is not None,
+        ambient=kw.get("ambient") is not None,
+        ms=cuda_ms(lambda: shade_tonemap(*args, **kw)),
+        plain_ms=cuda_ms(lambda: shade_tonemap_plain(*args, **kw)))
+
+    # K6 and K7: bit-equal to their plain versions.
+    for name, kern, plain in (
+            ("sample_block", tq.sample_table_block_kernel,
+             tq.sample_table_block),
+            ("sample_small", tq.sample_table_small,
+             tq.sample_table_small_plain)):
+        args, kw, _ = calls[name][0]
+        got = kern(*args, **kw)
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        for slot in want:
+            if not torch.equal(got[slot], want[slot]):
+                err = float((got[slot] - want[slot]).abs().max())
+                raise AssertionError(f"{name} slot {slot} differs from the "
+                                     f"plain version by {err}")
+        res[name] = dict(max_abs_err=0.0, pixels=int(args[1].numel()),
+                         table=[type(args[0]).__name__, args[0].height,
+                                args[0].width, len(args[0].present)],
+                         ms=cuda_ms(lambda: kern(*args, **kw)),
+                         plain_ms=cuda_ms(lambda: plain(*args, **kw)))
+    return res
+
+
+def check_frame(i: int, out, cov, ref, shape, what: str) -> str:
+    """Image type, zero drops, coverage, not background, golden bound
+    against the all-plain render; returns a summary."""
+    import torch
+
+    from bibim_tpu_torch.utils.validation import check_bin_diag
+
+    img = out["image"]
+    if tuple(img.shape) != shape or img.dtype != torch.uint8:
+        raise AssertionError(f"{what} frame {i}: image {tuple(img.shape)} "
+                             f"{img.dtype}")
+    check_bin_diag(out["bin_diag"], where=f"{what} frame {i}")
+    covered = float(cov.float().mean())
+    if not covered > 0.0:
+        raise AssertionError(f"{what} frame {i}: no pixel covered")
+    non_bg = float((img != 0).any(dim=-1).float().mean())
+    if not non_bg > 0.0:
+        raise AssertionError(f"{what} frame {i}: image is all background")
+    assert_golden_bound(img, ref, f"{what} frame {i} vs the plain render")
+    same = float((img == ref).all(dim=-1).float().mean())
+    return (f"covered {covered:.4f} of main-pass tile pixels, "
+            f"non-background {non_bg:.4f}, identical to plain {same:.6f}")
+
+
+def run_config5(dev, smi: str, name: str):
+    """The shadows + IBL path: kernel phases, then the counted frames."""
+    import torch
+
+    from bibim_tpu_torch.ops import fused
+    from bibim_tpu_torch.ops import texture_quad as tq
+    from bibim_tpu_torch.ops.ibl import make_ibl_sh
+    from bibim_tpu_torch.ops.shading import shade_sampled, shade_tonemap
+    from bibim_tpu_torch.ops.sort import sort_keys
+    from bibim_tpu_torch.pipeline import KERNELS, PLAIN, render_frame
+
+    scene, mats, overlay, proj, fp, settings = build_inputs(
+        dev, C5_WIDTH, C5_HEIGHT, C5_CAPS, enable_shadows=True,
+        shadow_fit_batches=(0,), enable_ibl=True)
+    ibl = make_ibl_sh(device=dev)
+    print(f"config-5 frame: {C5_WIDTH}x{C5_HEIGHT}, shadows (map "
+          f"{settings.shadow_size}², fit to batch 0), analytic IBL "
+          "(procedural sky), light spheres on, gizmo off")
+    print("config-5 capacities: " + json.dumps(C5_CAPS))
+
+    calls: dict = {}
+    for yaw in C5_YAWS:
+        render_frame(scene, view_block(yaw, proj, dev), fp, mats, overlay,
+                     settings, ibl=ibl,
+                     kernels=capture_kernels(KERNELS, calls))
+    torch.cuda.synchronize()
+    kres = check_kernels_c5(calls)
+    for k, v in kres.items():
+        print(f"kernel {k}: " + json.dumps(v))
+    del calls
+
+    vbs = [view_block(y, proj, dev) for y in C5_YAWS]
+    counters = (fused.raster_tiles, shade_sampled, sort_keys,
+                fused.overlay_tiles, shade_tonemap,
+                tq.sample_table_block_kernel, tq.sample_rows_small)
+    shadow = shadow_fields()
+    for fn in counters:
+        fn.launches = 0
+    cover: list = []
+    shadow_launches = [0]
+
+    def raster_counted(*args, **kw):
+        before = fused.raster_tiles.launches
+        zk, f = KERNELS.raster(*args, **kw)
+        if tuple(args[11]) == shadow:
+            shadow_launches[0] += fused.raster_tiles.launches - before
+        else:
+            cover.append(f[args[11].index("idf")] >= 0.5)
+        return zk, f
+
+    counted = KERNELS._replace(raster=raster_counted)
+    outs, frame_ms = [], []
+    for vb in vbs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = render_frame(scene, vb, fp, mats, overlay, settings, ibl=ibl,
+                           kernels=counted)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append((out, cover[0]))
+        cover.clear()
+    launches = {"raster": fused.raster_tiles.launches - shadow_launches[0],
+                "raster_shadow_pass": shadow_launches[0],
+                "shade": shade_sampled.launches,
+                "sort": sort_keys.launches,
+                "overlay": fused.overlay_tiles.launches,
+                "shade_gbuffer": shade_tonemap.launches,
+                "sample_block": tq.sample_table_block_kernel.launches,
+                "sample_small": tq.sample_rows_small.launches}
+    print("config-5 main-path launches: " + json.dumps(launches))
+    for k, n in launches.items():
+        if n <= 0 and k != "shade":
+            raise AssertionError(f"kernel {k} was not launched by the "
+                                 "config-5 frame")
+
+    for i, ((out, cov), vb) in enumerate(zip(outs, vbs)):
+        ref = render_frame(scene, vb, fp, mats, overlay, settings, ibl=ibl,
+                           kernels=PLAIN)["image"]
+        summary = check_frame(i, out, cov, ref, (C5_HEIGHT, C5_WIDTH, 3),
+                              "config-5")
+        print(f"config-5 frame {i}: yaw {C5_YAWS[i]}, {frame_ms[i]:.2f} ms, "
+              + summary)
+    print(f"config-5 frame time median: {statistics.median(frame_ms):.2f} "
+          f"ms (host clock around render_frame + synchronize, {name}, "
+          f"{smi})")
+    return kres, launches
 
 
 def main() -> int:
@@ -267,7 +530,6 @@ def main() -> int:
         from bibim_tpu_torch.ops.shading import shade_sampled
         from bibim_tpu_torch.ops.sort import sort_keys
         from bibim_tpu_torch.pipeline import KERNELS, PLAIN, render_frame
-        from bibim_tpu_torch.utils.validation import check_bin_diag
     except ImportError as e:
         print(f"chip_smoke: the bibim_tpu_torch package is not importable "
               f"({e}); run from the repository root", file=sys.stderr)
@@ -338,33 +600,30 @@ def main() -> int:
             raise AssertionError(f"kernel {k} was not launched by the frame")
 
     for i, ((out, cov), vb) in enumerate(zip(outs, vbs)):
-        img = out["image"]
-        if tuple(img.shape) != (HEIGHT, WIDTH, 3) or img.dtype != torch.uint8:
-            raise AssertionError(f"frame {i}: image {tuple(img.shape)} "
-                                 f"{img.dtype}")
-        check_bin_diag(out["bin_diag"], where=f"frame {i}")
-        covered = float(cov.float().mean())
-        if not covered > 0.0:
-            raise AssertionError(f"frame {i}: no pixel covered")
-        non_bg = float((img != 0).any(dim=-1).float().mean())
-        if not non_bg > 0.0:
-            raise AssertionError(f"frame {i}: image is all background")
         ref = render_frame(scene, vb, fp, mats, overlay, settings,
                            kernels=PLAIN)["image"]
-        assert_golden_bound(img, ref, f"frame {i} vs the plain render")
-        same = float((img == ref).all(dim=-1).float().mean())
-        print(f"frame {i}: yaw {YAWS[i]}, {frame_ms[i]:.2f} ms, covered "
-              f"{covered:.4f} of main-pass tile pixels, non-background "
-              f"{non_bg:.4f}, identical to plain {same:.6f}")
+        summary = check_frame(i, out, cov, ref, (HEIGHT, WIDTH, 3), "1080p")
+        print(f"frame {i}: yaw {YAWS[i]}, {frame_ms[i]:.2f} ms, " + summary)
     print(f"frame time median: {statistics.median(frame_ms):.2f} ms "
           f"(host clock around render_frame + synchronize, {name}, {smi})")
+    del outs
 
+    kres5, launches5 = run_config5(dev, smi, name)
+
+    # One row per kernel and path: K1-K4 on the 1080p path, then every
+    # kernel the config-5 path runs (K1 twice: main and shadow pass).
+    rows = [(k, KERNEL_INFO[k][0] + ", 1080p", kres[k], launches[k])
+            for k in kres]
+    rows += [(k, KERNEL_INFO[k][0] + ", config-5 4K", kres5[k],
+              launches5[k]) for k in kres5 if k in KERNEL_INFO]
+    rows.append(("raster", KERNEL_INFO["raster"][0]
+                 + ", config-5 shadow pass", kres5["raster_shadow_pass"],
+                 launches5["raster_shadow_pass"]))
     kernels = []
-    for k in ("raster", "shade", "sort", "overlay"):
-        label, src, repl = KERNEL_INFO[k]
-        r = kres[k]
+    for k, label, r, n in rows:
+        _, src, repl = KERNEL_INFO[k]
         kernels.append({"name": label, "route": "cuda", "source": src,
-                        "replaces": repl, "launches": launches[k],
+                        "replaces": repl, "launches": n,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"]})
     print(smi)

@@ -15,7 +15,12 @@ import torch
 from bibim_tpu_torch import math3d as m3
 from bibim_tpu_torch.ops import fused, sort
 from bibim_tpu_torch.ops import texture_quad as tq
-from bibim_tpu_torch.ops.shading import shade_sampled, shade_sampled_plain
+from bibim_tpu_torch.ops.shading import (
+    shade_sampled,
+    shade_sampled_plain,
+    shade_tonemap,
+    shade_tonemap_plain,
+)
 from bibim_tpu_torch.pipeline import (
     KERNELS,
     PLAIN,
@@ -137,33 +142,119 @@ def test_raster_kernel_bit_equal(dev, frame, kw):
             assert torch.equal(x, y)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("deferred", [True, False])
-def test_shade_kernel_matches_plain(dev, frame, deferred):
-    _, _, _, mats = frame
-    lights = shaderball_lights(dev)
-    gen = torch.Generator().manual_seed(5)
+def _planes(dev, seed, shape=(10, 1024)):
+    gen = torch.Generator().manual_seed(seed)
 
     def p(lo, hi):
-        return (lo + (hi - lo) * torch.rand((10, 1024), generator=gen)).to(
-            dev)
+        return (lo + (hi - lo) * torch.rand(shape, generator=gen)).to(dev)
 
+    return p
+
+
+def _assert_close_rel(got, want):
+    """tests/test_shading_pallas.py _assert_close_rel."""
+    for g, w in zip(got, want):
+        diff = ((g - w).abs() / (1.0 + w.abs())).cpu().numpy()
+        assert (diff > 5e-5).mean() < 1e-3 and diff.max() < 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deferred,with_vis", [
+    (True, False), (False, False), (True, True), (False, True),
+], ids=["deferred", "forward", "deferred_vis", "forward_vis"])
+def test_shade_kernel_matches_plain(dev, frame, deferred, with_vis):
+    _, _, _, mats = frame
+    lights = shaderball_lights(dev)
+    p = _planes(dev, 5)
     u, v = p(-2, 3), p(-2, 3)
     world = (p(-5, 5), p(-5, 5), p(-5, 5))
     normal = (p(-1, 1), p(-1, 1), p(-1, 1))
     tangent = (p(-1, 1), p(-1, 1), p(-1, 1))
     valid = p(0, 1) > 0.3
+    vis = dict(vis_plane=p(0, 1), vis_light=0) if with_vis else {}
     for nm in (0, 1):
         args = (mats, u, v, world, normal, tangent, valid, lights,
                 torch.tensor([0.0, 1.0, -3.0], device=dev),
                 torch.tensor(nm, device=dev))
-        got = shade_sampled(*args, gbuffer_mode=deferred, quantize=deferred)
+        got = shade_sampled(*args, gbuffer_mode=deferred, quantize=deferred,
+                            **vis)
         want = shade_sampled_plain(*args, gbuffer_mode=deferred,
-                                   quantize=deferred)
+                                   quantize=deferred, **vis)
         torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            diff = ((g - w).abs() / (1.0 + w.abs())).cpu().numpy()
-            assert (diff > 5e-5).mean() < 1e-3 and diff.max() < 2e-3
+        _assert_close_rel(got, want)
+        if with_vis:
+            plain = shade_sampled(*args, gbuffer_mode=deferred,
+                                  quantize=deferred)
+            assert not torch.equal(got[0], plain[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(), dict(vis=True), dict(ambient=True), dict(vis=True, ambient=True),
+    dict(quantize=False, tonemap=False, vis=True, ambient=True),
+    dict(no_lights=True),
+], ids=["defaults", "vis", "ambient", "vis_ambient", "frame_options",
+        "no_lights"])
+def test_gbuffer_shade_kernel_matches_plain(dev, kw):
+    p = _planes(dev, 7, (10, 1000))
+    lights = shaderball_lights(dev)
+    if kw.get("no_lights"):
+        lights = lights._replace(**{f: getattr(lights, f)[:0]
+                                    for f in lights._fields})
+    world = (p(-5, 5), p(-5, 5), p(-5, 5))
+    normal = (p(-1, 1), p(-1, 1), p(-1, 1))
+    albedo = (p(0, 1), p(0, 1), p(0, 1))
+    args = (world, normal, albedo, p(0, 1), p(0.05, 1), p(0, 1),
+            p(0, 1) > 0.3, lights, torch.tensor([0.0, 1.0, -3.0], device=dev),
+            torch.tensor(1, device=dev), torch.tensor(1.3, device=dev))
+    opts = dict(quantize=kw.get("quantize", True),
+                tonemap=kw.get("tonemap", True))
+    if kw.get("vis"):
+        opts.update(vis_plane=p(0, 1), vis_light=1)
+    if kw.get("ambient"):
+        opts["ambient"] = (p(0, 0.2), p(0, 0.2), p(0, 0.2))
+    before = shade_tonemap.launches
+    got = shade_tonemap(*args, **opts)
+    want = shade_tonemap_plain(*args, **opts)
+    torch.cuda.synchronize()
+    assert shade_tonemap.launches == before + 1
+    _assert_close_rel(got, want)
+
+
+@pytest.mark.cuda
+def test_sample_kernels_bit_equal(dev, frame):
+    """K6 (block table) and K7 (quad table) equal their plain versions,
+    and sample_material routes to them."""
+    _, _, _, mats = frame
+    p = _planes(dev, 9, (12, 1024))
+    u, v = p(-2, 3), p(-2, 3)
+    block = next(t for t in mats if isinstance(t, tq.BlockTable))
+    quad = next(t for t in mats if isinstance(t, tq.QuadTable))
+    for kern, plain, table in (
+            (tq.sample_table_block_kernel, tq.sample_table_block, block),
+            (tq.sample_table_small, tq.sample_table_small_plain, quad)):
+        got, want = kern(table, u, v), plain(table, u, v)
+        torch.cuda.synchronize()
+        assert set(got) == set(want) == set(table.present)
+        for slot in want:
+            assert torch.equal(got[slot], want[slot]), slot
+    before = (tq.sample_table_block_kernel.launches,
+              tq.sample_rows_small.launches)
+    routed = tq.sample_material(mats, u, v, KERNELS)
+    plain = tq.sample_material(mats, u, v, PLAIN)
+    assert (tq.sample_table_block_kernel.launches,
+            tq.sample_rows_small.launches) == (before[0] + 1, before[1] + 1)
+    for slot in tq.SLOTS:
+        assert torch.equal(routed[slot], plain[slot]), slot
+    # A row index outside the table samples 0, as the one-hot select does.
+    idx = torch.tensor([[-1, 0, quad.quads.shape[0]]], dtype=torch.int32,
+                       device=dev)
+    t = torch.full((1, 3), 0.25, device=dev)
+    got = tq.sample_rows_small(quad.quads, idx, t, t, quad.present)
+    want = tq.sample_rows_small_plain(quad.quads, idx, t, t, quad.present)
+    for slot in want:
+        assert torch.equal(got[slot], want[slot])
+        assert float(got[slot][0, 0]) == 0.0 == float(got[slot][0, 2])
 
 
 @pytest.mark.cuda
@@ -190,20 +281,33 @@ def test_overlay_kernel_bit_equal(dev, frame):
 
 
 @pytest.mark.cuda
-def test_frame_kernels_vs_plain(dev, frame):
+@pytest.mark.parametrize("stretch", [
+    dict(),
+    dict(enable_shadows=True, shadow_fit_batches=(0,), shadow_size=512,
+         shadow_tile_cap=256, shadow_query_tile_cap=120),
+    dict(enable_ibl=True),
+    dict(enable_shadows=True, shadow_fit_batches=(0,), enable_ibl=True),
+], ids=["deferred", "shadows", "ibl", "shadows_ibl"])
+def test_frame_kernels_vs_plain(dev, frame, stretch):
+    from bibim_tpu_torch.ops.ibl import make_ibl_sh
+
     scene, vb, fp, mats = frame
     overlay = make_overlay_resources(dev, with_gizmo=False)
     s = RenderSettings(width=W, height=H, outputs="image+diag",
                        show_gizmo=False, max_candidates=256,
                        live_tile_cap=120, raster_tile_cap=128,
-                       span_mid_cap=1024)
-    counts = [f.launches for f in (fused.raster_tiles, shade_sampled,
-                                   sort.sort_keys, fused.overlay_tiles)]
-    out = render_frame(scene, vb, fp, mats, overlay, s)
-    ref = render_frame(scene, vb, fp, mats, overlay, s, kernels=PLAIN)
+                       span_mid_cap=1024, **stretch)
+    ibl = make_ibl_sh(device=dev)
+    kernel_fns = [fused.raster_tiles, sort.sort_keys, fused.overlay_tiles]
+    kernel_fns += ([shade_tonemap, tq.sample_table_block_kernel,
+                    tq.sample_rows_small] if s.enable_ibl
+                   else [shade_sampled])
+    counts = [f.launches for f in kernel_fns]
+    out = render_frame(scene, vb, fp, mats, overlay, s, ibl=ibl)
+    ref = render_frame(scene, vb, fp, mats, overlay, s, ibl=ibl,
+                       kernels=PLAIN)
     torch.cuda.synchronize()
-    after = [f.launches for f in (fused.raster_tiles, shade_sampled,
-                                  sort.sort_keys, fused.overlay_tiles)]
+    after = [f.launches for f in kernel_fns]
     assert all(a > b for a, b in zip(after, counts))
     for k in range(4):
         assert int(out["bin_diag"][k]) == 0

@@ -21,6 +21,16 @@ TILE_H, TILE_W = 8, 128
 TX = W // TILE_W
 NT = (H // TILE_H) * TX
 
+# Settings of the whole-frame comparisons (tests/test_torch_frame.py and
+# the shadow / IBL frames).
+FRAME_BASE = dict(width=W, height=H, max_candidates=512, overflow_cap=64,
+                  span_cap=64, xla_cap=2048, gizmo_extent=40)
+# The shadow map of the stretch frames is fit to the sphere (batch 0), as
+# BASELINE config 5 fits it to the ball: a map spread over the 100× plane
+# puts the sphere's self-shadow test within an ulp of its own depth, where
+# XLA:CPU's fused FMAs flip PCF taps (ROADMAP queue 3).
+SHADOWS = dict(enable_shadows=True, shadow_size=256, shadow_fit_batches=(0,))
+
 
 def cap_threads() -> None:
     """Several test workers share the machine with JAX."""
@@ -104,3 +114,87 @@ def ulps(a, b) -> np.ndarray:
     ia = np.where(ia < 0, (-(1 << 31)) - ia, ia)
     ib = np.where(ib < 0, (-(1 << 31)) - ib, ib)
     return np.abs(ia - ib)
+
+
+def assert_image_bound(got, want, frac_max=2.5e-3):
+    """The golden-image bound (≤2 LSB, tests/test_goldens.py) with room
+    for XLA:CPU's FMA contraction: the JAX reference fuses a*b+c, the port
+    rounds each operation, which moves ~0.04-0.11% of this frame's pixels
+    by one LSB (measured); 0.25% bounds that."""
+    d = np.abs(np.asarray(got).astype(int) - np.asarray(want).astype(int))
+    frac = (d > 0).any(axis=-1).mean()
+    assert d.max() <= 2, d.max()
+    assert frac <= frac_max, frac
+
+
+def frame_inputs():
+    """((JAX scene, view block, frame params, tables, overlay), the same
+    carried into the port): the test scene, seeded maps, light spheres and
+    a cube standing in for gizmo.obj."""
+    import jax.numpy as jnp
+
+    from bibim_tpu.assets.meshgen import (
+        generate_cube_mesh,
+        generate_uv_sphere_mesh,
+    )
+    from bibim_tpu.ops import texture_quad as jtq
+    from bibim_tpu.pipeline import framegraph as jfg
+    from bibim_tpu_torch import interop
+
+    cap_threads()
+    scene, view, proj = jax_scene()
+    mats = jtq.build_quad_tables(material_maps(), block_threshold=1024)
+    sphere = generate_uv_sphere_mesh(0.1, 16, 16)
+    cube = generate_cube_mesh(1.0)  # stands in for gizmo.obj
+    overlay = jfg.OverlayResources(
+        sphere_positions=jnp.asarray(sphere.positions),
+        sphere_tris=jnp.asarray(sphere.indices),
+        gizmo_positions=jnp.asarray(cube.positions),
+        gizmo_normals=jnp.asarray(cube.normals),
+        gizmo_colors=jnp.asarray(np.abs(cube.normals)),
+        gizmo_tris=jnp.asarray(cube.indices))
+    vb = jfg.ViewBlock(view=view, proj=proj, view_pos=jnp.zeros(3),
+                       enable_normal_map=jnp.int32(1))
+    fp = jfg.FrameParams(enable_tone_mapping=jnp.int32(1),
+                         exposure=jnp.float32(1.0))
+    port = (interop.scene_data(scene), interop.view_block(vb),
+            interop.frame_params(fp), interop.material_tables(mats),
+            interop.overlay_resources(overlay))
+    return (scene, vb, fp, mats, overlay), port
+
+
+def port_frame(inputs, ibl=None, **kw):
+    """The port's render_frame of :func:`frame_inputs` at FRAME_BASE."""
+    from bibim_tpu_torch.pipeline import RenderSettings, render_frame
+
+    _, pin = inputs
+    return render_frame(*pin, RenderSettings(**{**FRAME_BASE, **kw}),
+                        ibl=ibl)
+
+
+def check_stretch_frame(inputs, kw: dict, jibl=None) -> None:
+    """A deferred frame with shadows and/or IBL (``kw``; ``jibl`` the JAX
+    package's probe) against the JAX package's render_frame: the plain
+    chain ("full"), and the production path — the shadow pass on K1, PCF
+    compacted to the frustum footprint, K2 with the visibility plane or
+    K6/K7 sampling + IBL ambient + K5 — with compacted capacities, zero
+    drops, at the image bound."""
+    from bibim_tpu.pipeline import framegraph as jfg
+    from bibim_tpu_torch import interop
+    from bibim_tpu_torch.utils.validation import check_bin_diag
+
+    jin, _ = inputs
+    want_img = np.asarray(jfg.render_frame(
+        *jin, jfg.RenderSettings(outputs="image", **FRAME_BASE, **kw),
+        ibl=jibl)["image"])
+    pibl = interop.ibl(jibl) if jibl is not None else None
+    full = port_frame(inputs, ibl=pibl, outputs="full", **kw)
+    assert_image_bound(full["image"].numpy(), want_img)
+    prod = port_frame(inputs, ibl=pibl, outputs="image+diag",
+                      max_candidates=64, raster_passes=3, live_tile_cap=31,
+                      raster_tile_cap=32, shadow_tile_cap=64,
+                      shadow_query_tile_cap=24, **kw)
+    check_bin_diag(prod["bin_diag"])
+    assert_image_bound(prod["image"].numpy(), want_img)
+    baseline = port_frame(inputs, outputs="image")["image"].numpy()
+    assert not np.array_equal(prod["image"].numpy(), baseline)
