@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 SOURCES = ("raster.cu", "overlay.cu", "shade.cu", "sort.cu",
-           "gbuffer_shade.cu", "sample.cu")
+           "gbuffer_shade.cu", "sample.cu", "mip_sample.cu")
 HEADERS = ("common.cuh", "shading.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,19 +44,26 @@ MAX_TILE_PIXELS = 256 * 8
 
 
 class Groups(ctypes.Structure):
-    """Mirror of ``ShadeGroups`` in csrc/shade.cu (sampling groups of K2)."""
+    """Mirror of ``ShadeGroups`` in csrc/shading.cuh (sampling groups of
+    K2)."""
 
     MAX_GROUPS = 4
+    # kind: BLOCK/QUAD sample at (u, v); MIP_BLOCK and ROUTED_QUAD read
+    # per-pixel planes gi (int32) / gf (float32).
+    BLOCK, QUAD, MIP_BLOCK, ROUTED_QUAD = range(4)
     _fields_ = [
         ("n", ctypes.c_int),
-        ("kind", ctypes.c_int * 4),  # 0 block table, 1 quad table
+        ("kind", ctypes.c_int * 4),
         ("tab", ctypes.c_void_p * 4),
+        ("rows", ctypes.c_int * 4),
         ("row_bytes", ctypes.c_int * 4),
         ("h", ctypes.c_int * 4),
         ("w", ctypes.c_int * 4),
         ("cpad", ctypes.c_int * 4),
         ("n_present", ctypes.c_int * 4),
         ("slot", (ctypes.c_int * 10) * 4),
+        ("gi", ctypes.c_void_p * 4),
+        ("gf", ctypes.c_void_p * 4),
     ]
 
 
@@ -168,6 +175,9 @@ def _declare(lib) -> None:
         "bb_sample_block": [p, i, i, i, i, i, p, p, i, p, p],
         # quads, rows, cpad, n_out, idx, tx, ty, n, out, stream
         "bb_sample_small": [p, i, i, i, p, p, p, i, p, p],
+        # blocks, row_bytes, cs, int planes (5, n), float planes (5, n),
+        # n, out, stream
+        "bb_sample_mip_block": [p, i, i, p, p, i, p, p],
         "bb_sort_i32": [p, i, p],
         "bb_sort_i64": [p, i, p],
     }

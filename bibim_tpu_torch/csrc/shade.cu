@@ -14,8 +14,11 @@
 // (~265 MB at 1080p) because Mosaic cannot gather per pixel; here each
 // thread reads its row by index ((y0/4)*nbx + x0/4) straight from the
 // table, and the one-hot MXU select of the small table becomes a direct
-// 16-byte row read (shading.cuh sample_group). Tone mapping stays outside
-// (torch ops), as in the reference.
+// 16-byte row read (shading.cuh sample_group). Trilinear mip bindings
+// (config 2) add two group kinds fed by per-pixel planes computed as torch
+// ops: the mip-block row with the 41-tap blend K8 runs (40 more bytes of
+// geometry per pixel) and material-routed small-table rows (12 bytes).
+// Tone mapping stays outside (torch ops), as in the reference.
 #include "shading.cuh"
 
 namespace bb {
@@ -40,7 +43,7 @@ shade_kernel(ShadeGroups g, const float* __restrict__ u,
 #pragma unroll
   for (int k = 0; k < N_SLOTS; ++k) slots[k] = 0.f;
   const float uu = u[i], vv = v[i];
-  for (int gi = 0; gi < g.n; ++gi) sample_group(g, gi, uu, vv, slots);
+  for (int gi = 0; gi < g.n; ++gi) sample_group(g, gi, i, n, uu, vv, slots);
 
   // Normal map (gbuffer.frag): N = TBN * (2*tap - 1), B = cross(N, T).
   const float nrm[3] = {nx[i], ny[i], nz[i]};

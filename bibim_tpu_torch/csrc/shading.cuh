@@ -1,13 +1,13 @@
 // Device code shared by the sampled shade (K2, shade.cu), the G-buffer shade
-// (K5, gbuffer_shade.cu) and the standalone samplers (K6 / K7, sample.cu):
-// the bilinear footprint and texel blends of the material tables, and the
-// GGX light loop.
+// (K5, gbuffer_shade.cu) and the standalone samplers (K6 / K7, sample.cu;
+// K8, mip_sample.cu): the bilinear footprint and texel blends of the
+// material tables, the trilinear mip-block blend, and the GGX light loop.
 //
 // Semantics are the reference's (bibim_tpu/ops/texture_quad.py _footprint,
-// _blend, block_blend_acc; bibim_tpu/ops/shading_pallas.py _ggx_light_sum),
-// operation for operation. The library is compiled with -fmad=false, so
-// every a*b+c rounds the product and the sum separately, as the plain
-// PyTorch versions do.
+// _blend, block_blend_acc, mip_block_blend_acc;
+// bibim_tpu/ops/shading_pallas.py _ggx_light_sum), operation for operation.
+// The library is compiled with -fmad=false, so every a*b+c rounds the
+// product and the sum separately, as the plain PyTorch versions do.
 #pragma once
 
 #include <cuda_fp16.h>
@@ -24,17 +24,24 @@ constexpr float INV255 = (float)(1.0 / 255.0);
 
 }  // namespace bb
 
-// Mirror of bibim_tpu_torch._build.Groups.
+// Mirror of bibim_tpu_torch._build.Groups. Kinds: 0 block table and 1 quad
+// table (footprint from u, v in the kernel); 2 mip-block table (per-pixel
+// geometry planes gi = idx, lx, ly, pxi, pyi and gf = tx, ty, tx2, ty2,
+// frac, texture_quad._mip_block_geometry); 3 material-routed quad rows
+// (gi = row index, gf = tx, ty). Plane k of gi/gf starts at k * n.
 struct ShadeGroups {
   int n;
-  int kind[bb::MAX_GROUPS];  // 0 block table, 1 quad table
+  int kind[bb::MAX_GROUPS];
   const uint8_t* tab[bb::MAX_GROUPS];
+  int rows[bb::MAX_GROUPS];
   int row_bytes[bb::MAX_GROUPS];
   int h[bb::MAX_GROUPS];
   int w[bb::MAX_GROUPS];
-  int cpad[bb::MAX_GROUPS];
+  int cpad[bb::MAX_GROUPS];  // channel stride (len(present) for kind 2)
   int n_present[bb::MAX_GROUPS];
   int slot[bb::MAX_GROUPS][bb::N_SLOTS];
+  const int* gi[bb::MAX_GROUPS];
+  const float* gf[bb::MAX_GROUPS];
 };
 
 namespace bb {
@@ -110,14 +117,89 @@ __device__ __forceinline__ float blend_quad(const uint8_t* row, int k,
   return top * omty + bot * ty;
 }
 
-// Bilinear samples of one size group into the slot array.
-__device__ inline void sample_group(const ShadeGroups& g, int gi, float u,
-                                    float v, float* slots) {
-  const int h = g.h[gi], w = g.w[gi], cpad = g.cpad[gi];
+// Footprint of one pixel in a mip-block row (texture_quad._mip_block_geometry).
+struct MipGeom {
+  int lx, ly, pxi, pyi;
+  float tx, ty, tx2, ty2, frac;
+};
+
+// Pixel i of the (5, n) geometry stacks (texture_quad.mip_geometry_planes);
+// returns the block row index.
+__device__ __forceinline__ int load_mip_geom(const int* gi, const float* gf,
+                                             int i, int n, MipGeom* g) {
+  g->lx = gi[n + i];
+  g->ly = gi[2 * n + i];
+  g->pxi = gi[3 * n + i];
+  g->pyi = gi[4 * n + i];
+  g->tx = gf[i];
+  g->ty = gf[n + i];
+  g->tx2 = gf[2 * n + i];
+  g->ty2 = gf[3 * n + i];
+  g->frac = gf[4 * n + i];
+  return gi[i];
+}
+
+// The 41-tap trilinear blend on its 8 live taps. Row layout: 5x5 child taps
+// then 4x4 parent taps, tap-major, channel stride cs. Child taps add in the
+// w00/w01/w10/w11 (row-major) order of the 25-tap sum, whose 21 dead taps
+// add exact zeros; parent taps likewise (a tap outside the stored 4x4
+// window is not in the sum); then own*(1-frac) + par*frac.
+__device__ inline void mip_block_blend(const uint8_t* row, int cs,
+                                       const MipGeom& g, int n_out,
+                                       float* out) {
+  const float omtx = 1.f - g.tx, omty = 1.f - g.ty;
+  const float w00 = omtx * omty, w01 = g.tx * omty;
+  const float w10 = omtx * g.ty, w11 = g.tx * g.ty;
+  const int c00 = (g.ly * 5 + g.lx) * cs, c01 = c00 + cs;
+  const int c10 = c00 + 5 * cs, c11 = c10 + cs;
+  const float omtx2 = 1.f - g.tx2, omty2 = 1.f - g.ty2;
+  const float v00 = omtx2 * omty2, v01 = g.tx2 * omty2;
+  const float v10 = omtx2 * g.ty2, v11 = g.tx2 * g.ty2;
+  const bool x0 = g.pxi < 4, x1 = g.pxi + 1 < 4;
+  const bool y0 = g.pyi < 4, y1 = g.pyi + 1 < 4;
+  const int p00 = (25 + g.pyi * 4 + g.pxi) * cs, p01 = p00 + cs;
+  const int p10 = p00 + 4 * cs, p11 = p10 + cs;
+  const float omfr = 1.f - g.frac;
+  for (int k = 0; k < n_out; ++k) {
+    float own = tap(row, c00 + k) * w00;
+    own = own + tap(row, c01 + k) * w01;
+    own = own + tap(row, c10 + k) * w10;
+    own = own + tap(row, c11 + k) * w11;
+    float par = (x0 && y0) ? tap(row, p00 + k) * v00 : 0.f;
+    par = par + ((x1 && y0) ? tap(row, p01 + k) * v01 : 0.f);
+    par = par + ((x0 && y1) ? tap(row, p10 + k) * v10 : 0.f);
+    par = par + ((x1 && y1) ? tap(row, p11 + k) * v11 : 0.f);
+    out[k] = own * omfr + par * g.frac;
+  }
+}
+
+// Samples of one size group at pixel i (of n) into the slot array.
+__device__ inline void sample_group(const ShadeGroups& g, int gi, int i,
+                                    int n, float u, float v, float* slots) {
+  const int np = g.n_present[gi], cpad = g.cpad[gi];
+  if (g.kind[gi] == 2) {
+    MipGeom geom;
+    const int r = load_mip_geom(g.gi[gi], g.gf[gi], i, n, &geom);
+    float acc[N_SLOTS];
+    mip_block_blend(g.tab[gi] + (size_t)r * g.row_bytes[gi], cpad, geom, np,
+                    acc);
+    for (int k = 0; k < np; ++k) slots[g.slot[gi][k]] = acc[k];
+    return;
+  }
+  if (g.kind[gi] == 3) {
+    // A row outside the table samples 0 (the reference's one-hot select).
+    const int r = g.gi[gi][i];
+    const bool in = r >= 0 && r < g.rows[gi];
+    const uint8_t* row = g.tab[gi] + (size_t)(in ? r : 0) * g.row_bytes[gi];
+    const float tx = g.gf[gi][i], ty = g.gf[gi][n + i];
+    for (int k = 0; k < np; ++k)
+      slots[g.slot[gi][k]] = in ? blend_quad(row, k, cpad, tx, ty) : 0.f;
+    return;
+  }
+  const int h = g.h[gi], w = g.w[gi];
   int x0i, y0i;
   float tx, ty;
   footprint(u, v, h, w, &x0i, &y0i, &tx, &ty);
-  const int np = g.n_present[gi];
   if (g.kind[gi] == 0) {
     const int nbx = w / 4;
     const uint8_t* row =

@@ -66,9 +66,25 @@ def scene_data(scene, device="cpu") -> SceneData:
                      lights=lights(scene.lights, device))
 
 
+def _quad_rows(q, device) -> torch.Tensor:
+    q = np.asarray(q)
+    if q.dtype == np.int32:
+        q = np.ascontiguousarray(q).view(np.uint8)
+    return tensor(q, device)
+
+
+def _static(x):
+    """Nested tuples of Python ints / bools (static table geometry)."""
+    if isinstance(x, (tuple, list)):
+        return tuple(_static(c) for c in x)
+    return bool(x) if isinstance(x, (bool, np.bool_)) else int(x)
+
+
 def material_tables(tables, device="cpu") -> tuple:
-    """QuadTable/BlockTable tuple. Quad rows the JAX package stores as
-    int32 lanes (big tables) come back as their little-endian bytes."""
+    """QuadTable / BlockTable / MipQuadTable / MipQuadMulti / MipBlockMulti
+    tuple, static geometry as Python tuples. Quad rows the JAX package
+    stores as int32 lanes (big tables) come back as their little-endian
+    bytes."""
     out = []
     for t in tables:
         kind = type(t).__name__
@@ -76,11 +92,18 @@ def material_tables(tables, device="cpu") -> tuple:
             out.append(tq.BlockTable(tensor(t.blocks, device), t.height,
                                      t.width, tuple(t.present)))
         elif kind == "QuadTable":
-            q = np.asarray(t.quads)
-            if q.dtype == np.int32:
-                q = np.ascontiguousarray(q).view(np.uint8)
-            out.append(tq.QuadTable(tensor(q, device), t.height, t.width,
-                                    tuple(t.present)))
+            out.append(tq.QuadTable(_quad_rows(t.quads, device), t.height,
+                                    t.width, tuple(t.present)))
+        elif kind in ("MipQuadTable", "MipQuadMulti"):
+            out.append(getattr(tq, kind)(
+                _quad_rows(t.quads, device), _static(t.heights),
+                _static(t.widths), _static(t.offsets), tuple(t.present),
+                bool(t.paired)))
+        elif kind == "MipBlockMulti":
+            out.append(tq.MipBlockMulti(
+                tensor(t.blocks, device), _static(t.heights),
+                _static(t.widths), _static(t.offsets), tuple(t.present),
+                _static(t.last_parent)))
         else:
             raise NotImplementedError(f"material table {kind}")
     return tuple(out)

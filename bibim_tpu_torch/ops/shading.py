@@ -47,17 +47,44 @@ def _light_vis(vis_plane, vis_light: int) -> dict | None:
     return None if vis_plane is None else {vis_light: vis_plane}
 
 
-def shade_sampled_plain(tables, u, v, world, normal, tangent, valid,
-                        lights: Lights, view_pos, enable_normal_map,
-                        gbuffer_mode: bool = True, quantize: bool = True,
-                        vis_plane=None, vis_light: int = -1):
-    """Plain version of K2 → (r, g, b) masked HDR planes."""
+def sampled_groups_supported(tables) -> bool:
+    """True for the bindings K2 samples in-kernel: QuadTable / BlockTable
+    groups (one material), MipBlockMulti and single-level MipQuadMulti
+    groups (merged materials, routed per pixel)."""
+    return len(tables) <= _build.Groups.MAX_GROUPS and all(
+        isinstance(t, (tq.QuadTable, tq.BlockTable, tq.MipBlockMulti))
+        or (isinstance(t, tq.MipQuadMulti)
+            and all(len(h) == 1 for h in t.heights))
+        for t in tables)
+
+
+def _sample_groups_plain(tables, u, v, mat_id, tile_h, tile_w) -> dict:
     slots = {}
     for t in tables:
         if isinstance(t, tq.BlockTable):
             slots.update(tq.sample_table_block(t, u, v))
-        else:
+        elif isinstance(t, tq.QuadTable):
             slots.update(tq.sample_table_small_plain(t, u, v))
+        elif isinstance(t, tq.MipBlockMulti):
+            slots.update(tq.sample_mip_block(t, mat_id, u, v, tile_h,
+                                             tile_w))
+        else:
+            idx, tx, ty = tq.small_footprint_multi(t, mat_id, u, v)
+            slots.update(tq.sample_rows_small_plain(t.quads, idx, tx, ty,
+                                                    t.present))
+    return slots
+
+
+def shade_sampled_plain(tables, u, v, world, normal, tangent, valid,
+                        lights: Lights, view_pos, enable_normal_map,
+                        gbuffer_mode: bool = True, quantize: bool = True,
+                        vis_plane=None, vis_light: int = -1, mat_id=None,
+                        tile_h: int = 8, tile_w: int = 128):
+    """Plain version of K2 → (r, g, b) masked HDR planes."""
+    if not sampled_groups_supported(tables):
+        raise NotImplementedError("shade_sampled: material groups "
+                                  f"{[type(t).__name__ for t in tables]}")
+    slots = _sample_groups_plain(tables, u, v, mat_id, tile_h, tile_w)
     zero = torch.zeros_like(u)
     for s in tq.SLOTS:
         slots.setdefault(s, zero)
@@ -87,38 +114,53 @@ def shade_sampled_plain(tables, u, v, world, normal, tangent, valid,
     return tuple(torch.where(valid, c, zero) for c in hdr)
 
 
-def _groups(tables, device) -> _build.Groups:
-    if len(tables) > _build.Groups.MAX_GROUPS:
-        raise NotImplementedError(
-            f"shade_sampled takes at most {_build.Groups.MAX_GROUPS} "
-            f"material size groups, got {len(tables)}")
-    g = _build.Groups()
+def _groups(tables, u, v, mat_id, tile_h, tile_w) -> tuple:
+    """K2's sampling groups → (Groups, the per-pixel plane tensors it
+    points into, kept alive until the launch)."""
+    G = _build.Groups
+    g = G()
     g.n = len(tables)
+    keep = []
     for k, t in enumerate(tables):
-        tab = t.blocks if isinstance(t, tq.BlockTable) else t.quads
-        if (tab.dtype != torch.uint8 or tab.device != device
-                or not tab.is_contiguous() or tab.ndim != 2):
-            raise ValueError("material tables must be contiguous 2-D uint8 "
-                             f"tensors on {device}")
+        tab = t.blocks if isinstance(t, (tq.BlockTable, tq.MipBlockMulti)) \
+            else t.quads
+        tq._check_table("shade_sampled", tab, u.device)
         cpad = tq._ceil4(len(t.present))
         if isinstance(t, tq.BlockTable):
             if t.height % tq.BLOCK_B or t.width % tq.BLOCK_B:
                 raise ValueError("block tables need B-divisible sizes")
             if tab.shape[1] < 25 * cpad:
                 raise ValueError("block table rows too short")
-            g.kind[k] = 0
+            g.kind[k] = G.BLOCK
+            g.h[k], g.w[k] = t.height, t.width
+        elif isinstance(t, tq.MipBlockMulti):
+            cpad = len(t.present)
+            if tab.shape[1] < tq.MB_TAPS * cpad:
+                raise ValueError("mip block rows too short")
+            g.kind[k] = G.MIP_BLOCK
+            gi, gf = tq.mip_geometry_planes(tq._mip_block_geometry(
+                t, mat_id, u, v, tile_h, tile_w))
         else:
             if tab.shape[1] != 4 * cpad:
                 raise ValueError("quad table rows must hold 4·cpad bytes")
-            g.kind[k] = 1
+            if isinstance(t, tq.QuadTable):
+                g.kind[k] = G.QUAD
+                g.h[k], g.w[k] = t.height, t.width
+            else:
+                g.kind[k] = G.ROUTED_QUAD
+                idx, tx, ty = tq.small_footprint_multi(t, mat_id, u, v)
+                gi = idx.reshape(1, -1).contiguous()
+                gf = torch.stack([tx.reshape(-1), ty.reshape(-1)])
+        if g.kind[k] in (G.MIP_BLOCK, G.ROUTED_QUAD):
+            g.gi[k], g.gf[k] = gi.data_ptr(), gf.data_ptr()
+            keep += [gi, gf]
         g.tab[k] = tab.data_ptr()
-        g.row_bytes[k] = tab.shape[1]
-        g.h[k], g.w[k] = t.height, t.width
+        g.rows[k], g.row_bytes[k] = tab.shape
         g.cpad[k] = cpad
         g.n_present[k] = len(t.present)
         for j, s in enumerate(t.present):
             g.slot[k][j] = tq.SLOTS.index(s)
-    return g
+    return g, keep
 
 
 def _check_planes(fn: str, names, planes, valid, shape, dev) -> None:
@@ -141,12 +183,14 @@ def _optional_ptr(t):
 def shade_sampled(tables, u, v, world, normal, tangent, valid,
                   lights: Lights, view_pos, enable_normal_map,
                   gbuffer_mode: bool = True, quantize: bool = True,
-                  vis_plane=None, vis_light: int = -1):
-    """K2 wrapper. ``tables``: tuple of QuadTable/BlockTable; pixel args
-    (NT, NPX) float32 planes, ``valid`` bool; ``view_pos`` (3,) float32;
-    ``enable_normal_map`` a 0-dim int tensor; ``vis_plane`` an optional
-    [0, 1] plane scaling the radiance of light ``vis_light``. Returns
-    (r, g, b)."""
+                  vis_plane=None, vis_light: int = -1, mat_id=None,
+                  tile_h: int = 8, tile_w: int = 128):
+    """K2 wrapper. ``tables``: a binding :func:`sampled_groups_supported`
+    accepts; pixel args (NT, tile_h·tile_w) float32 planes, ``valid``
+    bool; ``view_pos`` (3,) float32; ``enable_normal_map`` a 0-dim int
+    tensor; ``vis_plane`` an optional [0, 1] plane scaling the radiance of
+    light ``vis_light``; ``mat_id`` the int32 material-id plane that
+    routes merged mip groups (None: material 0). Returns (r, g, b)."""
     dev = u.device
     shape = u.shape
     planes = [u, v, *world, *normal, *tangent]
@@ -155,14 +199,23 @@ def shade_sampled(tables, u, v, world, normal, tangent, valid,
         planes.append(vis_plane)
         names.append("vis")
     _check_planes("shade_sampled", names, planes, valid, shape, dev)
+    tq._check_mat("shade_sampled", mat_id, u)
+    if not sampled_groups_supported(tables):
+        raise NotImplementedError("shade_sampled: material groups "
+                                  f"{[type(t).__name__ for t in tables]}")
+    if any(isinstance(t, tq.MipBlockMulti) for t in tables) and (
+            u.ndim != 2 or u.shape[1] != tile_h * tile_w):
+        raise ValueError("shade_sampled: mip groups need (NT, "
+                         "tile_h·tile_w) tiled planes")
     if dev.type == "cpu":
         return shade_sampled_plain(tables, u, v, world, normal, tangent,
                                    valid, lights, view_pos,
                                    enable_normal_map, gbuffer_mode, quantize,
-                                   vis_plane, vis_light)
+                                   vis_plane, vis_light, mat_id, tile_h,
+                                   tile_w)
     if dev.type != "cuda":
         raise RuntimeError(f"shade_sampled: unsupported device {dev}")
-    groups = _groups(tables, dev)
+    groups, keep = _groups(tables, u, v, mat_id, tile_h, tile_w)
     lparams = pack_lights(lights, vis_light)
     vp = view_pos.to(device=dev, dtype=torch.float32).reshape(3).contiguous()
     nm = enable_normal_map.to(device=dev, dtype=torch.int32).reshape(

@@ -1,5 +1,6 @@
 """The frame function (port of ``bibim_tpu.pipeline.framegraph``, the
-deferred PBR branch with shadows and IBL).
+deferred PBR branch with shadows, IBL, trilinear mip bindings with
+per-batch material routing, and the G-buffer views).
 
 Stages of :func:`render_frame`:
 
@@ -11,11 +12,14 @@ Stages of :func:`render_frame`:
    shadow map's grid, depth plane only) and the screen-side PCF
    visibility of the shadow-casting light (``ops.shadow``);
 5. shading, either
-   - without IBL: the sampled shade (K2) — materials, normal map, fp16
+   - without IBL: the sampled shade (K2) — materials (block, quad,
+     mip-block and material-routed small groups), normal map, fp16
      G-buffer, GGX with the visibility plane; or
-   - with IBL: the G-buffer planes sampled through the block-table (K6)
-     and small-table (K7) samplers, the split-sum IBL ambient
-     (``ops.ibl``) and the G-buffer shade (K5);
+   - with IBL, a G-buffer view, or a binding K2 cannot sample: the
+     G-buffer planes sampled through the block-table (K6), small-table
+     (K7) and mip-block (K8) samplers, then the split-sum IBL ambient
+     (``ops.ibl``) and the G-buffer shade (K5), or for a G-buffer view
+     the raw planes as HDR;
    then the fp16 HDR round trip and the exposure tone map as torch ops;
 6. scatter-back, light spheres through the overlay composite (K4, depth
    tested against the scene's keys), the corner gizmo (K1 in its own
@@ -23,8 +27,7 @@ Stages of :func:`render_frame`:
 
 Settings outside this slice (forward lighting, pair sampling and pair
 visibility, anisotropic taps, early-z and the other raster schedule
-variants, HUD, TBN, G-buffer visualization, flat main-frame shading) raise
-NotImplementedError.
+variants, HUD, TBN, flat main-frame shading) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from bibim_tpu_torch.ops.ibl import ibl_ambient
 from bibim_tpu_torch.ops.raster import triangle_setup, triangle_setup_planar
 from bibim_tpu_torch.ops.shading import (
     q16,
+    sampled_groups_supported,
     shade_sampled,
     shade_sampled_plain,
     shade_tonemap,
@@ -173,18 +177,29 @@ class Kernels(NamedTuple):
     shade: Callable  # K2
     shade_gbuffer: Callable  # K5
     sample_block: Callable  # K6: (BlockTable, u, v) → slot planes
-    sample_small: Callable  # K7: (QuadTable, u, v) → slot planes
+    # K7: (quads, idx, tx, ty, present) → slot planes
+    sample_small: Callable
+    # K8: (MipBlockMulti, mat_id, u, v, tile_h, tile_w) → slot planes
+    sample_mip_block: Callable
 
 
 # The kernel wrappers (CUDA kernels for CUDA tensors) ...
 KERNELS = Kernels(fused.raster_tiles, fused.overlay_tiles,
                   sort_ops.sort_keys, shade_sampled, shade_tonemap,
-                  tq.sample_table_block_kernel, tq.sample_table_small)
+                  tq.sample_table_block_kernel, tq.sample_rows_small,
+                  tq.sample_mip_block_kernel)
 # ... and their plain PyTorch versions on any device (reference renders).
 PLAIN = Kernels(fused.raster_tiles_plain, fused.overlay_tiles_plain,
                 sort_ops.sort_keys_plain, shade_sampled_plain,
                 shade_tonemap_plain, tq.sample_table_block,
-                tq.sample_table_small_plain)
+                tq.sample_rows_small_plain, tq.sample_mip_block)
+
+_TABLES = (tq.QuadTable, tq.BlockTable)
+_MIP_TABLES = (tq.MipBlockMulti, tq.MipQuadMulti)
+
+
+def _is_mip_binding(materials) -> bool:
+    return isinstance(materials[0], _MIP_TABLES)
 
 
 def check_supported(settings: RenderSettings, materials) -> None:
@@ -193,8 +208,6 @@ def check_supported(settings: RenderSettings, materials) -> None:
     checks = [
         (not s.deferred, "deferred=False (forward lighting)"),
         (s.shading != "pbr", f"shading={s.shading!r}"),
-        (s.gbuffer_viz != GBufferViz.RENDERED_SCENE,
-         f"gbuffer_viz={s.gbuffer_viz!r}"),
         (s.show_tbn, "show_tbn"),
         (s.show_hud, "show_hud"),
         (s.aniso_taps != 1, f"aniso_taps={s.aniso_taps}"),
@@ -208,24 +221,30 @@ def check_supported(settings: RenderSettings, materials) -> None:
         (s.raster != "auto", f"raster={s.raster!r}"),
         (s.geometry == "legacy", "geometry='legacy'"),
         (not s.sequential_tris, "sequential_tris=False"),
-        (s.batch_material_ids is not None, "batch_material_ids"),
         (s.outputs not in ("image", "image+diag", "full"),
          f"outputs={s.outputs!r}"),
     ]
     bad = [msg for cond, msg in checks if cond]
-    if not (isinstance(materials, tuple) and materials and all(
-            isinstance(t, (tq.QuadTable, tq.BlockTable)) for t in materials)):
-        bad.append("materials other than a tuple of QuadTable/BlockTable")
+    if not (isinstance(materials, tuple) and materials and (
+            all(isinstance(t, _TABLES) for t in materials)
+            or all(isinstance(t, _MIP_TABLES) for t in materials))):
+        bad.append("materials other than a tuple of QuadTable/BlockTable "
+                   "or of MipBlockMulti/MipQuadMulti")
     if bad:
         raise NotImplementedError(
             "not in the ported frame slice: " + ", ".join(bad))
 
 
 def _prunable_fields(settings: RenderSettings) -> tuple:
-    """Raster output planes the production frame never reads."""
-    if settings.outputs == "full":
+    """Raster output planes the production frame never reads: none for
+    "full" or a G-buffer view; the material-id plane only without
+    per-batch material ids."""
+    if (settings.outputs == "full"
+            or settings.gbuffer_viz != GBufferViz.RENDERED_SCENE):
         return ()
-    return ("depth", "b0", "b1", "cr", "cg", "cb", "matf")
+    drop = ("depth", "b0", "b1", "cr", "cg", "cb")
+    return drop if settings.batch_material_ids is not None \
+        else drop + ("matf",)
 
 
 def _raster(rec, setup, width, height, settings: RenderSettings,
@@ -287,10 +306,17 @@ def _tile_diag(dropped, device) -> fused.BinDiag:
 def _materialize_gbuffer_planes(px, materials, view_block,
                                 settings: RenderSettings,
                                 kernels: Kernels | None = None):
-    """G-buffer planes: material samples (through ``kernels``' K6/K7, or
-    the plain XLA-order samplers with None) + normal map + mask + fp16."""
+    """G-buffer planes: material samples (through ``kernels``' K6/K7/K8,
+    or the plain XLA-order samplers with None; mip bindings routed per
+    pixel by the material-id plane) + normal map + mask + fp16."""
     valid = px.tri_id >= 0
-    slots = tq.sample_material(materials, px.uv[0], px.uv[1], kernels)
+    u, v = px.uv
+    if _is_mip_binding(materials):
+        slots = tq.sample_material_mips_multi(
+            materials, px.mat_id, u, v, settings.tile_h, settings.tile_w,
+            kernels)
+    else:
+        slots = tq.sample_material(materials, u, v, kernels)
     albedo = (slots["alb_r"], slots["alb_g"], slots["alb_b"])
     nmap = (slots["nrm_x"], slots["nrm_y"], slots["nrm_z"])
     normal = apply_normal_map(px.normal, px.tangent, nmap,
@@ -583,8 +609,9 @@ def render_frame(scene: SceneData, view_block: ViewBlock,
 
     nt_full = px.tri_id.shape[0]
     compact_ids = None
+    viz = settings.gbuffer_viz != GBufferViz.RENDERED_SCENE
     can_compact = (settings.live_tile_cap is not None
-                   and settings.live_tile_cap < nt_full)
+                   and settings.live_tile_cap < nt_full and not viz)
     if can_compact:
         live = (px.tri_id >= 0).any(dim=1)
         if settings.outputs == "full":
@@ -616,36 +643,48 @@ def render_frame(scene: SceneData, view_block: ViewBlock,
 
     ldr3 = None
     production = settings.outputs != "full"
-    if production and not settings.enable_ibl:
+    if (production and not settings.enable_ibl and not viz
+            and sampled_groups_supported(materials)):
         hdr3 = kernels.shade(
             materials, px.uv[0], px.uv[1], px.world, px.normal, px.tangent,
             valid, scene.lights, view_block.view_pos,
             view_block.enable_normal_map, gbuffer_mode=True,
             quantize=settings.quantize_fp16,
             vis_plane=_vis_plane(light_vis, settings),
-            vis_light=settings.shadow_light)
+            vis_light=settings.shadow_light, mat_id=px.mat_id,
+            tile_h=settings.tile_h, tile_w=settings.tile_w)
     else:
-        # The production frame samples through K6/K7 and shades on K5;
+        # The production frame samples through K6/K7/K8 and shades on K5;
         # "full" keeps the plain chain.
         sampling = kernels if production else None
         g_pos, g_nrm, g_alb, g_mrah, valid = _materialize_gbuffer_planes(
             px, materials, view_block, settings, sampling)
         zero = torch.zeros_like(px.depth)
         ambient = None
-        if settings.enable_ibl and ibl is not None:
+        if settings.enable_ibl and ibl is not None and not viz:
             view_dir = tuple(view_block.view_pos[c] - g_pos[c]
                              for c in range(3))
             ambient = ibl_ambient(ibl, g_nrm, view_dir, g_alb, g_mrah[0],
                                   g_mrah[1], g_mrah[2], sampling)
             ambient = tuple(torch.where(valid, a, zero) for a in ambient)
-        if production:
+        if viz:
+            # buffer_visualize.frag: the raw G-buffer rgb is the HDR
+            # target (no lighting); MATERIAL_INDEX is gbuffer.frag's
+            # placeholder.
+            hdr3 = {
+                GBufferViz.POSITION: g_pos, GBufferViz.NORMAL: g_nrm,
+                GBufferViz.ALBEDO: g_alb, GBufferViz.MRHA: g_mrah[:3],
+                GBufferViz.MATERIAL_INDEX: (torch.where(valid, 1.0, 0.0),
+                                            zero, zero),
+            }[settings.gbuffer_viz]
+        elif production:
             ldr3 = _pbr_ldr_fused(g_pos, g_nrm, g_alb, g_mrah, valid,
                                   scene.lights, view_block, frame_params,
                                   settings, kernels, light_vis, ambient)
         else:
             hdr3 = _pbr_hdr(g_pos, g_nrm, g_alb, g_mrah, valid,
                             scene.lights, view_block, light_vis, ambient)
-
+        if not production:
             def img3(planes):
                 return torch.stack([_untile(c, settings) for c in planes],
                                    -1)

@@ -1,7 +1,8 @@
-"""Procedural meshes the port's own scenes use: the unit ground plane and
-the UV sphere (numpy; same vertex order, UVs, winding and per-face tangent
-pass as ``bibim_tpu.assets.meshgen``). Kept in the port so that a frame
-built from these meshes loads no module of the JAX package."""
+"""Procedural meshes the port's own scenes use: the unit ground plane, the
+UV sphere and the textured cube (numpy; same vertex order, UVs, winding
+and per-face tangent pass as ``bibim_tpu.assets.meshgen``). Kept in the
+port so that a frame built from these meshes loads no module of the JAX
+package."""
 
 from __future__ import annotations
 
@@ -34,6 +35,37 @@ def generate_plane_mesh() -> Mesh:
         tangents=np.asarray([(1, 0, 0)] * 4, f32),
         indices=np.asarray([(0, 1, 2), (2, 3, 0)], np.int32),
     )
+
+
+def generate_cube_mesh(size: float = 1.0) -> Mesh:
+    """Axis-aligned cube of edge ``size``: 6 faces × 4 vertices with
+    per-face UVs, normals and tangents (the face's u axis), 2 triangles per
+    face wound clockwise in the y-down framebuffer seen from outside."""
+    h = 0.5 * size
+    f32 = np.float32
+    # (normal, u axis, v axis) per face: front (-Z, toward the default
+    # camera), back, left, right, top, bottom.
+    axes = [((0, 0, -1), (1, 0, 0), (0, 1, 0)),
+            ((0, 0, 1), (-1, 0, 0), (0, 1, 0)),
+            ((-1, 0, 0), (0, 0, -1), (0, 1, 0)),
+            ((1, 0, 0), (0, 0, 1), (0, 1, 0)),
+            ((0, 1, 0), (1, 0, 0), (0, 0, 1)),
+            ((0, -1, 0), (1, 0, 0), (0, 0, -1))]
+    pos, nrm, tan, idx = [], [], [], []
+    for fi, (n, u, v) in enumerate(axes):
+        n, u, v = (np.asarray(a, f32) for a in (n, u, v))
+        c = n * h
+        pos += [c - u * h - v * h, c - u * h + v * h, c + u * h + v * h,
+                c + u * h - v * h]
+        nrm += [n] * 4
+        tan += [u] * 4
+        b = 4 * fi
+        idx += [(b, b + 1, b + 2), (b + 2, b + 3, b)]
+    return Mesh(positions=np.asarray(pos, f32),
+                uvs=np.tile(np.asarray([(0, 1), (0, 0), (1, 0), (1, 1)], f32),
+                            (6, 1)),
+                normals=np.asarray(nrm, f32), tangents=np.asarray(tan, f32),
+                indices=np.asarray(idx, np.int32))
 
 
 def generate_uv_sphere_mesh(radius: float, horizontal_division: int,

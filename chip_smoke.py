@@ -3,7 +3,7 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It
 
-1. builds the seven CUDA kernels from ``bibim_tpu_torch/csrc`` (into
+1. builds the eight CUDA kernels from ``bibim_tpu_torch/csrc`` (into
    ``build/``, one nvcc per source in parallel) and prints the build time;
 2. builds the frames from repository-only inputs: the ShaderBall scene's
    structure (100× ground plane at y=-10, the three ShaderBall lights, the
@@ -25,10 +25,19 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    their plain versions on that path's inputs and times both; renders 3
    frames with the counters reset just before, the shadow pass's K1
    launches counted apart;
-5. checks, on every frame, zero capacity drops (shadow pass included),
+5. the 1280×720 textured-cube path (BASELINE config 2: two cubes,
+   trilinear mip-block albedos from seeded 1024² / 2048² stand-ins, two
+   materials routed by batch): renders the bench frame at three camera
+   positions and the ALBEDO and MRHA G-buffer views of the first; checks
+   K1, K3, K2 with the mip-block and routed small groups, K8 mip-block and
+   K7 (routed rows) against their plain versions on that path's inputs
+   (K2 and K8 bit-equal) and times both; renders the five frames again
+   with the counters reset just before, and prints per view a histogram of
+   the selected mip level and the share of pixels blending two levels;
+6. checks, on every frame, zero capacity drops (shadow pass included),
    coverage, that the image is not background, and the frame against the
    all-plain render of the same frame at the golden-image bound;
-6. prints the GPU's ``nvidia-smi`` name/power-limit line, one JSON line of
+7. prints the GPU's ``nvidia-smi`` name/power-limit line, one JSON line of
    kernel results and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is non-zero. Without a GPU, or without
@@ -69,6 +78,24 @@ C5_CAPS = dict(
     overlay_max_tiles=1024, shadow_size=1024, shadow_candidates=256,
     shadow_passes=1, shadow_tile_cap=1024,
 )
+# BASELINE config 2 (bench.py bench_cube): two textured cubes, trilinear
+# mip-block albedos, materials by batch, 1280x720, no light spheres or
+# gizmo. Seeded stand-ins for uv_debug.png / texture.jpg (not in the
+# repository), powers of two like the reference's assets.
+C2_WIDTH, C2_HEIGHT = 1280, 720
+C2_ALBEDOS = (1024, 2048)
+# Camera z: the bench's view, then pulled back along the view axis until
+# levels >= 3 are selected (the cubes sit at z = 3).
+C2_CAMERA_Z = (0.0, -6.0, -24.0)
+C2_VIEWS = ("ALBEDO", "MRHA")
+# Explicit capacities: at z = 0 the main pass has 264 live and 248
+# covered tiles of 900, at most 4 candidates per tile (4 overflow
+# triangles); fewer further back.
+C2_CAPS = dict(
+    max_candidates=64, raster_passes=1, overflow_cap=64, span_cap=16,
+    span_mid_cap=1024, pair_budget=262144, live_tile_cap=384,
+    raster_tile_cap=384,
+)
 KERNEL_INFO = {
     "raster": ("K1 raster", "bibim_tpu_torch/csrc/raster.cu",
                "bibim_tpu/ops/fused.py:670"),
@@ -87,6 +114,9 @@ KERNEL_INFO = {
     "sample_small": ("K7 small-table sample",
                      "bibim_tpu_torch/csrc/sample.cu",
                      "bibim_tpu/ops/texture_quad.py:754"),
+    "sample_mip_block": ("K8 mip-block sample",
+                         "bibim_tpu_torch/csrc/mip_sample.cu",
+                         "bibim_tpu/ops/texture_quad.py:1743"),
 }
 
 
@@ -380,26 +410,35 @@ def check_kernels_c5(calls: dict) -> dict:
         plain_ms=cuda_ms(lambda: shade_tonemap_plain(*args, **kw)))
 
     # K6 and K7: bit-equal to their plain versions.
-    for name, kern, plain in (
-            ("sample_block", tq.sample_table_block_kernel,
-             tq.sample_table_block),
-            ("sample_small", tq.sample_table_small,
-             tq.sample_table_small_plain)):
-        args, kw, _ = calls[name][0]
-        got = kern(*args, **kw)
-        want = plain(*args, **kw)
-        torch.cuda.synchronize()
-        for slot in want:
-            if not torch.equal(got[slot], want[slot]):
-                err = float((got[slot] - want[slot]).abs().max())
-                raise AssertionError(f"{name} slot {slot} differs from the "
-                                     f"plain version by {err}")
-        res[name] = dict(max_abs_err=0.0, pixels=int(args[1].numel()),
-                         table=[type(args[0]).__name__, args[0].height,
-                                args[0].width, len(args[0].present)],
-                         ms=cuda_ms(lambda: kern(*args, **kw)),
-                         plain_ms=cuda_ms(lambda: plain(*args, **kw)))
+    res["sample_block"] = check_sampler(
+        calls["sample_block"][0], tq.sample_table_block_kernel,
+        tq.sample_table_block, "sample_block")
+    res["sample_small"] = check_sampler(
+        calls["sample_small"][0], tq.sample_rows_small,
+        tq.sample_rows_small_plain, "sample_small")
     return res
+
+
+def check_sampler(call, kern, plain, name: str) -> dict:
+    """A sampler kernel (K6, K7, K8) on one captured call: every slot
+    plane bit-equal to its plain version; both timed."""
+    import torch
+
+    args, kw, _ = call
+    got = kern(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    for slot in want:
+        if not torch.equal(got[slot], want[slot]):
+            err = float((got[slot] - want[slot]).abs().max())
+            raise AssertionError(f"{name} slot {slot} differs from the "
+                                 f"plain version by {err}")
+    plane = next(iter(want.values()))
+    table = args[0] if isinstance(args[0], torch.Tensor) else args[0][0]
+    return dict(max_abs_err=0.0, pixels=int(plane.numel()),
+                table=list(table.shape), slots=len(want),
+                ms=cuda_ms(lambda: kern(*args, **kw)),
+                plain_ms=cuda_ms(lambda: plain(*args, **kw)))
 
 
 def check_frame(i: int, out, cov, ref, shape, what: str) -> str:
@@ -514,6 +553,215 @@ def run_config5(dev, smi: str, name: str):
     return kres, launches
 
 
+def cube_inputs(dev, caps=C2_CAPS):
+    """Config 2: CubeScene, the cube binding from seeded stand-in albedos,
+    the bench's settings (two materials by batch, no light spheres, no
+    gizmo) with explicit capacities."""
+    import torch
+
+    from bibim_tpu_torch import math3d as m3
+    from bibim_tpu_torch.pipeline import FrameParams, RenderSettings
+    from bibim_tpu_torch.scene.cube import (
+        CubeScene,
+        cube_material_tables,
+        seeded_albedos,
+    )
+
+    scene = CubeScene(device=dev)
+    mats = cube_material_tables(seeded_albedos(SEED, C2_ALBEDOS), device=dev)
+    proj = m3.perspective(60.0, C2_WIDTH / C2_HEIGHT, 0.1, 1000.0,
+                          device=dev)
+    fp = FrameParams(
+        enable_tone_mapping=torch.tensor(1, dtype=torch.int32, device=dev),
+        exposure=torch.tensor(1.0, dtype=torch.float32, device=dev))
+    settings = RenderSettings(width=C2_WIDTH, height=C2_HEIGHT,
+                              outputs="image+diag", show_gizmo=False,
+                              show_lights=False,
+                              batch_material_ids=scene.material_ids, **caps)
+    return scene.scene_data(), mats, proj, fp, settings
+
+
+def cube_view(z: float, proj, dev):
+    """The default camera moved to (0, 0, z) along its view axis."""
+    import numpy as np
+    import torch
+
+    from bibim_tpu_torch.pipeline import ViewBlock
+    from bibim_tpu_torch.scene.camera import FreeLookCamera
+
+    cam = FreeLookCamera(pos=np.asarray([0.0, 0.0, z], np.float32))
+    return ViewBlock(
+        view=torch.as_tensor(cam.get_view_matrix(), device=dev),
+        proj=proj,
+        view_pos=torch.as_tensor(cam.pos, device=dev),
+        enable_normal_map=torch.tensor(0, dtype=torch.int32, device=dev))
+
+
+def c2_frames(settings, proj, dev) -> list:
+    """(label, view block, settings) of the config-2 path: the bench frame
+    at each camera position, then the G-buffer views of the first."""
+    import dataclasses
+
+    from bibim_tpu_torch.pipeline import GBufferViz
+
+    frames = [(f"view z={z}", cube_view(z, proj, dev), settings)
+              for z in C2_CAMERA_Z]
+    frames += [(f"G-buffer view {v}", frames[0][1], dataclasses.replace(
+        settings, gbuffer_viz=GBufferViz[v])) for v in C2_VIEWS]
+    return frames
+
+
+def level_evidence(table, call) -> dict:
+    """Histogram of the selected level l0 over the covered pixels of one
+    K2 call, and the share of them with 0 < frac < 1."""
+    import torch
+
+    from bibim_tpu_torch.ops import texture_quad as tq
+
+    args, kw = call
+    g = tq._mip_block_geometry(table, kw["mat_id"], args[1], args[2],
+                               kw["tile_h"], kw["tile_w"])
+    valid = args[6]
+    l0, frac = g["l0"][valid], g["frac"][valid]
+    hist = torch.bincount(l0.long()).tolist()
+    return dict(pixels=int(valid.sum()),
+                l0_hist={i: n for i, n in enumerate(hist) if n},
+                blend_share=float(((frac > 0) & (frac < 1)).float().mean()))
+
+
+def check_kernels_c2(calls: dict) -> dict:
+    """K1, K3, K2 with the mip-block and routed small groups, K8 and K7
+    (routed rows) vs their plain versions on the config-2 frames' own
+    inputs; K2 and K8 must be bit-equal."""
+    import torch
+
+    from bibim_tpu_torch.ops import texture_quad as tq
+    from bibim_tpu_torch.ops.shading import shade_sampled, shade_sampled_plain
+
+    res = {"raster": check_raster(calls["raster"][0]),
+           "sort": check_sorts(calls["sort"])}
+    for args, kw, _ in calls["shade"]:
+        got = shade_sampled(*args, **kw)
+        want = shade_sampled_plain(*args, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            raise AssertionError(f"K2 with mip groups differs from its "
+                                 f"plain version by {err}")
+    args, kw, _ = calls["shade"][0]
+    res["shade"] = dict(
+        max_abs_err=0.0, calls=len(calls["shade"]),
+        pixels=int(args[1].numel()),
+        groups=[type(t).__name__ for t in args[0]],
+        ms=cuda_ms(lambda: shade_sampled(*args, **kw)),
+        plain_ms=cuda_ms(lambda: shade_sampled_plain(*args, **kw)))
+    for call in calls["sample_mip_block"][1:]:
+        check_sampler(call, tq.sample_mip_block_kernel, tq.sample_mip_block,
+                      "K8")
+    res["sample_mip_block"] = check_sampler(
+        calls["sample_mip_block"][0], tq.sample_mip_block_kernel,
+        tq.sample_mip_block, "K8")
+    res["sample_small"] = check_sampler(
+        calls["sample_small"][0], tq.sample_rows_small,
+        tq.sample_rows_small_plain, "K7 routed")
+    return res
+
+
+def run_config2(dev, smi: str, name: str):
+    """The textured-cube trilinear-mip path: kernel phases, then the
+    counted frames with the level evidence."""
+    import torch
+
+    from bibim_tpu_torch.ops import fused
+    from bibim_tpu_torch.ops import texture_quad as tq
+    from bibim_tpu_torch.ops.shading import shade_sampled
+    from bibim_tpu_torch.ops.sort import sort_keys
+    from bibim_tpu_torch.pipeline import KERNELS, PLAIN, render_frame
+
+    t0 = time.perf_counter()
+    scene, mats, proj, fp, settings = cube_inputs(dev)
+    block = mats[0]
+    print(f"config-2 frame: {C2_WIDTH}x{C2_HEIGHT}, 2 cubes, materials by "
+          f"batch {settings.batch_material_ids}, lights "
+          f"{scene.lights.num_lights}, no light spheres, no gizmo; stand-in "
+          f"albedos {C2_ALBEDOS} (seed {SEED}); binding built in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          + json.dumps([[type(t).__name__, list(t[0].shape), t.heights]
+                        for t in mats]))
+    print("config-2 capacities: " + json.dumps(C2_CAPS))
+    frames = c2_frames(settings, proj, dev)
+
+    calls: dict = {}
+    for _, vb, s in frames:
+        render_frame(scene, vb, fp, mats, None, s,
+                     kernels=capture_kernels(KERNELS, calls))
+    torch.cuda.synchronize()
+    kres = check_kernels_c2(calls)
+    for k, v in kres.items():
+        print(f"kernel {k} (config 2): " + json.dumps(v))
+    del calls
+
+    counters = (fused.raster_tiles, sort_keys, shade_sampled,
+                tq.sample_rows_small, tq.sample_mip_block_kernel)
+    for fn in counters:
+        fn.launches = 0
+    cover: list = []
+    shades: list = []
+
+    def raster_cover(*args, **kw):
+        zk, f = KERNELS.raster(*args, **kw)
+        cover.append(f[args[11].index("idf")] >= 0.5)
+        return zk, f
+
+    def shade_kept(*args, **kw):
+        shades.append((args, kw))
+        return KERNELS.shade(*args, **kw)
+
+    counted = KERNELS._replace(raster=raster_cover, shade=shade_kept)
+    outs, frame_ms = [], []
+    for _, vb, s in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = render_frame(scene, vb, fp, mats, None, s, kernels=counted)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append((out, cover[-1]))
+    launches = {"raster": fused.raster_tiles.launches,
+                "sort": sort_keys.launches,
+                "shade": shade_sampled.launches,
+                "sample_small": tq.sample_rows_small.launches,
+                "sample_mip_block": tq.sample_mip_block_kernel.launches}
+    print("config-2 main-path launches: " + json.dumps(launches))
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the "
+                                 "config-2 frames")
+
+    levels = set()
+    blend = []
+    for (label, _, _), shade in zip(frames, shades):
+        ev = level_evidence(block, shade)
+        levels |= set(ev["l0_hist"])
+        blend.append(ev["blend_share"])
+        print(f"config-2 levels, {label}: " + json.dumps(ev))
+    if len(levels) < 3 or not max(blend) > 0.0:
+        raise AssertionError(f"config-2 frames selected levels "
+                             f"{sorted(levels)}, blend shares {blend}: "
+                             "trilinear blending across ≥3 levels not shown")
+
+    for i, ((out, cov), (label, vb, s)) in enumerate(zip(outs, frames)):
+        ref = render_frame(scene, vb, fp, mats, None, s,
+                           kernels=PLAIN)["image"]
+        summary = check_frame(i, out, cov, ref, (C2_HEIGHT, C2_WIDTH, 3),
+                              "config-2")
+        print(f"config-2 frame {i}: {label}, {frame_ms[i]:.2f} ms, "
+              + summary)
+    print(f"config-2 frame time median (views): "
+          f"{statistics.median(frame_ms[:len(C2_CAMERA_Z)]):.2f} ms (host "
+          f"clock around render_frame + synchronize, {name}, {smi})")
+    return kres, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -609,9 +857,11 @@ def main() -> int:
     del outs
 
     kres5, launches5 = run_config5(dev, smi, name)
+    kres2, launches2 = run_config2(dev, smi, name)
 
-    # One row per kernel and path: K1-K4 on the 1080p path, then every
-    # kernel the config-5 path runs (K1 twice: main and shadow pass).
+    # One row per kernel and path: K1-K4 on the 1080p path, every kernel
+    # the config-5 path runs (K1 twice: main and shadow pass), then every
+    # kernel of the config-2 path (K2 with the mip groups, K8, K7 routed).
     rows = [(k, KERNEL_INFO[k][0] + ", 1080p", kres[k], launches[k])
             for k in kres]
     rows += [(k, KERNEL_INFO[k][0] + ", config-5 4K", kres5[k],
@@ -619,6 +869,8 @@ def main() -> int:
     rows.append(("raster", KERNEL_INFO["raster"][0]
                  + ", config-5 shadow pass", kres5["raster_shadow_pass"],
                  launches5["raster_shadow_pass"]))
+    rows += [(k, KERNEL_INFO[k][0] + ", config-2 720p cubes", kres2[k],
+              launches2[k]) for k in kres2]
     kernels = []
     for k, label, r, n in rows:
         _, src, repl = KERNEL_INFO[k]

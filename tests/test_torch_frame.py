@@ -89,16 +89,18 @@ def test_output_modes(inputs):
 
 
 @pytest.mark.parametrize("change", [
-    dict(deferred=False), dict(shading="flat"), dict(gbuffer_viz=1),
+    dict(deferred=False), dict(shading="flat"),
+    # Shadows, IBL, the G-buffer views and per-batch material ids are
+    # ported (deferred); these still raise for the setting beside them
+    # (pair-rate PCF, forward lighting).
+    dict(gbuffer_viz=1, deferred=False),
     dict(show_tbn=True), dict(show_hud=True),
-    # Shadows and IBL are ported; these still raise for the setting
-    # beside them (pair-rate PCF, forward lighting).
     dict(enable_shadows=True, pair_visibility=True),
     dict(enable_ibl=True, deferred=False), dict(pair_visibility=True),
     dict(aniso_taps=2), dict(pair_sampling=2),
     dict(early_z=True), dict(fine_bins=True), dict(group_pair_cap=512),
     dict(merged_coverage=True), dict(raster="xla"),
-    dict(geometry="legacy"), dict(batch_material_ids=(0,)),
+    dict(geometry="legacy"), dict(batch_material_ids=(0, 1), deferred=False),
 ], ids=lambda c: next(iter(c)))
 def test_unsupported_settings_raise(inputs, change):
     with pytest.raises(NotImplementedError):

@@ -257,6 +257,142 @@ def test_sample_kernels_bit_equal(dev, frame):
         assert float(got[slot][0, 0]) == 0.0 == float(got[slot][0, 2])
 
 
+def _smooth_uv(dev, seed, nt=24, e_lo=-3.0, e_hi=9.0, base=256.0):
+    """Tiled (NT, 8·128) uv: a rotated affine map per tile at 2^e texels
+    per pixel of a ``base``² level 0, so the LOD spans the pyramid."""
+    rng = np.random.default_rng(seed)
+    py, px = np.meshgrid(np.arange(8), np.arange(128), indexing="ij")
+    px, py = px.reshape(-1), py.reshape(-1)
+    s = (2.0 ** rng.uniform(e_lo, e_hi, nt) / base)[:, None]
+    ang = rng.uniform(0, 2 * np.pi, nt)[:, None]
+    u = rng.uniform(-2, 2, nt)[:, None] + s * (np.cos(ang) * px
+                                               - np.sin(ang) * py)
+    v = rng.uniform(-2, 2, nt)[:, None] + s * (np.sin(ang) * px
+                                               + np.cos(ang) * py)
+    mat = rng.integers(0, 2, u.shape).astype(np.int32)
+    return tuple(torch.as_tensor(a).to(dev) for a in (
+        u.astype(np.float32), v.astype(np.float32), mat))
+
+
+def _cube_tables(dev, max_levels):
+    """A cube-like binding of two materials: seeded 256² and 128² albedo
+    pyramids (one MipBlockMulti; ``max_levels`` cuts them at a 4-divisible
+    level, leaving no stored last parent) and 4×4 metallic / roughness /
+    ao maps (one routed single-level MipQuadMulti)."""
+    rng = np.random.default_rng(2)
+    mats = []
+    for n in (256, 128):
+        mips = tq.build_mip_pyramid(
+            rng.integers(0, 256, (n, n, 3), dtype=np.uint8), max_levels)
+        maps = {s: [m[:, :, k:k + 1] for m in mips]
+                for k, s in enumerate(("alb_r", "alb_g", "alb_b"))}
+        maps.update({s: [rng.integers(0, 256, (4, 4, 1), dtype=np.uint8)]
+                     for s in ("metallic", "roughness", "ao")})
+        mats.append(tq.build_mip_block_tables(maps, device=dev))
+    return tq.merge_mip_block_materials(tuple(mats))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_levels", [None, 4],
+                         ids=["stored_parent", "true_last_level"])
+def test_mip_block_kernel_bit_equal(dev, max_levels):
+    """K8 equals its plain version on a pyramid with and without a stored
+    last parent, at LODs across every level (the deepest included), and
+    sample_material_mips_multi routes to K8 and K7."""
+    mats = _cube_tables(dev, max_levels)
+    block = mats[0]
+    assert block.last_parent == ((max_levels is None),) * 2
+    u, v, mat = _smooth_uv(dev, 3)
+    before = tq.sample_mip_block_kernel.launches
+    got = tq.sample_mip_block_kernel(block, mat, u, v)
+    want = tq.sample_mip_block(block, mat, u, v)
+    torch.cuda.synchronize()
+    assert tq.sample_mip_block_kernel.launches == before + 1
+    for slot in want:
+        assert torch.equal(got[slot], want[slot]), slot
+    l0 = tq._mip_block_geometry(block, mat, u, v, 8, 128)["l0"]
+    deepest = l0 == torch.tensor([len(h) - 1 for h in block.heights],
+                                 device=dev)[mat.long()]
+    assert len(l0.unique()) == max(len(h) for h in block.heights)
+    assert bool(deepest.any())
+    before = (tq.sample_mip_block_kernel.launches,
+              tq.sample_rows_small.launches)
+    routed = tq.sample_material_mips_multi(mats, mat, u, v, 8, 128, KERNELS)
+    plain = tq.sample_material_mips_multi(mats, mat, u, v, 8, 128, PLAIN)
+    assert (tq.sample_mip_block_kernel.launches,
+            tq.sample_rows_small.launches) == (before[0] + 1, before[1] + 1)
+    for slot in tq.SLOTS:
+        assert torch.equal(routed[slot], plain[slot]), slot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deferred", [True, False],
+                         ids=["deferred", "forward"])
+def test_shade_kernel_mip_groups_bit_equal(dev, deferred):
+    """K2 with the mip-block group and the material-routed small group
+    equals its plain version."""
+    mats = _cube_tables(dev, None)
+    u, v, mat = _smooth_uv(dev, 4, nt=10)
+    p = _planes(dev, 6)
+    world = (p(-5, 5), p(-5, 5), p(-5, 5))
+    normal = (p(-1, 1), p(-1, 1), p(-1, 1))
+    tangent = (p(-1, 1), p(-1, 1), p(-1, 1))
+    valid = p(0, 1) > 0.3
+    for nm in (0, 1):
+        args = (mats, u, v, world, normal, tangent, valid,
+                shaderball_lights(dev),
+                torch.tensor([0.0, 1.0, -3.0], device=dev),
+                torch.tensor(nm, device=dev))
+        kw = dict(gbuffer_mode=deferred, quantize=deferred, mat_id=mat)
+        got = shade_sampled(*args, **kw)
+        want = shade_sampled_plain(*args, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    dict(), dict(gbuffer_viz=2), dict(gbuffer_viz=3), dict(enable_ibl=True),
+], ids=["frame", "albedo_view", "mrha_view", "ibl"])
+def test_cube_frame_kernels_vs_plain(dev, extra):
+    """Config 2's frame (and its G-buffer views, and IBL on its mip
+    binding) through the kernels equals the all-plain render."""
+    from bibim_tpu_torch.ops.ibl import make_ibl_sh
+    from bibim_tpu_torch.scene.cube import CubeScene
+
+    scene = CubeScene(device=dev)
+    mats = _cube_tables(dev, None)
+    cam = FreeLookCamera()
+    vb = ViewBlock(view=torch.as_tensor(cam.get_view_matrix(), device=dev),
+                   proj=m3.perspective(60.0, W / H, 0.1, 1000.0, device=dev),
+                   view_pos=torch.as_tensor(cam.pos, device=dev),
+                   enable_normal_map=torch.tensor(0, device=dev))
+    fp = FrameParams(torch.tensor(1, device=dev),
+                     torch.tensor(1.0, device=dev))
+    s = RenderSettings(width=W, height=H, outputs="image+diag",
+                       show_gizmo=False, show_lights=False,
+                       batch_material_ids=scene.material_ids,
+                       max_candidates=64, live_tile_cap=96,
+                       raster_tile_cap=96, **extra)
+    ibl = make_ibl_sh(device=dev)
+    kernel_fns = [fused.raster_tiles, sort.sort_keys]
+    kernel_fns += ([tq.sample_mip_block_kernel, tq.sample_rows_small]
+                   if s.enable_ibl or s.gbuffer_viz != 5 else [shade_sampled])
+    counts = [f.launches for f in kernel_fns]
+    out = render_frame(scene.scene_data(), vb, fp, mats, None, s, ibl=ibl)
+    ref = render_frame(scene.scene_data(), vb, fp, mats, None, s, ibl=ibl,
+                       kernels=PLAIN)
+    torch.cuda.synchronize()
+    assert all(f.launches > c for f, c in zip(kernel_fns, counts))
+    for k in range(4):
+        assert int(out["bin_diag"][k]) == 0
+    d = (out["image"].int() - ref["image"].int()).abs()
+    assert int(d.max()) <= 2
+    assert float((d > 0).any(dim=-1).float().mean()) <= 1e-3
+    assert float((out["image"] > 0).any(dim=-1).float().mean()) > 0.05
+
+
 @pytest.mark.cuda
 def test_overlay_kernel_bit_equal(dev, frame):
     scene, vb, _, _ = frame

@@ -135,9 +135,9 @@ def test_sample_material_routes(tables, monkeypatch):
             seen.append(("block", t.height * t.width))
             return tq.sample_table_block(t, u, v)
 
-        def sample_small(self, t, u, v):
-            seen.append(("small", t.height * t.width))
-            return tq.sample_table_small_plain(t, u, v)
+        def sample_small(self, quads, idx, tx, ty, present):
+            seen.append(("small", quads.shape[0]))
+            return tq.sample_rows_small_plain(quads, idx, tx, ty, present)
 
     u, v = _uv(8, nt=1)
     real_xla = tq.sample_table_xla

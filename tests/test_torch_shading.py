@@ -70,12 +70,7 @@ def _px(seed):
     )
 
 
-def _assert_close(want, got):
-    """tests/test_shading_pallas.py _assert_close."""
-    for c in range(3):
-        diff = np.abs(np.asarray(want[c]) - np.asarray(got[c]))
-        assert (diff > 5e-5).mean() < 1e-3, diff.max()
-        assert diff.max() < 2e-3, diff.max()
+_assert_close = cases.assert_shade_close
 
 
 def _assert_close_rel(want, got):

@@ -116,6 +116,16 @@ def ulps(a, b) -> np.ndarray:
     return np.abs(ia - ib)
 
 
+def assert_shade_close(want, got):
+    """tests/test_shading_pallas.py _assert_close: ≤0.1 % of values off
+    by more than 5e-5, none by 2e-3 (fp16 rounding boundaries crossed by
+    1-ulp FMA differences)."""
+    for c in range(3):
+        diff = np.abs(np.asarray(want[c]) - np.asarray(got[c]))
+        assert (diff > 5e-5).mean() < 1e-3, diff.max()
+        assert diff.max() < 2e-3, diff.max()
+
+
 def assert_image_bound(got, want, frac_max=2.5e-3):
     """The golden-image bound (≤2 LSB, tests/test_goldens.py) with room
     for XLA:CPU's FMA contraction: the JAX reference fuses a*b+c, the port

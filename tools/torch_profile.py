@@ -2,9 +2,11 @@
 """Profile of the PyTorch/CUDA port's smoke frames on one NVIDIA GPU.
 
 Run from the repository root: ``python3 tools/torch_profile.py``. It takes
-the frames of ``chip_smoke.py`` (same stand-in scene, maps and
+the frames of ``chip_smoke.py`` (same stand-in scenes, maps and
 capacities) with ``outputs="image"``: the 1920×1080 deferred frame
-(config 3) and the 3840×2160 shadows + IBL frame (config 5). Per frame:
+(config 3), the 3840×2160 shadows + IBL frame (config 5) and the
+1280×720 textured-cube frame (config 2, at the bench's camera) and its
+ALBEDO G-buffer view. Per frame:
 
 - 2 warm-up renders, then 6 renders timed on the host clock around
   ``render_frame`` + ``torch.cuda.synchronize()`` (no profiler);
@@ -45,7 +47,7 @@ KERNEL_OF = {
     "raster_kernel": "K1", "shade_kernel": "K2", "local_sort": "K3",
     "global_step": "K3", "local_merge": "K3", "overlay_kernel": "K4",
     "gbuffer_shade_kernel": "K5", "sample_block_kernel": "K6",
-    "sample_small_kernel": "K7",
+    "sample_small_kernel": "K7", "mip_block_kernel": "K8",
 }
 PROBE_CAPS = dict(
     max_candidates=2048, raster_passes=1, overflow_cap=256, span_cap=32,
@@ -57,12 +59,8 @@ C5_EXTRA = dict(enable_shadows=True, shadow_fit_batches=(0,),
                 enable_ibl=True)
 
 
-def profile(label, dev, width, height, caps, extra, ibl, yaws, trace_dir):
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
+def shaderball_frames(dev, width, height, caps, extra, ibl, yaws):
+    """``frame(i)`` rendering the ShaderBall stand-in at yaw i mod n."""
     from bibim_tpu_torch.pipeline import render_frame
 
     scene, mats, overlay, proj, fp, s = cs.build_inputs(
@@ -72,6 +70,29 @@ def profile(label, dev, width, height, caps, extra, ibl, yaws, trace_dir):
 
     def frame(i):
         render_frame(scene, vbs[i % len(vbs)], fp, mats, overlay, s, ibl=ibl)
+
+    return frame
+
+
+def cube_frames(dev, **extra):
+    """``frame(i)`` rendering config 2 at the bench's camera."""
+    from bibim_tpu_torch.pipeline import render_frame
+
+    scene, mats, proj, fp, s = cs.cube_inputs(dev)
+    s = dataclasses.replace(s, outputs="image", **extra)
+    vb = cs.cube_view(cs.C2_CAMERA_Z[0], proj, dev)
+
+    def frame(i):
+        render_frame(scene, vb, fp, mats, None, s)
+
+    return frame
+
+
+def profile(label, frame, trace_dir):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
     for i in range(2):
         frame(i)
@@ -196,11 +217,16 @@ def main() -> int:
     if args.probe:
         probe(dev)
         return 0
-    profile("config3_1080p", dev, cs.WIDTH, cs.HEIGHT, cs.CAPS, {}, None,
-            cs.YAWS, args.trace)
-    profile("config5_4k_shadows_ibl", dev, cs.C5_WIDTH, cs.C5_HEIGHT,
-            cs.C5_CAPS, C5_EXTRA, make_ibl_sh(device=dev), cs.C5_YAWS,
-            args.trace)
+    from bibim_tpu_torch.pipeline import GBufferViz
+
+    profile("config3_1080p", shaderball_frames(
+        dev, cs.WIDTH, cs.HEIGHT, cs.CAPS, {}, None, cs.YAWS), args.trace)
+    profile("config5_4k_shadows_ibl", shaderball_frames(
+        dev, cs.C5_WIDTH, cs.C5_HEIGHT, cs.C5_CAPS, C5_EXTRA,
+        make_ibl_sh(device=dev), cs.C5_YAWS), args.trace)
+    profile("config2_720p_cubes", cube_frames(dev), args.trace)
+    profile("config2_720p_albedo_view",
+            cube_frames(dev, gbuffer_viz=GBufferViz.ALBEDO), args.trace)
     return 0
 
 
