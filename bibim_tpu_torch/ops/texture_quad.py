@@ -139,7 +139,7 @@ def _build_block_table(tex: np.ndarray, h: int, w: int, present: tuple,
 def pack_material_maps(material_set, index: int) -> dict:
     """Slot → uint8 map dict for one material (level 0, per-map default
     fallback)."""
-    from bibim_tpu.assets.materials import PBRMapType
+    from bibim_tpu_torch.assets.materials import PBRMapType
 
     def level0(t):
         return np.asarray(material_set.get_pbr_map_or_default(index, t)[0])

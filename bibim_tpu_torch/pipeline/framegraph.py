@@ -772,8 +772,8 @@ def make_overlay_resources(device="cpu", with_gizmo: bool = True
                            sphere_tris=t(sphere.indices, torch.int32))
     if not with_gizmo:
         return res
-    from bibim_tpu.assets.obj import load_obj
-    from bibim_tpu.utils.config import get_resource_root
+    from bibim_tpu_torch.assets.obj import load_obj
+    from bibim_tpu_torch.utils.config import get_resource_root
 
     gizmo = load_obj(get_resource_root().common("gizmo.obj"))
     colors = (gizmo.colors if gizmo.colors is not None

@@ -106,8 +106,8 @@ def cube_material_tables(albedos, layout: str = "block", device="cpu"):
 def cube_scene_materials(layout: str = "block", device="cpu"):
     """:func:`cube_material_tables` of uv_debug.png and texture.jpg from
     the resource root (``config.toml``)."""
-    from bibim_tpu.assets.image import load_image_rgba8
-    from bibim_tpu.utils.config import get_resource_root
+    from bibim_tpu_torch.assets.image import load_image_rgba8
+    from bibim_tpu_torch.utils.config import get_resource_root
 
     root = get_resource_root()
     return cube_material_tables(

@@ -14,7 +14,8 @@ import numpy as np
 @dataclass
 class Mesh:
     """Indexed triangle mesh: (N,3) positions/normals/tangents, (N,2) uvs,
-    (F,3) int32 indices, optional (N,3) colours."""
+    (F,3) int32 indices, optional (N,3) colours; the loaders in
+    ``assets`` return it too."""
 
     positions: np.ndarray
     uvs: np.ndarray
@@ -22,6 +23,7 @@ class Mesh:
     tangents: np.ndarray
     indices: np.ndarray
     colors: np.ndarray | None = None
+    name: str = ""
 
 
 def generate_plane_mesh() -> Mesh:

@@ -74,8 +74,8 @@ class ShaderBallScene:
     def __post_init__(self):
         import torch
 
-        from bibim_tpu.assets.fbx import load_fbx_mesh
-        from bibim_tpu.utils.config import get_resource_root
+        from bibim_tpu_torch.assets.fbx import load_fbx_mesh
+        from bibim_tpu_torch.utils.config import get_resource_root
 
         self._plane = ground_plane_batch(self.device)
         ball_mesh = load_fbx_mesh(get_resource_root().common("ShaderBall.fbx"))

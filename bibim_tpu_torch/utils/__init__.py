@@ -1,1 +1,2 @@
-"""Utilities of the port (capacity validation)."""
+"""Utilities of the port: capacity validation, the resource root and the
+asset loaders' logging helpers."""
