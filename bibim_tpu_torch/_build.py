@@ -29,7 +29,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 SOURCES = ("raster.cu", "overlay.cu", "shade.cu", "sort.cu",
-           "gbuffer_shade.cu", "sample.cu", "mip_sample.cu")
+           "gbuffer_shade.cu", "sample.cu", "mip_sample.cu",
+           "raster_earlyz.cu", "raster_gw.cu", "raster_fine.cu")
 HEADERS = ("common.cuh", "shading.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,6 +42,10 @@ SORT_BLOCK_ELEMS = 2048
 # Max (pixels per tile / threads per block) the raster and overlay kernels
 # take; must match MAX_PPT in csrc/common.cuh.
 MAX_TILE_PIXELS = 256 * 8
+# Pixels of one group-window block (K10: 1024 threads × MAX_PPT) and the
+# largest group (MAX_GROUP in csrc/raster_gw.cu).
+MAX_GROUP_PIXELS = 1024 * 8
+MAX_GROUP = 8
 
 
 class Groups(ctypes.Structure):
@@ -157,6 +162,22 @@ def _declare(lib) -> None:
         # field mask, zkey out, fields out, stream
         "bb_raster": [p, p, p, i, p, i, p, p, p, p, i, i, i, i, i,
                       ctypes.c_uint, p, p, p],
+        # rec, big_ids, n_big, big_len, pair_tri, pair_len, ids, starts,
+        # counts, init_zkey, init_okey, n_slots, tiles_x, tile_h, tile_w,
+        # rec_stride, field mask, zsh, zkey out, okey out, fields out,
+        # stats (or NULL), stream
+        "bb_raster_earlyz": [p, p, p, i, p, i, p, p, p, p, p, i, i, i, i, i,
+                             ctypes.c_uint, i, p, p, p, p, p],
+        # rec, big_ids, n_big, big_len, pair_tri, pair_len, ids, win,
+        # lb_al, cnt_k, init_zkey, n_slots, group, tiles_x, tile_h, tile_w,
+        # rec_stride, field mask, zkey out, fields out, stream
+        "bb_raster_gw": [p, p, p, i, p, i, p, p, p, p, p, i, i, i, i, i, i,
+                         ctypes.c_uint, p, p, p],
+        # rec, big_ids, n_big, big_len, pair_tri, pair_len, ids, starts,
+        # lb_al, cntk, init_zkey, n_slots, nsub, tiles_x, tile_h, tile_w,
+        # rec_stride, field mask, zkey out, fields out, stream
+        "bb_raster_fine": [p, p, p, i, p, i, p, p, p, p, p, i, i, i, i, i, i,
+                           ctypes.c_uint, p, p, p],
         # rec, big_ids, n_big, big_len, pair_tri, pair_len, ids, starts,
         # counts, n_live, zkey, ldr in/out, n_slots, nt, tiles_x, tile_h,
         # tile_w, rec_stride, stream

@@ -15,41 +15,16 @@
 // per-pixel gather and is not ported: each pixel reads its winner's record
 // (60 floats, L2-resident) by index. Output writes are coalesced (consecutive
 // threads own consecutive pixels).
+//
+// merged_coverage: on the TPU a grid step runs a group of tiles and the
+// merged schedule runs one coverage loop for the whole group, at the
+// group's largest chunk count. Here a block is one tile and loops only to
+// its own count, so that schedule has no counterpart: the driver still
+// orders the slots by chunk class (the reference's slot sort), and the
+// kernel is unchanged.
 #include "common.cuh"
 
 namespace bb {
-
-constexpr int N_FIELDS = 19;  // _OUT_FIELDS
-
-__device__ inline void resolve_fields(const float* r, float px, float py,
-                                      float* v) {
-  if (r == nullptr) {
-    for (int f = 0; f < N_FIELDS; ++f) v[f] = 0.f;
-    return;
-  }
-  const float idf = r[CH_ID];
-  const bool hit = idf >= 0.5f;
-  float e[3], inv;
-  bary(r, px, py, e, &inv);
-  const float b0 = hit ? e[0] * inv : 0.f;
-  const float b1 = hit ? e[1] * inv : 0.f;
-  const float b2 = hit ? e[2] * inv : 0.f;
-  const float zn = plane_eval(r[CH_ZC], r[CH_ZC + 1], r[CH_ZC + 2], px, py);
-  const float wn = plane_eval(r[CH_WC], r[CH_WC + 1], r[CH_WC + 2], px, py);
-  v[0] = hit ? zn * __frcp_rn(wn == 0.f ? 1.f : wn) : 0.f;  // depth
-  v[1] = idf;
-  v[2] = blend3(r, CH_U, b0, b1, b2);
-  v[3] = blend3(r, CH_V, b0, b1, b2);
-  for (int k = 0; k < 3; ++k) {
-    v[4 + k] = blend3(r, CH_N + 3 * k, b0, b1, b2);
-    v[7 + k] = blend3(r, CH_T + 3 * k, b0, b1, b2);
-    v[10 + k] = blend3(r, CH_W + 3 * k, b0, b1, b2);
-    v[13 + k] = blend3(r, CH_COL + 3 * k, b0, b1, b2);
-  }
-  v[16] = r[CH_MAT];
-  v[17] = b0;
-  v[18] = b1;
-}
 
 __global__ void __launch_bounds__(THREADS)
 raster_kernel(const float* __restrict__ rec, int rec_stride,
@@ -81,21 +56,8 @@ raster_kernel(const float* __restrict__ rec, int rec_stride,
   scan_tile(a, px, py, bkey, best, npt, sco, stri);
 
   for (int k = 0; k < npt; ++k) {
-    const int p = threadIdx.x + k * blockDim.x;
-    const size_t o = (size_t)s * npx + p;
-    zkey[o] = bkey[k];
-    float v[N_FIELDS];
-    resolve_fields(best[k] >= 0 ? rec + (size_t)best[k] * rec_stride
-                                : nullptr,
-                   px[k], py[k], v);
-    int slot = 0;
-#pragma unroll
-    for (int f = 0; f < N_FIELDS; ++f) {
-      if ((mask >> f) & 1u) {
-        fields[((size_t)slot * n_slots + s) * npx + p] = v[f];
-        ++slot;
-      }
-    }
+    write_pixel(rec, rec_stride, best[k], bkey[k], px[k], py[k], mask, s,
+                n_slots, npx, threadIdx.x + k * blockDim.x, zkey, fields);
   }
 }
 

@@ -32,7 +32,12 @@ import torch
 
 from bibim_tpu_torch import _build
 from bibim_tpu_torch.ops.raster import PlanarSetup
-from bibim_tpu_torch.ops.sort import sort_keys, sort_pairs
+from bibim_tpu_torch.ops.sort import (
+    sort_keys,
+    sort_pairs,
+    sort_pairs_z,
+    zorder_bits,
+)
 
 CHUNK = 8
 LOW3 = ~7  # clears the 3 low bits of a packed depth key
@@ -52,6 +57,7 @@ _USED = 60
 REC_CH = 64  # row width: 60 used channels padded to 256 bytes
 
 SPAN_DENSE = 2  # dense expansion slots per triangle in span-class binning
+NSUB_FINE = 8  # fine_bins subtiles per coarse tile ((tile_w / 8) × tile_h)
 
 # Kernel output planes beyond the int32 depth-key plane, in kernel order.
 _OUT_FIELDS = (
@@ -160,7 +166,8 @@ class _CornerSoup(NamedTuple):
 def bin_pairs(setup: PlanarSetup, width: int, height: int, tile_h: int,
               tile_w: int, span_cap: int = 16, overflow_cap: int = 64,
               max_candidates: int = 320, pair_budget: int | None = None,
-              span_mid_cap: int | None = None, sort=sort_keys):
+              span_mid_cap: int | None = None, zorder: bool = False,
+              sort=sort_keys):
     """Sort-based sparse binning → per-tile [start, count) windows.
 
     Each triangle expands its bbox tiles into (tile, tri) pair slots; the
@@ -169,7 +176,9 @@ def bin_pairs(setup: PlanarSetup, width: int, height: int, tile_h: int,
     ``span_mid_cap`` enables span-class binning: every triangle expands only
     SPAN_DENSE slots, and the few spanning (SPAN_DENSE, span_cap] tiles go
     through a compacted list of that capacity — same sorted pair set, a
-    smaller sort.
+    smaller sort. ``zorder`` (with ``setup.zub``) orders each tile's pairs
+    near-first by conservative depth bucket (:func:`sort_pairs_z`), the
+    early-z raster's order.
 
     Returns (sorted_tri (P,), starts (NT,), counts (NT,) clamped to
     max_candidates, big_ids (overflow_cap,), n_big (0-dim), diag, tiles_y,
@@ -249,6 +258,12 @@ def bin_pairs(setup: PlanarSetup, width: int, height: int, tile_h: int,
         tri_m = msel[:, None].expand(span_mid_cap, span_cap)
         flat_tile = torch.cat([tile_d.reshape(-1), tile_m.reshape(-1)])
         tri_of_pair = torch.cat([tri_d.reshape(-1), tri_m.reshape(-1)])
+        if zorder and setup.zub is not None:
+            zub_m = torch.where(mvalid, setup.zub[msel],
+                                torch.zeros_like(setup.zub[msel]))
+            flat_zub = torch.cat([
+                setup.zub[None, :].expand(SPAN_DENSE, t).reshape(-1),
+                zub_m[:, None].expand(span_mid_cap, span_cap).reshape(-1)])
         total_mid = torch.where(mid, area, torch.zeros_like(area)).sum(
             dtype=i32)
         dropped_mid = total_mid - area_m.sum(dtype=i32)
@@ -257,6 +272,8 @@ def bin_pairs(setup: PlanarSetup, width: int, height: int, tile_h: int,
                             for k in range(span_cap)])
         flat_tile = tile.reshape(-1)
         tri_of_pair = iota[None, :].expand(span_cap, t).reshape(-1)
+        if zorder and setup.zub is not None:
+            flat_zub = setup.zub[None, :].expand(span_cap, t).reshape(-1)
         neg = torch.where(big, -iota, torch.full_like(iota, neg_fill))
         k_top = min(overflow_cap, t)
         top = torch.topk(neg, k_top).values
@@ -266,9 +283,14 @@ def bin_pairs(setup: PlanarSetup, width: int, height: int, tile_h: int,
                 (overflow_cap - k_top,), -1, dtype=i32, device=dev)])
         n_big = torch.clamp(n_big_all, max=overflow_cap)
 
-    sorted_tile, sorted_tri = sort_pairs(flat_tile.contiguous(),
-                                         tri_of_pair.contiguous(), nt,
-                                         t_count=t, sort=sort)
+    if zorder and setup.zub is not None:
+        sorted_tile, sorted_tri = sort_pairs_z(
+            flat_tile, flat_zub, tri_of_pair, nt, t_count=t,
+            bits=zorder_bits(nt, t), sort=sort)
+    else:
+        sorted_tile, sorted_tri = sort_pairs(flat_tile.contiguous(),
+                                             tri_of_pair.contiguous(), nt,
+                                             t_count=t, sort=sort)
     boundaries = torch.searchsorted(
         sorted_tile, torch.arange(nt + 1, dtype=i32, device=dev),
         out_int32=True)
@@ -312,29 +334,21 @@ def _pixel_centres(ids: torch.Tensor, tiles_x: int, tile_h: int,
     return px, py
 
 
-def _scan_plain(rec, big_ids, n_big, pair_tri, starts, counts, init_key,
-                px, py):
-    """Coverage + depth scan of every slot's candidate sequence (overflow
-    list, then the window) in CHUNK-row steps: within a chunk the highest
-    ``(masked key) | row`` wins (later row on ties), across chunks the
-    running key is replaced on ``>=`` — the reference kernel's rule.
-    Returns (best_key, best_tri) (K, NPX) int32; best_tri -1 = no winner."""
-    k_slots, npx = init_key.shape
+def _plain_chunks(rec, big_ids, n_big, pair_tri, starts, counts, px, py):
+    """Every slot's candidate sequence (overflow list, then the window) in
+    CHUNK-row steps: yields (tri (K, CHUNK) int32, -1 = dead row; the rows'
+    (K, CHUNK, 16) record heads; ok (K, CHUNK, NPX) coverage inside the
+    depth range; z (K, CHUNK, NPX) with -1 where not ok)."""
     dev = rec.device
-    best_key = init_key & LOW3
-    best = torch.full((k_slots, npx), -1, dtype=torch.int32, device=dev)
-    if k_slots == 0 or rec.shape[0] == 0:
-        return best_key, best
     nb = n_big.reshape(()).to(torch.int64)
     total = nb + counts.to(torch.int64)
-    n_iter = int(total.max())
+    n_iter = int(total.max()) if total.numel() else 0
     oc = max(big_ids.shape[0], 1)
     p_len = max(pair_tri.shape[0], 1)
     big_src = big_ids if big_ids.shape[0] else torch.full(
         (1,), -1, dtype=torch.int32, device=dev)
     pair_src = pair_tri if pair_tri.shape[0] else torch.zeros(
         (1,), dtype=torch.int32, device=dev)
-    row_ix = torch.arange(CHUNK, dtype=torch.int32, device=dev)
     pxe, pye = px[:, None, :], py[:, None, :]
     for c0 in range(0, n_iter, CHUNK):
         c = c0 + torch.arange(CHUNK, dtype=torch.int64, device=dev)
@@ -345,7 +359,7 @@ def _scan_plain(rec, big_ids, n_big, pair_tri, starts, counts, init_key,
         tri = torch.where(is_big[None, :], from_big[None, :], pair_src[pidx])
         live = (c[None, :] < total[:, None]) & (tri >= 0)
         tri = torch.where(live, tri, torch.full_like(tri, -1))
-        co = rec[torch.clamp(tri, min=0).long(), :15]  # (K, CHUNK, 15)
+        co = rec[torch.clamp(tri, min=0).long(), :_ID + 1]  # (K, CHUNK, 16)
         co = torch.where(live[..., None], co, torch.zeros_like(co))
 
         def plane(j):
@@ -360,7 +374,25 @@ def _scan_plain(rec, big_ids, n_big, pair_tri, starts, counts, init_key,
         ok = ((e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0) & (wn > 0.0)
               & (zn >= 0.0) & (zn <= wn))
         z = zn * (1.0 / torch.where(wn == 0.0, torch.ones_like(wn), wn))
-        z = torch.where(ok, z, torch.full_like(z, -1.0))
+        yield tri, co, ok, torch.where(ok, z, torch.full_like(z, -1.0))
+
+
+def _scan_plain(rec, big_ids, n_big, pair_tri, starts, counts, init_key,
+                px, py):
+    """Coverage + depth scan of every slot's candidate sequence (overflow
+    list, then the window) in CHUNK-row steps: within a chunk the highest
+    ``(masked key) | row`` wins (later row on ties), across chunks the
+    running key is replaced on ``>=`` — the reference kernel's rule.
+    Returns (best_key, best_tri) (K, NPX) int32; best_tri -1 = no winner."""
+    k_slots, npx = init_key.shape
+    best_key = init_key & LOW3
+    best = torch.full((k_slots, npx), -1, dtype=torch.int32,
+                      device=rec.device)
+    if k_slots == 0 or rec.shape[0] == 0:
+        return best_key, best
+    row_ix = torch.arange(CHUNK, dtype=torch.int32, device=rec.device)
+    for tri, _, _, z in _plain_chunks(rec, big_ids, n_big, pair_tri, starts,
+                                      counts, px, py):
         key = (z.view(torch.int32) & LOW3) | row_ix[None, :, None]
         kmax = key.max(dim=1).values  # (K, NPX)
         kz = kmax & LOW3
@@ -369,6 +401,45 @@ def _scan_plain(rec, big_ids, n_big, pair_tri, starts, counts, init_key,
         best = torch.where(accept, win_tri, best)
         best_key = torch.where(accept, kz, best_key)
     return best_key, best
+
+
+def _scan_plain_ord(rec, big_ids, n_big, pair_tri, starts, counts, init_key,
+                    init_ord, px, py):
+    """The early-z scan's result (K9): per pixel the lexicographic argmax
+    of (masked depth key, draw order) over the initial (key, ord) and every
+    candidate, where a candidate's ord is its record's _ID (triangle id +
+    1) if it covers the pixel and -1 if not; in each chunk the reference's
+    ``_chunk_test_ord``. The early break only skips candidates that cannot
+    win, so the whole set is scanned here. Returns (best_key int32,
+    best_ord float32, best_tri int32 (-1 = no candidate won)), each
+    (K, NPX)."""
+    k_slots, npx = init_key.shape
+    best_key = init_key & LOW3
+    best_ord = init_ord.clone()
+    best = torch.full((k_slots, npx), -1, dtype=torch.int32,
+                      device=rec.device)
+    if k_slots == 0 or rec.shape[0] == 0:
+        return best_key, best_ord, best
+    row_ix = torch.arange(CHUNK, dtype=torch.int32, device=rec.device)
+    neg = torch.tensor(-1.0, dtype=torch.float32, device=rec.device)
+    for tri, co, ok, z in _plain_chunks(rec, big_ids, n_big, pair_tri,
+                                        starts, counts, px, py):
+        kz = z.view(torch.int32) & LOW3  # (K, CHUNK, NPX)
+        ordc = torch.where(ok, co[..., _ID, None], neg)
+        kmax = kz.max(dim=1, keepdim=True).values
+        omax = torch.where(kz == kmax, ordc, neg).max(dim=1,
+                                                       keepdim=True).values
+        rsel = (kz == kmax) & (ordc == omax)
+        ridx = torch.where(rsel, row_ix[None, :, None],
+                           torch.full_like(kz, -1)).max(dim=1).values
+        kmax, omax = kmax[:, 0], omax[:, 0]
+        accept = (kmax > best_key) | ((kmax == best_key)
+                                      & (omax >= best_ord))
+        win_tri = torch.gather(tri, 1, ridx.long())
+        best = torch.where(accept, win_tri, best)
+        best_key = torch.where(accept, kmax, best_key)
+        best_ord = torch.where(accept, omax, best_ord)
+    return best_key, best_ord, best
 
 
 def _winner_channels(rec, best):
@@ -395,17 +466,9 @@ def _bary(r, px, py):
 # K1: raster + resolve
 # ---------------------------------------------------------------------------
 
-def raster_tiles_plain(rec, big_ids, n_big, pair_tri, ids, starts, counts,
-                       init_zkey, tiles_x: int, tile_h: int, tile_w: int,
-                       out_fields: tuple = _OUT_FIELDS):
-    """Plain version of K1. Slot s rasterizes screen tile ``ids[s]`` from
-    the overflow list (``big_ids[:n_big]``) and then
-    ``pair_tri[starts[s] : starts[s] + counts[s]]``, continuing the
-    depth keys ``init_zkey[s]``. Returns (zkey (K, NPX) int32, fields
-    (len(out_fields), K, NPX) float32)."""
-    px, py = _pixel_centres(ids, tiles_x, tile_h, tile_w)
-    best_key, best = _scan_plain(rec, big_ids, n_big, pair_tri, starts,
-                                 counts, init_zkey, px, py)
+def _resolve_plain(rec, best, px, py, out_fields):
+    """(len(out_fields), K, NPX) planes from each pixel's winning triangle
+    (``best``, -1 = none: every plane 0)."""
     r = _winner_channels(rec, best)
     idf = r(_ID)
     hit = idf >= 0.5
@@ -437,11 +500,23 @@ def raster_tiles_plain(rec, big_ids, n_big, pair_tri, ids, starts, counts,
         "matf": lambda: r(_MAT), "b0": lambda: b[0], "b1": lambda: b[1],
     }
     if out_fields:
-        fields = torch.stack([vals[f]() for f in out_fields])
-    else:
-        fields = torch.zeros((0,) + idf.shape, dtype=torch.float32,
-                             device=idf.device)
-    return best_key, fields
+        return torch.stack([vals[f]() for f in out_fields])
+    return torch.zeros((0,) + idf.shape, dtype=torch.float32,
+                       device=idf.device)
+
+
+def raster_tiles_plain(rec, big_ids, n_big, pair_tri, ids, starts, counts,
+                       init_zkey, tiles_x: int, tile_h: int, tile_w: int,
+                       out_fields: tuple = _OUT_FIELDS):
+    """Plain version of K1. Slot s rasterizes screen tile ``ids[s]`` from
+    the overflow list (``big_ids[:n_big]``) and then
+    ``pair_tri[starts[s] : starts[s] + counts[s]]``, continuing the
+    depth keys ``init_zkey[s]``. Returns (zkey (K, NPX) int32, fields
+    (len(out_fields), K, NPX) float32)."""
+    px, py = _pixel_centres(ids, tiles_x, tile_h, tile_w)
+    best_key, best = _scan_plain(rec, big_ids, n_big, pair_tri, starts,
+                                 counts, init_zkey, px, py)
+    return best_key, _resolve_plain(rec, best, px, py, out_fields)
 
 
 def _check(name, t, dtype, device, shape=None):
@@ -518,6 +593,221 @@ def raster_tiles(rec, big_ids, n_big, pair_tri, ids, starts, counts,
 
 
 raster_tiles.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K9: early-z raster + resolve
+# ---------------------------------------------------------------------------
+
+def raster_tiles_earlyz_plain(rec, big_ids, n_big, pair_tri, ids, starts,
+                              counts, init_zkey, init_okey, zsh: int,
+                              tiles_x: int, tile_h: int, tile_w: int,
+                              out_fields: tuple = _OUT_FIELDS):
+    """Plain version of K9: :func:`raster_tiles_plain` with the winner the
+    lexicographic argmax of (depth key, draw order) (``_scan_plain_ord``),
+    continuing the keys ``init_zkey`` and the draw orders ``init_okey``
+    ((K, NPX) float32, -1 = none). ``zsh`` is the kernel's bucket shift;
+    the plain version scans every candidate. Returns (zkey, okey,
+    fields)."""
+    px, py = _pixel_centres(ids, tiles_x, tile_h, tile_w)
+    best_key, best_ord, best = _scan_plain_ord(
+        rec, big_ids, n_big, pair_tri, starts, counts, init_zkey, init_okey,
+        px, py)
+    return best_key, best_ord, _resolve_plain(rec, best, px, py, out_fields)
+
+
+def raster_tiles_earlyz(rec, big_ids, n_big, pair_tri, ids, starts, counts,
+                        init_zkey, init_okey, zsh: int, tiles_x: int,
+                        tile_h: int, tile_w: int,
+                        out_fields: tuple = _OUT_FIELDS, stats=None):
+    """K9 wrapper (csrc/raster_earlyz.cu); same contract as
+    :func:`raster_tiles_earlyz_plain`, which it runs only for CPU tensors.
+    The windows must be in :func:`bin_pairs`' ``zorder`` order for the
+    kernel's break to be sound. ``stats``: an optional (2,) int64 CUDA
+    tensor the kernel adds (8-row window chunks scanned, present) to."""
+    k = _check_common(rec, big_ids, n_big, pair_tri, ids, starts, counts)
+    npx = tile_h * tile_w
+    _check("init_zkey", init_zkey, torch.int32, rec.device, (k, npx))
+    _check("init_okey", init_okey, torch.float32, rec.device, (k, npx))
+    if rec.device.type == "cpu":
+        return raster_tiles_earlyz_plain(
+            rec, big_ids, n_big, pair_tri, ids, starts, counts, init_zkey,
+            init_okey, zsh, tiles_x, tile_h, tile_w, out_fields)
+    if rec.device.type != "cuda":
+        raise RuntimeError(f"raster_tiles_earlyz: unsupported device "
+                           f"{rec.device}")
+    if npx > _build.MAX_TILE_PIXELS:
+        raise ValueError(f"raster_tiles_earlyz: tiles of {npx} px exceed "
+                         f"{_build.MAX_TILE_PIXELS}")
+    if stats is not None:
+        _check("stats", stats, torch.int64, rec.device, (2,))
+    mask = _field_mask(out_fields)
+    zkey = torch.empty((k, npx), dtype=torch.int32, device=rec.device)
+    okey = torch.empty((k, npx), dtype=torch.float32, device=rec.device)
+    fields = torch.empty((len(out_fields), k, npx), dtype=torch.float32,
+                         device=rec.device)
+    if k == 0:
+        return zkey, okey, fields
+    p = _build.ptr
+    err = _build.library().bb_raster_earlyz(
+        p(rec), p(big_ids), p(n_big), big_ids.shape[0], p(pair_tri),
+        pair_tri.shape[0], p(ids), p(starts), p(counts), p(init_zkey),
+        p(init_okey), k, tiles_x, tile_h, tile_w, REC_CH,
+        ctypes.c_uint(mask), int(zsh), p(zkey), p(okey), p(fields),
+        p(stats) if stats is not None else None,
+        _build.stream_ptr(rec.device))
+    _build.check(err, "raster_earlyz")
+    raster_tiles_earlyz.launches += 1
+    return zkey, okey, fields
+
+
+raster_tiles_earlyz.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K10: group-window raster + resolve
+# ---------------------------------------------------------------------------
+
+def raster_tiles_gw_plain(rec, big_ids, n_big, pair_tri, ids, win, lb_al,
+                          cnt_k, init_zkey, group: int, tiles_x: int,
+                          tile_h: int, tile_w: int,
+                          out_fields: tuple = _OUT_FIELDS):
+    """Plain version of K10. Slots come in groups of ``group``; group g's
+    window starts at ``pair_tri[win[g]]``, and slot s scans the overflow
+    list, then window rows [lb_al[s], lb_al[s] + cnt_k[s]). Returns (zkey,
+    fields) as :func:`raster_tiles_plain`."""
+    starts = win.repeat_interleave(group) + lb_al
+    return raster_tiles_plain(rec, big_ids, n_big, pair_tri, ids, starts,
+                              cnt_k, init_zkey, tiles_x, tile_h, tile_w,
+                              out_fields)
+
+
+def raster_tiles_gw(rec, big_ids, n_big, pair_tri, ids, win, lb_al, cnt_k,
+                    init_zkey, group: int, tiles_x: int, tile_h: int,
+                    tile_w: int, out_fields: tuple = _OUT_FIELDS):
+    """K10 wrapper (csrc/raster_gw.cu); same contract as
+    :func:`raster_tiles_gw_plain`, which it runs only for CPU tensors."""
+    k = _check_common(rec, big_ids, n_big, pair_tri, ids, lb_al, cnt_k)
+    npx = tile_h * tile_w
+    if group < 1 or k % group:
+        raise ValueError(f"raster_tiles_gw: {k} slots in groups of {group}")
+    _check("win", win, torch.int32, rec.device, (k // group,))
+    _check("init_zkey", init_zkey, torch.int32, rec.device, (k, npx))
+    if rec.device.type == "cpu":
+        return raster_tiles_gw_plain(rec, big_ids, n_big, pair_tri, ids, win,
+                                     lb_al, cnt_k, init_zkey, group, tiles_x,
+                                     tile_h, tile_w, out_fields)
+    if rec.device.type != "cuda":
+        raise RuntimeError(f"raster_tiles_gw: unsupported device "
+                           f"{rec.device}")
+    if group > _build.MAX_GROUP or group * npx > _build.MAX_GROUP_PIXELS:
+        raise ValueError(f"raster_tiles_gw: a group of {group} tiles of "
+                         f"{npx} px exceeds the kernel's block")
+    mask = _field_mask(out_fields)
+    zkey = torch.empty((k, npx), dtype=torch.int32, device=rec.device)
+    fields = torch.empty((len(out_fields), k, npx), dtype=torch.float32,
+                         device=rec.device)
+    if k == 0:
+        return zkey, fields
+    p = _build.ptr
+    err = _build.library().bb_raster_gw(
+        p(rec), p(big_ids), p(n_big), big_ids.shape[0], p(pair_tri),
+        pair_tri.shape[0], p(ids), p(win), p(lb_al), p(cnt_k), p(init_zkey),
+        k, group, tiles_x, tile_h, tile_w, REC_CH, ctypes.c_uint(mask),
+        p(zkey), p(fields), _build.stream_ptr(rec.device))
+    _build.check(err, "raster_gw")
+    raster_tiles_gw.launches += 1
+    return zkey, fields
+
+
+raster_tiles_gw.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K11: fine-subtile raster + resolve
+# ---------------------------------------------------------------------------
+
+def _fine_order(t, k: int, tile_h: int, nsub: int, sub_w: int):
+    """(K, NPX) screen order → (K·nsub, tile_h·sub_w) subtile-major."""
+    return (t.reshape(k, tile_h, nsub, sub_w).permute(0, 2, 1, 3)
+            .reshape(k * nsub, tile_h * sub_w))
+
+
+def _screen_order(t, k: int, tile_h: int, nsub: int, sub_w: int):
+    return (t.reshape(k, nsub, tile_h, sub_w).permute(0, 2, 1, 3)
+            .reshape(k, tile_h * nsub * sub_w))
+
+
+def raster_tiles_fine_plain(rec, big_ids, n_big, pair_tri, ids, starts,
+                            lb_al, cntk, init_zkey, tiles_x: int,
+                            tile_h: int, tile_w: int,
+                            out_fields: tuple = _OUT_FIELDS):
+    """Plain version of K11. Tile ``ids[s]`` splits into nsub =
+    ``lb_al.shape[1]`` subtiles of (tile_w / nsub) × tile_h pixels;
+    subtile g scans the overflow list, then
+    ``pair_tri[starts[s] + lb_al[s, g]][:cntk[s, g]]`` against its own
+    pixels. Returns (zkey, fields) in screen order, as
+    :func:`raster_tiles_plain`."""
+    k, nsub = lb_al.shape
+    sub_w = tile_w // nsub
+    px, py = _pixel_centres(ids, tiles_x, tile_h, tile_w)
+
+    def fine(t):
+        return _fine_order(t, k, tile_h, nsub, sub_w)
+
+    best_key, best = _scan_plain(
+        rec, big_ids, n_big, pair_tri, (starts[:, None] + lb_al).reshape(-1),
+        cntk.reshape(-1), fine(init_zkey), fine(px), fine(py))
+    best = _screen_order(best, k, tile_h, nsub, sub_w)
+    return (_screen_order(best_key, k, tile_h, nsub, sub_w),
+            _resolve_plain(rec, best, px, py, out_fields))
+
+
+def raster_tiles_fine(rec, big_ids, n_big, pair_tri, ids, starts, lb_al,
+                      cntk, init_zkey, tiles_x: int, tile_h: int, tile_w: int,
+                      out_fields: tuple = _OUT_FIELDS):
+    """K11 wrapper (csrc/raster_fine.cu); same contract as
+    :func:`raster_tiles_fine_plain`, which it runs only for CPU tensors."""
+    k = _check_common(rec, big_ids, n_big, pair_tri, ids, starts, starts)
+    npx = tile_h * tile_w
+    nsub = lb_al.shape[1] if lb_al.ndim == 2 else 0
+    _check("lb_al", lb_al, torch.int32, rec.device, (k, nsub))
+    _check("cntk", cntk, torch.int32, rec.device, (k, nsub))
+    _check("init_zkey", init_zkey, torch.int32, rec.device, (k, npx))
+    if nsub < 1 or tile_w % nsub:
+        raise ValueError(f"raster_tiles_fine: {nsub} subtiles of a "
+                         f"{tile_w}-px tile")
+    if rec.device.type == "cpu":
+        return raster_tiles_fine_plain(rec, big_ids, n_big, pair_tri, ids,
+                                       starts, lb_al, cntk, init_zkey,
+                                       tiles_x, tile_h, tile_w, out_fields)
+    if rec.device.type != "cuda":
+        raise RuntimeError(f"raster_tiles_fine: unsupported device "
+                           f"{rec.device}")
+    spx = tile_h * (tile_w // nsub)
+    if nsub > NSUB_FINE or spx % 32 or spx // 32 > _build.MAX_TILE_PIXELS \
+            // 256:
+        raise ValueError(f"raster_tiles_fine: subtiles of {spx} px in "
+                         f"{nsub} warps exceed the kernel's block")
+    mask = _field_mask(out_fields)
+    zkey = torch.empty((k, npx), dtype=torch.int32, device=rec.device)
+    fields = torch.empty((len(out_fields), k, npx), dtype=torch.float32,
+                         device=rec.device)
+    if k == 0:
+        return zkey, fields
+    p = _build.ptr
+    err = _build.library().bb_raster_fine(
+        p(rec), p(big_ids), p(n_big), big_ids.shape[0], p(pair_tri),
+        pair_tri.shape[0], p(ids), p(starts), p(lb_al), p(cntk),
+        p(init_zkey), k, nsub, tiles_x, tile_h, tile_w, REC_CH,
+        ctypes.c_uint(mask), p(zkey), p(fields),
+        _build.stream_ptr(rec.device))
+    _build.check(err, "raster_fine")
+    raster_tiles_fine.launches += 1
+    return zkey, fields
+
+
+raster_tiles_fine.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -672,6 +962,16 @@ def _ceil8(n: int) -> int:
     return -(-n // CHUNK) * CHUNK
 
 
+def _chunk_class_order(ids, counts_p, slot_live):
+    """merged_coverage's slot order: live slots by descending chunk count
+    of their window, tile id ascending within a class, dead slots last
+    (the reference's 2-key slot sort)."""
+    ckey = torch.where(slot_live, -((counts_p + (CHUNK - 1)) // CHUNK),
+                       torch.ones_like(counts_p))
+    key = (ckey.to(torch.int64) << 32) | ids.to(torch.int64)
+    return (torch.sort(key).values & 0xFFFFFFFF).to(torch.int32)
+
+
 def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
                  height: int, tile_h: int = 8, tile_w: int = 128,
                  max_candidates: int = 320, overflow_cap: int = 64,
@@ -679,10 +979,14 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
                  pair_budget: int = 262144, passes: int = 1,
                  dense_tile_cap: int | None = None,
                  raster_tile_cap: int | None = None,
-                 span_mid_cap: int | None = None, drop_fields: tuple = (),
-                 raster=raster_tiles, sort=sort_keys):
-    """Bin + rasterize + resolve (the host side of K1; port of
-    ``raster_fused_pallas`` without its TPU schedule variants).
+                 span_mid_cap: int | None = None,
+                 group_pair_cap: int | None = None, drop_fields: tuple = (),
+                 fine_bins: bool = False, merged_coverage: bool = False,
+                 earlyz: bool = False, raster=raster_tiles,
+                 raster_earlyz=raster_tiles_earlyz, raster_gw=raster_tiles_gw,
+                 raster_fine=raster_tiles_fine, sort=sort_keys):
+    """Bin + rasterize + resolve: the host side of K1 and its schedule
+    variants K9-K11 (port of ``raster_fused_pallas``, same contract).
 
     ``passes`` > 1: pass p covers candidate window [p·maxc, (p+1)·maxc),
     depth-chained through the previous pass's keys, on a compact list of
@@ -692,16 +996,62 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
     capacities (overflow → ``diag.dropped_tiles``). ``drop_fields`` prunes
     output planes (they come back as zeros).
 
+    Schedule variants, gated exactly as the reference gates them:
+
+    - ``group_pair_cap`` (K10, ``raster_gw``): with one pass and a pass-0
+      ``raster_tile_cap``, and without ``fine_bins``, each group of compact
+      slots reads one window of ``group_pair_cap`` rows; rows past it are
+      dropped and counted in ``diag.dropped_cap``.
+    - ``fine_bins`` (K11, ``raster_fine``): bins at (tile_w / 8)-px
+      subtiles over the padded width; pass 0 scans each subtile's own fine
+      window; passes ≥ 1 run K1 over the fine-ordered windows.
+    - ``earlyz`` (K9, ``raster_earlyz``, every pass) unless ``fine_bins``
+      or the group window is on, or the setup has no ``zub``: windows sort
+      near-first and the winner carries its draw order across passes.
+    - ``merged_coverage``: pass-0 and dense-pass slots sort by chunk class
+      (the reference's group-loop schedule; the kernels are unchanged).
+
     Returns (pixels: FusedPixels, zkey (NT, NPX) int32, diag: BinDiag)."""
     maxc = _ceil8(max_candidates)
     oc = _ceil8(overflow_cap)
     npx = tile_h * tile_w
     dev = rec_table.device
-    (sorted_tri, starts, counts, big_ids, n_big, diag, tiles_y,
-     tiles_x) = bin_pairs(setup, width, height, tile_h, tile_w, span_cap, oc,
-                          maxc * passes, pair_budget=pair_budget,
-                          span_mid_cap=span_mid_cap, sort=sort)
-    nt = tiles_y * tiles_x
+    nt_static = -(-width // tile_w) * -(-height // tile_h)
+    use_gw = (group_pair_cap is not None and passes == 1
+              and raster_tile_cap is not None
+              and raster_tile_cap <= nt_static and not fine_bins)
+    earlyz = (earlyz and not fine_bins and not use_gw
+              and setup.zub is not None)
+    if fine_bins:
+        if tile_h != NSUB_FINE:
+            raise ValueError(f"fine_bins requires tile_h == {NSUB_FINE} "
+                             f"(got {tile_h})")
+        nsub = NSUB_FINE
+        # nsub consecutive fine bins per coarse tile over the padded width:
+        # each coarse window stays one contiguous run of the pair list.
+        tiles_x = -(-width // tile_w)
+        (sorted_tri, starts_f, counts_f, big_ids, n_big, diag, tiles_y,
+         _) = bin_pairs(setup, tiles_x * tile_w, height, tile_h,
+                        tile_w // nsub, span_cap, oc, maxc * passes,
+                        pair_budget=pair_budget, span_mid_cap=span_mid_cap,
+                        sort=sort)
+        nt = tiles_y * tiles_x
+        starts_m = starts_f.reshape(nt, nsub)
+        counts_m = counts_f.reshape(nt, nsub)
+        starts = starts_m[:, 0].contiguous()
+        counts_raw_c = counts_m.sum(dim=1, dtype=torch.int32)
+        counts = torch.clamp(counts_raw_c, max=maxc * passes)
+        diag = diag._replace(dropped_cap=diag.dropped_cap + torch.clamp(
+            counts_raw_c - maxc * passes, min=0).sum(dtype=torch.int32))
+        lb_raw = starts_m - starts[:, None]  # window-local subtile bases
+    else:
+        (sorted_tri, starts, counts, big_ids, n_big, diag, tiles_y,
+         tiles_x) = bin_pairs(setup, width, height, tile_h, tile_w, span_cap,
+                              oc, maxc * passes, pair_budget=pair_budget,
+                              span_mid_cap=span_mid_cap, zorder=earlyz,
+                              sort=sort)
+        nt = tiles_y * tiles_x
+    gcap = _ceil8(group_pair_cap) if use_gw else 0
     if init_zkey is None:
         init_zkey = torch.zeros((nt, npx), dtype=torch.int32, device=dev)
     if dense_tile_cap is None:
@@ -709,10 +1059,19 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
     out_fields = tuple(f for f in _OUT_FIELDS
                        if f not in drop_fields or f == "idf")
     zero1 = torch.zeros((1,), dtype=torch.int32, device=dev)
+    zsh = 0
+    okey = None
+    if earlyz:
+        zb = zorder_bits(nt, int(setup.valid.shape[0]))
+        zsh = 30 - (zb if zb > 0 else 16)
+        # Winner draw-order chain: -1 = clear (any candidate tying the
+        # initial key wins, as with K1's >=).
+        okey = torch.full((nt, npx), -1.0, dtype=torch.float32, device=dev)
 
     zkey = init_zkey
     fields = None
     dropped_tiles = torch.zeros((), dtype=torch.int32, device=dev)
+    dropped_win = torch.zeros((), dtype=torch.int32, device=dev)
     for p in range(passes):
         nb_p = n_big if p == 0 else zero1
         scatter_ids = None
@@ -725,6 +1084,9 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
             dropped_tiles = dropped_tiles + dropped0
             n_live = torch.clamp(live0.sum(dtype=torch.int32), max=k)
             slot_live = torch.arange(k, device=dev) < n_live
+            if merged_coverage and not use_gw and not fine_bins:
+                ids = _chunk_class_order(
+                    ids, torch.clamp(counts[ids.long()], max=maxc), slot_live)
             scatter_ids = torch.where(slot_live, ids.long(),
                                       torch.full_like(ids.long(), nt))
             starts_p = starts[ids.long()]
@@ -743,21 +1105,74 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
             dropped_tiles = dropped_tiles + dropped_p
             n_live_p = torch.clamp(live.sum(dtype=torch.int32), max=k)
             slot_live_p = torch.arange(k, device=dev) < n_live_p
+            if merged_coverage and not fine_bins:
+                ids = _chunk_class_order(
+                    ids, torch.clamp(counts[ids.long()] - p * maxc, 0, maxc),
+                    slot_live_p)
             starts_p = starts[ids.long()] + p * maxc
             counts_p = torch.where(
                 slot_live_p,
                 torch.clamp(counts[ids.long()] - p * maxc, 0, maxc),
                 torch.zeros_like(ids))
+        ids = ids.contiguous()
         zk_in = zkey[ids.long()].contiguous()
-        zk_new, fouts = raster(
-            rec_table, big_ids, nb_p, sorted_tri, ids.contiguous(),
-            starts_p.contiguous(), counts_p.contiguous(), zk_in, tiles_x,
-            tile_h, tile_w, out_fields)
+        ok_new = None
+        if p == 0 and fine_bins:
+            # Per-slot subtile bases and counts into the coarse window;
+            # bases align down to CHUNK (the retested prefix rows lose
+            # their duplicate ties exactly).
+            lbp = lb_raw[ids.long()]
+            cfp = counts_m[ids.long()]
+            kept = torch.minimum(torch.clamp(maxc - lbp, min=0), cfp)
+            lb_al = (lbp // CHUNK) * CHUNK
+            cntk = torch.where(kept > 0, kept + (lbp - lb_al),
+                               torch.zeros_like(kept))
+            if scatter_ids is not None:
+                cntk = cntk * slot_live[:, None].to(torch.int32)
+            zk_new, fouts = raster_fine(
+                rec_table, big_ids, nb_p, sorted_tri, ids,
+                starts_p.contiguous(), lb_al.contiguous(), cntk.contiguous(),
+                zk_in, tiles_x, tile_h, tile_w, out_fields)
+        elif p == 0 and use_gw:
+            # One window of gcap rows per group of compact slots; per-slot
+            # bases 8-aligned downward. The group size (the reference's
+            # VMEM bound) decides the windows, so it is kept as is.
+            gmax = max(1, (32 << 20) // ((oc + gcap) * npx * 2))
+            group = next(g for g in (8, 4, 2, 1) if g <= gmax and k % g == 0)
+            win = starts_p.reshape(k // group, group)[:, 0].contiguous()
+            lb = torch.clamp(starts_p - win.repeat_interleave(group), 0,
+                             gcap)
+            kept = torch.minimum(torch.clamp(gcap - lb, min=0), counts_p)
+            dropped_win = dropped_win + (counts_p - kept).sum(
+                dtype=torch.int32)
+            lb_al = (lb // CHUNK) * CHUNK
+            cnt_k = kept + (lb - lb_al)
+            zk_new, fouts = raster_gw(
+                rec_table, big_ids, nb_p, sorted_tri, ids, win,
+                lb_al.contiguous(), cnt_k.contiguous(), zk_in, group,
+                tiles_x, tile_h, tile_w, out_fields)
+        elif earlyz:
+            zk_new, ok_new, fouts = raster_earlyz(
+                rec_table, big_ids, nb_p, sorted_tri, ids,
+                starts_p.contiguous(), counts_p.contiguous(), zk_in,
+                okey[ids.long()].contiguous(), zsh, tiles_x, tile_h, tile_w,
+                out_fields)
+        else:
+            zk_new, fouts = raster(
+                rec_table, big_ids, nb_p, sorted_tri, ids,
+                starts_p.contiguous(), counts_p.contiguous(), zk_in, tiles_x,
+                tile_h, tile_w, out_fields)
         fields_p = dict(zip(out_fields, fouts))
         if p == 0 and scatter_ids is not None:
+            # Unlisted tiles keep clear/init depth and zero fields; dead
+            # slots drop their writes (scatter target nt).
             zk = torch.cat([zkey & LOW3, zk_new[:1]])
             zk[scatter_ids] = zk_new
             zkey = zk[:nt]
+            if ok_new is not None:
+                ok = torch.cat([okey, ok_new[:1]])
+                ok[scatter_ids] = ok_new
+                okey = ok[:nt]
             fields = {}
             for f, v in fields_p.items():
                 full = torch.zeros((nt + 1, npx), dtype=torch.float32,
@@ -766,6 +1181,8 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
                 fields[f] = full[:nt]
         elif p == 0:
             zkey, fields = zk_new, fields_p
+            if ok_new is not None:
+                okey = ok_new
         else:
             ids_sc = torch.where(slot_live_p, ids.long(),
                                  torch.full_like(ids.long(), nt))
@@ -773,6 +1190,10 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
             zk = torch.cat([zkey, zk_new[:1]])
             zk[ids_sc] = zk_new
             zkey = zk[:nt]
+            if ok_new is not None:
+                ok = torch.cat([okey, ok_new[:1]])
+                ok[ids_sc] = ok_new
+                okey = ok[:nt]
             new_fields = {}
             for f in fields:
                 full = torch.cat([fields[f], fields[f][:1]])
@@ -780,7 +1201,8 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
                                            fields[f][ids.long()])
                 new_fields[f] = full[:nt]
             fields = new_fields
-    diag = diag._replace(dropped_tiles=diag.dropped_tiles + dropped_tiles)
+    diag = diag._replace(dropped_cap=diag.dropped_cap + dropped_win,
+                         dropped_tiles=diag.dropped_tiles + dropped_tiles)
     return _pixels_from_fields(fields), zkey.contiguous(), diag
 
 

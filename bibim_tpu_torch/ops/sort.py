@@ -2,7 +2,9 @@
 
 ``bin_pairs`` packs each (tile, triangle) pair into one key and sorts the
 keys ascending; live pairs are unique, so any correct sort gives the same
-order, which is the (tile, triangle) lexicographic order.
+order, which is the (tile, triangle) lexicographic order. The early-z
+order (:func:`sort_pairs_z`) packs (tile, inverted depth bucket, triangle)
+the same way.
 
 :func:`sort_keys` is the kernel wrapper: CUDA tensors go to the bitonic
 sort in ``csrc/sort.cu`` (every size, int32 or int64 keys), CPU tensors to
@@ -75,3 +77,48 @@ def sort_pairs(flat_tile: torch.Tensor, tri_of_pair: torch.Tensor, nt: int,
     key = (flat_tile << tri_bits) | tri_of_pair
     s = sort(key)
     return s >> tri_bits, s & ((1 << tri_bits) - 1)
+
+
+def zorder_bits(nt: int, t: int, max_bits: int = 16) -> int:
+    """Depth-bucket bits that fit an int32 (tile | inv_bucket | tri) key;
+    0 = none fit (:func:`sort_pairs_z` then sorts int64 keys with a
+    ``max_bits`` bucket)."""
+    tile_bits = int(nt).bit_length()
+    tri_bits = max(int(t - 1).bit_length(), 1)
+    return max(0, min(max_bits, 31 - tile_bits - tri_bits))
+
+
+def zbucket(zub: torch.Tensor, bits: int) -> torch.Tensor:
+    """Monotone depth bucket of a [0, 1] float32 depth bound: the float's
+    bit pattern >> (30 − bits), an exponent ladder with 2^(bits−8) steps
+    per octave. The early-z raster (K9) rebuilds a bucket's upper bound
+    with the same shift."""
+    zb = torch.maximum(zub, torch.zeros_like(zub)).view(torch.int32)
+    return zb >> (30 - bits)
+
+
+def sort_pairs_z(flat_tile: torch.Tensor, zub_of_pair: torch.Tensor,
+                 tri_of_pair: torch.Tensor, nt: int, t_count: int,
+                 bits: int, sort=sort_keys):
+    """Early-z pair order: ascending (tile, DESCENDING depth bucket, tri)
+    — near candidates first within a tile, draw order within a bucket.
+
+    ``bits`` > 0: one int32 key (tile | inverted ``bits``-bit bucket |
+    tri), as the reference packs it. ``bits`` == 0: the reference's
+    3-operand sort with a 16-bit bucket, here one int64 key (tile <<
+    49 | (inv + 2^16) << 32 | tri) — the same order, since the triples
+    are unique. Returns (sorted_tile, sorted_tri), both int32."""
+    if bits <= 0:
+        if int(nt).bit_length() > 14:
+            raise ValueError(f"sort_pairs_z: {nt} tiles exceed the int64 key")
+        inv = (1 << 16) - 1 - zbucket(zub_of_pair, 16)
+        key = ((flat_tile.to(torch.int64) << 49)
+               | ((inv.to(torch.int64) + (1 << 16)) << 32)
+               | tri_of_pair.to(torch.int64))
+        s = sort(key.contiguous())
+        return (s >> 49).to(torch.int32), (s & 0xFFFFFFFF).to(torch.int32)
+    tri_bits = max(int(t_count - 1).bit_length(), 1)
+    inv = (1 << bits) - 1 - zbucket(zub_of_pair, bits)
+    packed = (((flat_tile << bits) | inv) << tri_bits) | tri_of_pair
+    s = sort(packed.contiguous())
+    return s >> (bits + tri_bits), s & ((1 << tri_bits) - 1)

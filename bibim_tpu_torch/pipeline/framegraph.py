@@ -25,9 +25,11 @@ Stages of :func:`render_frame`:
    tested against the scene's keys), the corner gizmo (K1 in its own
    viewport), sRGB encode and u8.
 
-Settings outside this slice (forward lighting, pair sampling and pair
-visibility, anisotropic taps, early-z and the other raster schedule
-variants, HUD, TBN, flat main-frame shading) raise NotImplementedError.
+The main pass takes the reference's raster schedule variants: early-z
+(K9, every pass), the group window (K10) and fine subtiles (K11), and the
+merged-coverage slot order. Settings outside the port (forward lighting,
+pair sampling and pair visibility, anisotropic taps, HUD, TBN, flat
+main-frame shading) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -181,18 +183,24 @@ class Kernels(NamedTuple):
     sample_small: Callable
     # K8: (MipBlockMulti, mat_id, u, v, tile_h, tile_w) → slot planes
     sample_mip_block: Callable
+    raster_earlyz: Callable  # K9
+    raster_gw: Callable  # K10
+    raster_fine: Callable  # K11
 
 
 # The kernel wrappers (CUDA kernels for CUDA tensors) ...
 KERNELS = Kernels(fused.raster_tiles, fused.overlay_tiles,
                   sort_ops.sort_keys, shade_sampled, shade_tonemap,
                   tq.sample_table_block_kernel, tq.sample_rows_small,
-                  tq.sample_mip_block_kernel)
+                  tq.sample_mip_block_kernel, fused.raster_tiles_earlyz,
+                  fused.raster_tiles_gw, fused.raster_tiles_fine)
 # ... and their plain PyTorch versions on any device (reference renders).
 PLAIN = Kernels(fused.raster_tiles_plain, fused.overlay_tiles_plain,
                 sort_ops.sort_keys_plain, shade_sampled_plain,
                 shade_tonemap_plain, tq.sample_table_block,
-                tq.sample_rows_small_plain, tq.sample_mip_block)
+                tq.sample_rows_small_plain, tq.sample_mip_block,
+                fused.raster_tiles_earlyz_plain, fused.raster_tiles_gw_plain,
+                fused.raster_tiles_fine_plain)
 
 _TABLES = (tq.QuadTable, tq.BlockTable)
 _MIP_TABLES = (tq.MipBlockMulti, tq.MipQuadMulti)
@@ -214,10 +222,6 @@ def check_supported(settings: RenderSettings, materials) -> None:
         (bool(s.pair_sampling), f"pair_sampling={s.pair_sampling}"),
         (s.pair_lossy, "pair_lossy"),
         (s.pair_visibility, "pair_visibility"),
-        (s.early_z, "early_z"),
-        (s.fine_bins, "fine_bins"),
-        (s.group_pair_cap is not None, "group_pair_cap"),
-        (s.merged_coverage, "merged_coverage"),
         (s.raster != "auto", f"raster={s.raster!r}"),
         (s.geometry == "legacy", "geometry='legacy'"),
         (not s.sequential_tris, "sequential_tris=False"),
@@ -252,7 +256,9 @@ def _raster(rec, setup, width, height, settings: RenderSettings,
             passes=None, main_pass=False, span_cap=None, drop_fields=None,
             tile_cap=None):
     """``tile_cap``: the pass-0 tile compaction of a pass that is not the
-    main one (the main pass takes ``settings.raster_tile_cap``)."""
+    main one (the main pass takes ``settings.raster_tile_cap``). Early-z
+    and merged coverage apply to every pass (shadow and gizmo too), the
+    group window and fine bins to the main pass only."""
     if passes is None:
         passes = settings.raster_passes if cap is None else 1
     return fused.raster_fused(
@@ -265,9 +271,14 @@ def _raster(rec, setup, width, height, settings: RenderSettings,
         raster_tile_cap=settings.raster_tile_cap if main_pass else tile_cap,
         span_mid_cap=settings.span_mid_cap if main_pass else None,
         dense_tile_cap=settings.dense_tile_cap if main_pass else None,
+        group_pair_cap=settings.group_pair_cap if main_pass else None,
         drop_fields=(drop_fields if drop_fields is not None
                      else (_prunable_fields(settings) if main_pass else ())),
-        raster=kernels.raster, sort=kernels.sort,
+        fine_bins=settings.fine_bins and main_pass,
+        merged_coverage=settings.merged_coverage, earlyz=settings.early_z,
+        raster=kernels.raster, raster_earlyz=kernels.raster_earlyz,
+        raster_gw=kernels.raster_gw, raster_fine=kernels.raster_fine,
+        sort=kernels.sort,
     )
 
 

@@ -208,3 +208,75 @@ def check_stretch_frame(inputs, kw: dict, jibl=None) -> None:
     assert_image_bound(prod["image"].numpy(), want_img)
     baseline = port_frame(inputs, outputs="image")["image"].numpy()
     assert not np.array_equal(prod["image"].numpy(), baseline)
+
+
+def instanced_scene(n: int = 6):
+    """(SceneData, view, proj), JAX package types, of a config-4-like test
+    frame: ``n`` small UV-sphere instances (480 triangles each, 2-4 px
+    triangles at this size) in a row receding from the camera, over the
+    100× ground plane, with the ShaderBall lights."""
+    import jax.numpy as jnp
+
+    from bibim_tpu import math3d as m3
+    from bibim_tpu.assets.meshgen import (
+        generate_plane_mesh,
+        generate_uv_sphere_mesh,
+    )
+    from bibim_tpu.scene.camera import FreeLookCamera
+    from bibim_tpu.scene.scene import SceneData, batch_from_mesh
+    from bibim_tpu.scene.shaderball import shaderball_lights
+
+    sphere = generate_uv_sphere_mesh(0.35, 20, 12)
+    models = np.stack([np.asarray(m3.translate([-1.1 + 0.45 * i, -0.2,
+                                                2.4 + 0.7 * i]))
+                       for i in range(n)]).astype(np.float32)
+    plane_model = np.diag([100.0, 100.0, 100.0, 1.0]).astype(np.float32)
+    plane_model[1, 3] = -1.5
+    scene = SceneData(
+        batches=(batch_from_mesh(sphere, models),
+                 batch_from_mesh(generate_plane_mesh(), plane_model)),
+        lights=shaderball_lights(),
+    )
+    view = jnp.asarray(FreeLookCamera().get_view_matrix())
+    proj = m3.perspective(60.0, W / H, 0.1, 1000.0)
+    return scene, view, proj
+
+
+def jax_pass_of(scene, view, proj):
+    """(JAX setup, JAX records, port setup, port records) of a scene's main
+    pass at the test size."""
+    from bibim_tpu.ops import fused as jfused
+    from bibim_tpu.ops.geometry import assemble_scene_planar
+    from bibim_tpu.ops.raster import triangle_setup_planar
+
+    soup = assemble_scene_planar(scene.batches, view, proj)
+    setup = triangle_setup_planar(soup.clip, W, H)
+    rec = jfused.build_record_table_planar(setup, soup)
+    return setup, rec, planar_setup(setup), record_table(rec)
+
+
+def assert_raster_close(got, want):
+    """A port raster (pixels, zkey, diag) against the JAX package's: tri ids
+    and every BinDiag count equal, depth keys within K1's stated bound
+    (XLA:CPU's FMA contraction moves < 1 % of keys by ≤ 3 quanta;
+    tests/test_torch_raster.py)."""
+    px, zk, diag = got
+    px_j, zk_j, diag_j = want
+    np.testing.assert_array_equal(px.tri_id.numpy(), np.asarray(px_j.tri_id))
+    zd = np.abs(zk.numpy().astype(np.int64) - np.asarray(zk_j))
+    assert (zd > 0).mean() < 0.01 and zd.max() <= 32, (zd > 0).mean()
+    for a, b in zip(diag, diag_j):
+        assert int(a) == int(b)
+
+
+def assert_raster_equal(a, b):
+    """Two port rasters bit for bit: every pixel plane and the keys."""
+    px_a, zk_a, _ = a
+    px_b, zk_b, _ = b
+    np.testing.assert_array_equal(zk_a.numpy(), zk_b.numpy())
+
+    def leaves(px):
+        return [c for f in px for c in (f if isinstance(f, tuple) else (f,))]
+
+    for x, y in zip(leaves(px_a), leaves(px_b)):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
