@@ -17,6 +17,7 @@ import torch
 
 from bibim_tpu_torch.ops import ibl as ibl_ops
 from bibim_tpu_torch.ops import texture_quad as tq
+from bibim_tpu_torch.pipeline.autotune import CapProbe
 from bibim_tpu_torch.pipeline.framegraph import (
     FrameParams,
     GBufferViz,
@@ -24,6 +25,7 @@ from bibim_tpu_torch.pipeline.framegraph import (
     RenderSettings,
     ViewBlock,
 )
+from bibim_tpu_torch.scene.culling import HostInstances, host_instances
 from bibim_tpu_torch.scene.lights import Lights
 from bibim_tpu_torch.scene.scene import DrawBatch, SceneData
 
@@ -61,9 +63,29 @@ def lights(lt, device="cpu") -> Lights:
 
 
 def scene_data(scene, device="cpu") -> SceneData:
+    """Every batch and the lights; a frustum-culled scene (its batches'
+    bucket-padded instance matrices) carries across the same way."""
     return SceneData(batches=tuple(draw_batch(b, device)
                                    for b in scene.batches),
                      lights=lights(scene.lights, device))
+
+
+def batch_host_instances(b) -> HostInstances:
+    """The host matrices and bounds the port's cull reads, from a JAX
+    DrawBatch (its de-indexed positions and instance matrices)."""
+    return host_instances(np.asarray(b.positions), np.asarray(b.model),
+                          np.asarray(b.inv_model))
+
+
+def cap_probe(p) -> CapProbe:
+    """The JAX package's CapProbe (host ints) as the port's."""
+    kw = {f: getattr(p, f) for f in CapProbe._fields}
+    kw["span_big"] = tuple(tuple(int(x) for x in e) for e in p.span_big)
+    kw["small_pair_frac"] = float(p.small_pair_frac)
+    for f in CapProbe._fields:
+        if f not in ("span_big", "small_pair_frac"):
+            kw[f] = int(kw[f])
+    return CapProbe(**kw)
 
 
 def _quad_rows(q, device) -> torch.Tensor:

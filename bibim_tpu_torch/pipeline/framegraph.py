@@ -588,6 +588,19 @@ def _composite_gizmo(ldr3_img, view, proj, overlay: OverlayResources,
     return tuple(out), gz_diag
 
 
+def _assemble_and_raster(scene: SceneData, view_block: ViewBlock,
+                         settings: RenderSettings, kernels: Kernels):
+    """The main pass: corner-planar vertex stage, setup, records, raster.
+    Returns (pixels, zkey, diag, planar soup)."""
+    psoup = assemble_scene_planar(scene.batches, view_block.view,
+                                  view_block.proj, settings.batch_material_ids)
+    setup = triangle_setup_planar(psoup.clip, settings.width, settings.height)
+    rec = fused.build_record_table_planar(setup, psoup)
+    px, zkey, diag = _raster(rec, setup, settings.width, settings.height,
+                             settings, kernels, main_pass=True)
+    return px, zkey, diag, psoup
+
+
 def render_frame(scene: SceneData, view_block: ViewBlock,
                  frame_params: FrameParams, materials,
                  overlay: OverlayResources | None, settings: RenderSettings,
@@ -607,15 +620,10 @@ def render_frame(scene: SceneData, view_block: ViewBlock,
             and overlay.gizmo_tris is None:
         raise ValueError("show_gizmo needs OverlayResources with a gizmo "
                          "mesh")
-    width, height = settings.width, settings.height
     dev = view_block.view.device
 
-    psoup = assemble_scene_planar(scene.batches, view_block.view,
-                                  view_block.proj, settings.batch_material_ids)
-    setup = triangle_setup_planar(psoup.clip, width, height)
-    rec = fused.build_record_table_planar(setup, psoup)
-    px, zkey, diag = _raster(rec, setup, width, height, settings, kernels,
-                             main_pass=True)
+    px, zkey, diag, psoup = _assemble_and_raster(scene, view_block,
+                                                 settings, kernels)
     diags = [diag]
 
     nt_full = px.tri_id.shape[0]

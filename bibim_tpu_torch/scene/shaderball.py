@@ -4,6 +4,10 @@
 at y=-10, and ShaderBall.fbx de-indexed with per-instance model matrices
 ``translate(2i,-1,2) · rotY(angle) · rotX(-90) · scale(0.01)``. Draw order
 is ball first, then plane (equal-depth ties go to the later draw).
+
+The scene keeps host copies of its instance matrices and mesh bounds for
+the per-frame frustum cull (:meth:`ShaderBallScene.culled_scene_data`,
+BASELINE config 4: 64 instances seen from :func:`instanced_camera`).
 """
 
 from __future__ import annotations
@@ -12,8 +16,10 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from bibim_tpu_torch.scene import culling
+from bibim_tpu_torch.scene.camera import FreeLookCamera
 from bibim_tpu_torch.scene.lights import LightType, make_lights
-from bibim_tpu_torch.scene.meshgen import generate_plane_mesh
+from bibim_tpu_torch.scene.meshgen import Mesh, generate_plane_mesh
 from bibim_tpu_torch.scene.scene import DrawBatch, SceneData, batch_from_mesh
 
 
@@ -50,19 +56,39 @@ def shaderball_instance_matrices(num_instances: int, angle_degrees):
     return model.astype(np.float32), inv.astype(np.float32)
 
 
-def ground_plane_batch(device="cpu") -> DrawBatch:
-    """translate(0,-10,0) · scale(100) unit plane."""
+def _plane_model() -> np.ndarray:
     plane_model = np.diag([100.0, 100.0, 100.0, 1.0]).astype(np.float32)
     plane_model[1, 3] = -10.0
-    return batch_from_mesh(generate_plane_mesh(), plane_model, device=device)
+    return plane_model
+
+
+def ground_plane_batch(device="cpu") -> DrawBatch:
+    """translate(0,-10,0) · scale(100) unit plane."""
+    return batch_from_mesh(generate_plane_mesh(), _plane_model(),
+                           device=device)
+
+
+def instanced_camera() -> FreeLookCamera:
+    """The instanced frame's camera (bench.py config 4): at (8, 6, -14),
+    looking down +Z along the row of instances."""
+    return FreeLookCamera(pos=np.array([8.0, 6.0, -14.0], np.float32))
+
+
+def _deindexed_positions(mesh: Mesh) -> np.ndarray:
+    return np.asarray(mesh.positions, np.float32)[
+        np.asarray(mesh.indices, np.int64).reshape(-1)]
 
 
 @dataclass
 class ShaderBallScene:
+    """``ball_mesh`` None loads ShaderBall.fbx from the resource root;
+    another mesh stands in for it."""
+
     num_instances: int = 1
     selected_material_index: int = 1
     angle: float = -90.0
     device: str = "cpu"
+    ball_mesh: Mesh | None = field(default=None, repr=False)
     # The ball (batch 0) is the shadow caster the light frustum's XY fits
     # (RenderSettings.shadow_fit_batches); the plane still rasterizes into
     # the shadow map as an occluder and receiver.
@@ -70,26 +96,46 @@ class ShaderBallScene:
     _plane: DrawBatch | None = field(default=None, repr=False)
     _ball: DrawBatch | None = field(default=None, repr=False)
     _lights: object = field(default=None, repr=False)
+    _hosts: tuple = field(default=(), repr=False)
 
     def __post_init__(self):
         import torch
 
-        from bibim_tpu_torch.assets.fbx import load_fbx_mesh
-        from bibim_tpu_torch.utils.config import get_resource_root
+        mesh = self.ball_mesh
+        if mesh is None:
+            from bibim_tpu_torch.assets.fbx import load_fbx_mesh
+            from bibim_tpu_torch.utils.config import get_resource_root
 
+            mesh = load_fbx_mesh(get_resource_root().common("ShaderBall.fbx"))
         self._plane = ground_plane_batch(self.device)
-        ball_mesh = load_fbx_mesh(get_resource_root().common("ShaderBall.fbx"))
-        self._ball = batch_from_mesh(ball_mesh, device=self.device)
+        self._ball = batch_from_mesh(mesh, device=self.device)
         self._lights = shaderball_lights(self.device)
         model, inv = shaderball_instance_matrices(self.num_instances,
                                                   self.angle)
         self._ball = self._ball._replace(
             model=torch.as_tensor(model, device=self.device),
             inv_model=torch.as_tensor(inv, device=self.device))
+        plane = _plane_model()[None]
+        self._hosts = (
+            culling.host_instances(_deindexed_positions(mesh), model, inv),
+            culling.host_instances(
+                _deindexed_positions(generate_plane_mesh()), plane,
+                np.linalg.inv(plane.astype(np.float64)).astype(np.float32)))
 
     def scene_data(self) -> SceneData:
         return SceneData(batches=(self._ball, self._plane),
                          lights=self._lights)
+
+    @property
+    def host_instances(self) -> tuple:
+        """Per batch, the host matrices and bounds the cull reads."""
+        return self._hosts
+
+    def culled_scene_data(self, view, proj) -> SceneData:
+        """:meth:`scene_data` with each batch's instances frustum-culled
+        for this camera on the host (numpy ``view`` and ``proj``)."""
+        return culling.cull_scene_instances(self.scene_data(), self._hosts,
+                                            view, proj)
 
     @property
     def selected_material(self) -> int:

@@ -97,9 +97,7 @@ def test_output_modes(inputs):
     dict(show_tbn=True), dict(show_hud=True),
     dict(enable_shadows=True, pair_visibility=True),
     dict(enable_ibl=True, deferred=False), dict(pair_visibility=True),
-    dict(aniso_taps=2), dict(pair_sampling=2),
-    dict(early_z=True), dict(fine_bins=True), dict(group_pair_cap=512),
-    dict(merged_coverage=True), dict(raster="xla"),
+    dict(aniso_taps=2), dict(pair_sampling=2), dict(raster="xla"),
     dict(geometry="legacy"), dict(batch_material_ids=(0, 1), deferred=False),
 ], ids=lambda c: next(iter(c)))
 def test_unsupported_settings_raise(inputs, change):

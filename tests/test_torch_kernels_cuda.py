@@ -450,3 +450,107 @@ def test_frame_kernels_vs_plain(dev, frame, stretch):
     d = (out["image"].int() - ref["image"].int()).abs()
     assert int(d.max()) <= 2
     assert float((d > 0).any(dim=-1).float().mean()) <= 1e-3
+
+
+_VARIANT_FN = {"earlyz": "raster_tiles_earlyz", "group_pair_cap":
+               "raster_tiles_gw", "fine_bins": "raster_tiles_fine"}
+_PLAIN_RASTERS = dict(raster=fused.raster_tiles_plain,
+                      raster_earlyz=fused.raster_tiles_earlyz_plain,
+                      raster_gw=fused.raster_tiles_gw_plain,
+                      raster_fine=fused.raster_tiles_fine_plain,
+                      sort=sort.sort_keys_plain)
+
+
+def _assert_rasters_equal(a, b):
+    px, zk, diag = a
+    px_p, zk_p, diag_p = b
+    for k in range(4):
+        assert int(diag[k]) == int(diag_p[k])
+    assert torch.equal(zk, zk_p)
+    for x, y in zip(px, px_p):
+        for u, w in zip(x if isinstance(x, tuple) else (x,),
+                        y if isinstance(y, tuple) else (y,)):
+            assert torch.equal(u, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(earlyz=True, max_candidates=512),
+    dict(earlyz=True, max_candidates=48, passes=4, raster_tile_cap=96,
+         dense_tile_cap=64, merged_coverage=True),
+    dict(group_pair_cap=4096, max_candidates=512, raster_tile_cap=96),
+    dict(group_pair_cap=64, max_candidates=512, raster_tile_cap=96),
+    dict(fine_bins=True, max_candidates=512),
+    dict(fine_bins=True, max_candidates=48, passes=4, raster_tile_cap=96,
+         dense_tile_cap=64),
+], ids=["earlyz", "earlyz_multipass_merged", "group_window",
+        "group_window_overflow", "fine_bins", "fine_bins_multipass"])
+def test_raster_variant_kernels_bit_equal(dev, frame, kw):
+    """K9, K10 and K11 through raster_fused: bit-equal to their plain
+    versions (drops included), and to K1's frame where nothing drops."""
+    rec, setup = _setup(frame)
+    args = dict(overflow_cap=64, span_cap=16, **kw)
+    fn = getattr(fused, next(v for k, v in _VARIANT_FN.items() if k in kw))
+    before = fn.launches
+    got = fused.raster_fused(rec, setup, W, H, **args)
+    want = fused.raster_fused(rec, setup, W, H, **args, **_PLAIN_RASTERS)
+    torch.cuda.synchronize()
+    assert fn.launches > before
+    _assert_rasters_equal(got, want)
+    if int(got[2].dropped_cap) == 0:
+        base = {k: v for k, v in args.items()
+                if k not in ("earlyz", "group_pair_cap", "fine_bins")}
+        _assert_rasters_equal(got, fused.raster_fused(rec, setup, W, H,
+                                                      **base))
+    else:
+        assert "group_pair_cap" in kw
+
+
+@pytest.mark.cuda
+def test_earlyz_kernel_counts_chunks(dev, frame):
+    """K9's debug counter: window chunks scanned never exceed those
+    present, and the launch's outputs equal the plain version's."""
+    rec, setup = _setup(frame)
+    calls = []
+
+    def capture(*a, **k):
+        calls.append((a, k))
+        return fused.raster_tiles_earlyz(*a, **k)
+
+    fused.raster_fused(rec, setup, W, H, max_candidates=512, overflow_cap=64,
+                       span_cap=16, earlyz=True, raster_earlyz=capture)
+    a, k = calls[0]
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    got = fused.raster_tiles_earlyz(*a, **k, stats=stats)
+    want = fused.raster_tiles_earlyz_plain(*a, **k)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    scanned, present = stats.tolist()
+    assert 0 < scanned <= present
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    dict(early_z=True), dict(fine_bins=True),
+    dict(group_pair_cap=2048, raster_passes=1, max_candidates=256)],
+    ids=["early_z", "fine_bins", "group_pair_cap"])
+def test_variant_frames_vs_plain(dev, frame, extra):
+    """render_frame on K9 / K10 / K11 against the all-plain render."""
+    scene, vb, fp, mats = frame
+    s = RenderSettings(**{**dict(
+        width=W, height=H, outputs="image+diag", show_gizmo=False,
+        show_lights=False, max_candidates=64, raster_passes=4,
+        dense_tile_cap=64, live_tile_cap=120, raster_tile_cap=128,
+        span_mid_cap=1024), **extra})
+    fn = getattr(fused, next(v for k, v in _VARIANT_FN.items()
+                             if k in extra or (k == "earlyz"
+                                               and "early_z" in extra)))
+    before = fn.launches
+    out = render_frame(scene, vb, fp, mats, None, s)
+    ref = render_frame(scene, vb, fp, mats, None, s, kernels=PLAIN)
+    torch.cuda.synchronize()
+    assert fn.launches > before
+    for k in range(4):
+        assert int(out["bin_diag"][k]) == 0
+    assert torch.equal(out["image"], ref["image"])
