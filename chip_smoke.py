@@ -3,7 +3,7 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It
 
-1. builds the eight CUDA kernels from ``bibim_tpu_torch/csrc`` (into
+1. builds the eleven CUDA kernels from ``bibim_tpu_torch/csrc`` (into
    ``build/``, one nvcc per source in parallel) and prints the build time;
 2. builds the frames from repository-only inputs: the ShaderBall scene's
    structure (100× ground plane at y=-10, the three ShaderBall lights, the
@@ -16,8 +16,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    K2 sampled shade (with and without a shadow visibility plane), K3 pair
    sort and K4 overlay against their plain PyTorch versions on the inputs
    the frame itself produces and times both (median of CUDA-event
-   timings); renders 4 frames at 4 camera yaws through ``render_frame``
-   with launch counters reset just before;
+   timings); sizes ``group_pair_cap`` from the port's capacity probe and
+   checks K10 (group window) on that frame; renders 4 frames at 4 camera
+   yaws and the group-window frame through ``render_frame`` with launch
+   counters reset just before (the group-window frame must equal the
+   default frame of its yaw);
 4. the 3840×2160 shadows + IBL path (BASELINE config 5: shadow map of the
    ball at 1024², analytic IBL from the procedural sky): checks K1 (the
    4K main pass and the 1024² shadow pass), K3 (every sort), K4, K5
@@ -34,11 +37,26 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    (K2 and K8 bit-equal) and times both; renders the five frames again
    with the counters reset just before, and prints per view a histogram of
    the selected mip level and the share of pixels blending two levels;
-6. checks, on every frame, zero capacity drops (shadow pass included),
+6. the 1920×1080 instanced path (BASELINE config 4: 64 instances of the
+   stand-in ball, 640,002 triangles before culling): three views (the
+   bench camera, an orbit to yaw -25, the camera 20 units along the
+   row), each culled on the host and autotuned three ways — default
+   (multi-pass K1 with the merged slot order), ``early_z`` (K9 on every
+   pass) and ``fine_bins`` (K11 on pass 0) — with the dense-pass slot
+   count picked by measurement; prints the probes, the derived settings
+   and the culled instance counts; checks K1, K3, K2, K9 (with its
+   skipped-chunk share) and K11 against their plain versions on those
+   frames' inputs; renders the nine frames with the counters reset just
+   before; the default and early-z frames must equal the all-plain
+   render of the default settings;
+7. checks, on every frame, zero capacity drops (shadow pass included),
    coverage, that the image is not background, and the frame against the
    all-plain render of the same frame at the golden-image bound;
-7. prints the GPU's ``nvidia-smi`` name/power-limit line, one JSON line of
-   kernel results and, last, ``{"ok": true, "device": {...}}``.
+8. prints the GPU's ``nvidia-smi`` name/power-limit line, one JSON line of
+   kernel results (per kernel and path: launches on the main path, error
+   against the plain version, wrapper and plain times, the bound of the
+   inputs' bytes and operations on an H100 SXM, ``torch.sort``'s time for
+   K3) and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is non-zero. Without a GPU, or without
 the repository beside it, it exits non-zero and prints no result.
@@ -96,6 +114,27 @@ C2_CAPS = dict(
     span_mid_cap=1024, pair_budget=262144, live_tile_cap=384,
     raster_tile_cap=384,
 )
+# BASELINE config 4 (bench.py bench_instanced): 64 instances, 1080p, no
+# light spheres, no gizmo, autotuned at the bench's margin; pair sampling
+# is not ported (base pair_sampling=0). Views: the bench camera, an orbit
+# to yaw -25 (more of the row in view), the camera 20 units along x.
+C4_INSTANCES = 64
+C4_VIEWS = (("bench camera", 0.0, 0.0), ("yaw -25", -25.0, 0.0),
+            ("x + 20", 0.0, 20.0))
+C4_MODES = (("default", {}), ("early_z", {"early_z": True}),
+            ("fine_bins", {"fine_bins": True}))
+C4_MARGIN = 1.05
+# Bounds: NVIDIA's H100 SXM data sheet (3.35 TB/s HBM3, 67 TFLOP/s fp32
+# outside the tensor cores), and the operations each kernel does per unit
+# of work: a candidate × pixel coverage test (5 plane evaluations, the
+# reciprocal, the key) and a pixel's resolve (barycentrics, depth, 16
+# blended channels); shading and sampling per pixel.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+COVER_OPS = 25
+RESOLVE_OPS = 100
+SAMPLE_TAP_OPS = 8  # per tap and output channel (4 weights, 4 fma)
+LIGHT_OPS = 80  # GGX per light and pixel
 KERNEL_INFO = {
     "raster": ("K1 raster", "bibim_tpu_torch/csrc/raster.cu",
                "bibim_tpu/ops/fused.py:670"),
@@ -117,6 +156,15 @@ KERNEL_INFO = {
     "sample_mip_block": ("K8 mip-block sample",
                          "bibim_tpu_torch/csrc/mip_sample.cu",
                          "bibim_tpu/ops/texture_quad.py:1743"),
+    "raster_earlyz": ("K9 early-z raster",
+                      "bibim_tpu_torch/csrc/raster_earlyz.cu",
+                      "bibim_tpu/ops/fused.py:589"),
+    "raster_gw": ("K10 group-window raster",
+                  "bibim_tpu_torch/csrc/raster_gw.cu",
+                  "bibim_tpu/ops/fused.py:1085"),
+    "raster_fine": ("K11 fine-subtile raster",
+                    "bibim_tpu_torch/csrc/raster_fine.cu",
+                    "bibim_tpu/ops/fused.py:905"),
 }
 
 
@@ -146,13 +194,10 @@ def cuda_ms(fn, reps: int = 10) -> float:
 
 
 def build_inputs(dev, width=WIDTH, height=HEIGHT, caps=CAPS, **extra):
-    import numpy as np
     import torch
 
     from bibim_tpu_torch import math3d as m3
-    from bibim_tpu_torch.ops import texture_quad as tq
     from bibim_tpu_torch.pipeline import (
-        BLOCK_TABLE_THRESHOLD,
         FrameParams,
         RenderSettings,
         make_overlay_resources,
@@ -173,20 +218,7 @@ def build_inputs(dev, width=WIDTH, height=HEIGHT, caps=CAPS, **extra):
     ball = batch_from_mesh(ball_mesh, model, device=dev)
     scene = SceneData(batches=(ball, ground_plane_batch(dev)),
                       lights=shaderball_lights(dev))
-
-    rng = np.random.default_rng(SEED)
-
-    def tex(n):
-        return rng.integers(0, 256, (n, n, 1), dtype=np.uint8)
-
-    maps = {s: tex(2048) for s in ("metallic", "roughness", "ao")}
-    maps.update({s: tex(16) for s in ("alb_r", "alb_g", "alb_b", "nrm_x",
-                                     "nrm_y", "nrm_z", "height")})
-    mats = tq.build_quad_tables(maps, block_threshold=BLOCK_TABLE_THRESHOLD,
-                                device=dev)
-    kinds = [type(t).__name__ for t in mats]
-    if sorted(kinds) != ["BlockTable", "QuadTable"]:
-        raise AssertionError(f"unexpected material binding {kinds}")
+    mats = standin_materials(dev)
     overlay = make_overlay_resources(dev, with_gizmo=False)
     proj = m3.perspective(60.0, width / height, 0.1, 1000.0, device=dev)
     fp = FrameParams(
@@ -260,33 +292,135 @@ def assert_golden_bound(got, want, what: str) -> None:
                              f"{frac:.4%} pixels differ")
 
 
-def check_raster(call) -> dict:
-    """K1 on one captured raster call: zkey and tri_id bit-equal to the
-    plain raster, attribute planes within tests/test_fused.py's bound."""
+def tensor_bytes(*objs) -> int:
+    """Bytes of every distinct tensor in nested args (tuples, lists, dicts,
+    NamedTuples such as the material tables)."""
+    import torch
+
+    seen, total = set(), 0
+
+    def walk(x):
+        nonlocal total
+        if isinstance(x, torch.Tensor):
+            key = (x.data_ptr(), x.numel(), x.dtype)
+            if key not in seen:
+                seen.add(key)
+                total += x.numel() * x.element_size()
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                walk(v)
+
+    for o in objs:
+        walk(o)
+    return total
+
+
+def bound(nbytes: int, ops: float) -> dict:
+    """The least time of the work on an H100 SXM: its bytes (inputs read
+    once, outputs written once) at the HBM rate, or its operations at the
+    fp32 rate, whichever is longer."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=int(nbytes), ops=float(ops))
+
+
+def raster_tests(name: str, args, scanned_rows=None) -> float:
+    """Candidate × pixel coverage tests of one raster-kernel call (K9: the
+    window rows its break left scanned)."""
+    nb = int(args[2][0])
+    if name == "raster_fine":
+        lb_al, cntk, tile_h, tile_w = args[6], args[7], args[10], args[11]
+        spx = tile_h * tile_w // cntk.shape[1]
+        return float((nb * cntk.numel() + int(cntk.sum())) * spx)
+    if name == "raster_gw":
+        cnt, tile_h, tile_w = args[7], args[11], args[12]
+    elif name == "raster_earlyz":
+        cnt, tile_h, tile_w = args[6], args[11], args[12]
+    else:
+        cnt, tile_h, tile_w = args[6], args[9], args[10]
+    rows = int(cnt.sum()) if scanned_rows is None else scanned_rows
+    return float((nb * cnt.numel() + rows) * tile_h * tile_w)
+
+
+RASTER_FNS = {"raster": ("raster_tiles", "raster_tiles_plain"),
+              "raster_earlyz": ("raster_tiles_earlyz",
+                                "raster_tiles_earlyz_plain"),
+              "raster_gw": ("raster_tiles_gw", "raster_tiles_gw_plain"),
+              "raster_fine": ("raster_tiles_fine", "raster_tiles_fine_plain")}
+
+
+def check_raster(call, name: str = "raster", calls=()) -> dict:
+    """A raster kernel (K1, K9, K10, K11) on one captured call, timed, and
+    on every call in ``calls`` too: K1's zkey and tri_id bit-equal to the
+    plain raster and its attribute planes within tests/test_fused.py's
+    bound; K9-K11 bit-equal in every output. K9 runs with its chunk
+    counter: the share of window chunks its break skipped."""
     import torch
 
     from bibim_tpu_torch.ops import fused
 
+    kern = getattr(fused, RASTER_FNS[name][0])
+    plain = getattr(fused, RASTER_FNS[name][1])
+    err = 0.0
+    stats = None
+    skipped = None
+    for args, kw, _ in [call, *calls]:
+        kwk = dict(kw)
+        if name == "raster_earlyz":
+            stats = torch.zeros(2, dtype=torch.int64, device=args[0].device)
+            kwk["stats"] = stats
+        got = kern(*args, **kwk)
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        if name != "raster":
+            for g, w in zip(got, want):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"{name}: differs from its plain "
+                                         "version")
+            continue
+        zk, f = got
+        zk_p, f_p = want
+        idf = args[-1].index("idf")
+        if not torch.equal(zk, zk_p) or not torch.equal(f[idf], f_p[idf]):
+            raise AssertionError("K1: zkey / tri_id differ from the plain "
+                                 "raster")
+        err = max(err, float((f - f_p).abs().max()))
+        if err > 1e-3:
+            raise AssertionError(f"K1 attribute planes differ by {err}")
     args, kw, _ = call
-    zk, f = fused.raster_tiles(*args, **kw)
-    zk_p, f_p = fused.raster_tiles_plain(*args, **kw)
-    torch.cuda.synchronize()
-    idf = args[11].index("idf")
-    if not torch.equal(zk, zk_p) or not torch.equal(f[idf], f_p[idf]):
-        raise AssertionError("K1: zkey / tri_id differ from the plain raster")
-    err = float((f - f_p).abs().max())
-    if err > 1e-3:
-        raise AssertionError(f"K1 attribute planes differ by {err}")
-    return dict(max_abs_err=err, slots=int(args[4].shape[0]),
-                planes=len(args[11]),
-                ms=cuda_ms(lambda: fused.raster_tiles(*args, **kw)),
-                plain_ms=cuda_ms(lambda: fused.raster_tiles_plain(*args,
-                                                                  **kw)))
+    scanned_rows = None
+    if name == "raster_earlyz":
+        stats = torch.zeros(2, dtype=torch.int64, device=args[0].device)
+        kern(*args, **kw, stats=stats)
+        torch.cuda.synchronize()
+        scanned, present = stats.tolist()
+        scanned_rows = 8 * scanned
+        skipped = 1.0 - scanned / max(present, 1)
+    out = kern(*args, **kw)
+    tile_h, tile_w = (args[-3], args[-2])
+    ops = (raster_tests(name, args, scanned_rows) * COVER_OPS
+           + args[4].shape[0] * tile_h * tile_w * RESOLVE_OPS)
+    res = dict(max_abs_err=err, slots=int(args[4].shape[0]),
+               checked_calls=1 + len(calls), planes=len(args[-1]),
+               ms=cuda_ms(lambda: kern(*args, **kw)),
+               plain_ms=cuda_ms(lambda: plain(*args, **kw)),
+               library_ms=None,
+               **bound(tensor_bytes(args, out), ops))
+    if skipped is not None:
+        res["skipped_chunk_share"] = skipped
+    return res
 
 
 def check_sorts(calls: list) -> dict:
     """K3 on every captured sort (bit-equal to torch.sort); the largest
-    is timed."""
+    is timed, beside one torch.sort of the same keys (the library call)."""
+    import math
+
     import torch
 
     from bibim_tpu_torch.ops.sort import sort_keys, sort_keys_plain
@@ -299,9 +433,13 @@ def check_sorts(calls: list) -> dict:
             raise AssertionError(f"K3 sort of {tuple(keys.shape)} "
                                  f"{keys.dtype} differs from torch.sort")
     keys = max((c[0][0] for c in calls), key=lambda k: k.numel())
+    n = keys.numel()
     return dict(max_abs_err=0.0, sorts=len(calls), shape=list(keys.shape),
+                dtype=str(keys.dtype),
                 ms=cuda_ms(lambda: sort_keys(keys)),
-                plain_ms=cuda_ms(lambda: sort_keys_plain(keys)))
+                plain_ms=cuda_ms(lambda: sort_keys_plain(keys)),
+                library_ms=cuda_ms(lambda: torch.sort(keys)),
+                **bound(2 * tensor_bytes(keys), n * math.log2(max(n, 2))))
 
 
 def check_overlay(calls: list) -> dict:
@@ -320,11 +458,25 @@ def check_overlay(calls: list) -> dict:
     changed = int((got != args[9]).any(dim=0).sum())
     if changed == 0:
         raise AssertionError("K4 composited no pixel")
-    return dict(max_abs_err=0.0, live_slots=int(args[7]),
+    n_live, nb = int(args[7]), int(args[2][0])
+    npx = args[11] * args[12]
+    tests = (nb * n_live + int(args[6][:n_live].sum())) * npx
+    ops = tests * COVER_OPS + n_live * npx * RESOLVE_OPS
+    return dict(max_abs_err=0.0, live_slots=n_live,
                 pixels_changed=changed,
                 ms=cuda_ms(lambda: fused.overlay_tiles(*args, **kw)),
                 plain_ms=cuda_ms(lambda: fused.overlay_tiles_plain(*args,
-                                                                   **kw)))
+                                                                   **kw)),
+                library_ms=None, **bound(tensor_bytes(args, got), ops))
+
+
+def shade_bound(args, kw, out, n_lights: int, tap_channels: int) -> dict:
+    """Bound of a shading kernel call (K2, K5): its planes and tables read
+    once, the three output planes written once; per pixel the light loop
+    and ``tap_channels`` material taps × channels."""
+    n = out[0].numel()
+    ops = n * (n_lights * LIGHT_OPS + tap_channels * SAMPLE_TAP_OPS)
+    return bound(tensor_bytes(args, kw, out), ops)
 
 
 def check_kernels(calls: dict) -> dict:
@@ -358,9 +510,13 @@ def check_kernels(calls: dict) -> dict:
     vis_err = assert_shade_close(got, want, "K2 with visibility")
     if torch.equal(got[0], shade_sampled(*args, **kw)[0]):
         raise AssertionError("K2: the visibility plane changed nothing")
+    out = shade_sampled(*args, **kw)
+    # 25-tap block rows × 3 channels and 4-tap quads × 7 channels.
     res["shade"] = dict(max_abs_err=max(errs + [vis_err]),
                         vis_max_abs_err=vis_err,
-                        pixels=int(args[1].numel()),
+                        pixels=int(args[1].numel()), library_ms=None,
+                        **shade_bound(args, kw, out,
+                                      args[7].num_lights, 25 * 3 + 4 * 7),
                         ms=cuda_ms(lambda: shade_sampled(*args, **kw)),
                         plain_ms=cuda_ms(
                             lambda: shade_sampled_plain(*args, **kw)),
@@ -404,6 +560,8 @@ def check_kernels_c5(calls: dict) -> dict:
     errs.append(assert_shade_close(got, want, "K5 quantize+tonemap"))
     res["shade_gbuffer"] = dict(
         max_abs_err=max(errs), pixels=int(args[3].numel()),
+        library_ms=None, **shade_bound(args, kw, shade_tonemap(*args, **kw),
+                                       args[7].num_lights, 0),
         vis=kw.get("vis_plane") is not None,
         ambient=kw.get("ambient") is not None,
         ms=cuda_ms(lambda: shade_tonemap(*args, **kw)),
@@ -412,16 +570,21 @@ def check_kernels_c5(calls: dict) -> dict:
     # K6 and K7: bit-equal to their plain versions.
     res["sample_block"] = check_sampler(
         calls["sample_block"][0], tq.sample_table_block_kernel,
-        tq.sample_table_block, "sample_block")
+        tq.sample_table_block, "sample_block", 25)
     res["sample_small"] = check_sampler(
         calls["sample_small"][0], tq.sample_rows_small,
-        tq.sample_rows_small_plain, "sample_small")
+        tq.sample_rows_small_plain, "sample_small", 4)
     return res
 
 
-def check_sampler(call, kern, plain, name: str) -> dict:
+SAMPLER_TAPS = {"sample_block": 25, "sample_small": 4,
+                "sample_mip_block": 8}
+
+
+def check_sampler(call, kern, plain, name: str, taps: int) -> dict:
     """A sampler kernel (K6, K7, K8) on one captured call: every slot
-    plane bit-equal to its plain version; both timed."""
+    plane bit-equal to its plain version; both timed. ``taps``: live taps
+    per pixel and channel."""
     import torch
 
     args, kw, _ = call
@@ -435,8 +598,10 @@ def check_sampler(call, kern, plain, name: str) -> dict:
                                  f"plain version by {err}")
     plane = next(iter(want.values()))
     table = args[0] if isinstance(args[0], torch.Tensor) else args[0][0]
+    ops = plane.numel() * len(want) * taps * SAMPLE_TAP_OPS
     return dict(max_abs_err=0.0, pixels=int(plane.numel()),
-                table=list(table.shape), slots=len(want),
+                table=list(table.shape), slots=len(want), library_ms=None,
+                **bound(tensor_bytes(args, kw, got), ops),
                 ms=cuda_ms(lambda: kern(*args, **kw)),
                 plain_ms=cuda_ms(lambda: plain(*args, **kw)))
 
@@ -648,22 +813,24 @@ def check_kernels_c2(calls: dict) -> dict:
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             raise AssertionError(f"K2 with mip groups differs from its "
                                  f"plain version by {err}")
-    args, kw, _ = calls["shade"][0]
+    args, kw, out = calls["shade"][0]
+    # Mip-block groups: 8 live taps × 3 channels; quads 4 × 7.
     res["shade"] = dict(
         max_abs_err=0.0, calls=len(calls["shade"]),
-        pixels=int(args[1].numel()),
+        pixels=int(args[1].numel()), library_ms=None,
+        **shade_bound(args, kw, out, args[7].num_lights, 8 * 3 + 4 * 7),
         groups=[type(t).__name__ for t in args[0]],
         ms=cuda_ms(lambda: shade_sampled(*args, **kw)),
         plain_ms=cuda_ms(lambda: shade_sampled_plain(*args, **kw)))
     for call in calls["sample_mip_block"][1:]:
         check_sampler(call, tq.sample_mip_block_kernel, tq.sample_mip_block,
-                      "K8")
+                      "K8", 8)
     res["sample_mip_block"] = check_sampler(
         calls["sample_mip_block"][0], tq.sample_mip_block_kernel,
-        tq.sample_mip_block, "K8")
+        tq.sample_mip_block, "K8", 8)
     res["sample_small"] = check_sampler(
         calls["sample_small"][0], tq.sample_rows_small,
-        tq.sample_rows_small_plain, "K7 routed")
+        tq.sample_rows_small_plain, "K7 routed", 4)
     return res
 
 
@@ -762,6 +929,259 @@ def run_config2(dev, smi: str, name: str):
     return kres, launches
 
 
+def standin_materials(dev):
+    """Seeded stand-ins of the pbr maps, bound as the headline binds them:
+    2048² metallic / roughness / ao as one block table, 16² albedo /
+    normal / height as one quad table."""
+    import numpy as np
+
+    from bibim_tpu_torch.ops import texture_quad as tq
+    from bibim_tpu_torch.pipeline import BLOCK_TABLE_THRESHOLD
+
+    rng = np.random.default_rng(SEED)
+
+    def tex(n):
+        return rng.integers(0, 256, (n, n, 1), dtype=np.uint8)
+
+    maps = {s: tex(2048) for s in ("metallic", "roughness", "ao")}
+    maps.update({s: tex(16) for s in ("alb_r", "alb_g", "alb_b", "nrm_x",
+                                     "nrm_y", "nrm_z", "height")})
+    mats = tq.build_quad_tables(maps, block_threshold=BLOCK_TABLE_THRESHOLD,
+                                device=dev)
+    kinds = [type(t).__name__ for t in mats]
+    if sorted(kinds) != ["BlockTable", "QuadTable"]:
+        raise AssertionError(f"unexpected material binding {kinds}")
+    return mats
+
+
+def c4_view(label_yaw_dx, proj, dev):
+    """(view block, host view matrix) of a config-4 view: the bench camera
+    at (8, 6, -14), turned by ``yaw`` and moved ``dx`` along x."""
+    import numpy as np
+    import torch
+
+    from bibim_tpu_torch.pipeline import ViewBlock
+    from bibim_tpu_torch.scene.shaderball import instanced_camera
+
+    _, yaw, dx = label_yaw_dx
+    cam = instanced_camera()
+    cam.yaw = yaw
+    cam.pos = (cam.pos + np.float32([dx, 0.0, 0.0])).astype(np.float32)
+    view = cam.get_view_matrix()
+    return ViewBlock(
+        view=torch.as_tensor(view, device=dev), proj=proj,
+        view_pos=torch.as_tensor(cam.pos, device=dev),
+        enable_normal_map=torch.tensor(0, dtype=torch.int32,
+                                       device=dev)), view
+
+
+def run_config4(dev, smi: str, name: str):
+    """The instanced path: per view host culling and the autotune of each
+    raster mode, the kernel phases, then the counted frames."""
+    import dataclasses
+
+    import torch
+
+    from bibim_tpu_torch import math3d as m3
+    from bibim_tpu_torch.ops import fused
+    from bibim_tpu_torch.ops.shading import shade_sampled
+    from bibim_tpu_torch.ops.sort import sort_keys
+    from bibim_tpu_torch.pipeline import (
+        KERNELS,
+        PLAIN,
+        FrameParams,
+        RenderSettings,
+        render_frame,
+    )
+    from bibim_tpu_torch.pipeline.autotune import (
+        autotune_settings,
+        dense_cap_candidates,
+        pick_measured,
+    )
+    from bibim_tpu_torch.scene.culling import visible_instances
+    from bibim_tpu_torch.scene.meshgen import generate_uv_sphere_mesh
+    from bibim_tpu_torch.scene.shaderball import ShaderBallScene
+
+    t0 = time.perf_counter()
+    scene = ShaderBallScene(num_instances=C4_INSTANCES, device=dev,
+                            ball_mesh=generate_uv_sphere_mesh(100.0, 100,
+                                                              51))
+    mats = standin_materials(dev)
+    proj_host = m3.perspective(60.0, WIDTH / HEIGHT, 0.1, 1000.0).numpy()
+    proj = torch.as_tensor(proj_host, device=dev)
+    fp = FrameParams(
+        enable_tone_mapping=torch.tensor(1, dtype=torch.int32, device=dev),
+        exposure=torch.tensor(1.0, dtype=torch.float32, device=dev))
+    base = RenderSettings(width=WIDTH, height=HEIGHT, outputs="image+diag",
+                          show_gizmo=False, show_lights=False,
+                          pair_sampling=0)
+    full = scene.scene_data()
+    t_all = sum(int(b.positions.shape[0]) // 3 * int(b.model.shape[0])
+                for b in full.batches)
+    print(f"config-4 frame: {WIDTH}x{HEIGHT}, {C4_INSTANCES} instances of "
+          f"the stand-in ball, {t_all} triangles before culling, no light "
+          f"spheres, no gizmo; scene built in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    frames = []  # (label, data, view block, settings)
+    for view_def in C4_VIEWS:
+        vb, view_host = c4_view(view_def, proj, dev)
+        t0 = time.perf_counter()
+        data = scene.culled_scene_data(view_host, proj_host)
+        cull_ms = (time.perf_counter() - t0) * 1e3
+        vp = proj_host @ view_host
+        n_vis = int(visible_instances(scene.host_instances[0], vp).sum())
+        bucket = int(data.batches[0].model.shape[0])
+        tris = sum(int(b.positions.shape[0]) // 3 * int(b.model.shape[0])
+                   for b in data.batches)
+        print(f"config-4 view {view_def[0]}: culled on the host in "
+              f"{cull_ms:.2f} ms: {n_vis} of {C4_INSTANCES} instances "
+              f"visible, bucket {bucket}, {tris} triangles")
+        for mode, extra in C4_MODES:
+            t0 = time.perf_counter()
+            s, probe = autotune_settings(
+                data, vb, dataclasses.replace(base, **extra),
+                margin=C4_MARGIN)
+            tune_ms = (time.perf_counter() - t0) * 1e3
+            cands = dense_cap_candidates(s, probe, margin=C4_MARGIN)
+            picks = None
+            if len(cands) > 1:
+                s, results = pick_measured(cands, lambda sx: cuda_ms(
+                    lambda: render_frame(data, vb, fp, mats, None, sx),
+                    reps=3))
+                picks = [{"dense_tile_cap": sx.dense_tile_cap, "ms": ms}
+                         for ms, sx in results]
+            derived = {k: getattr(s, k) for k in (
+                "max_candidates", "raster_passes", "merged_coverage",
+                "dense_tile_cap", "raster_tile_cap", "live_tile_cap",
+                "span_cap", "span_mid_cap", "overflow_cap", "pair_budget",
+                "early_z", "fine_bins")}
+            print(f"config-4 view {view_def[0]}, {mode}: autotune "
+                  f"{tune_ms:.0f} ms; probe " + json.dumps(probe._asdict())
+                  + "; derived " + json.dumps(derived)
+                  + (f"; dense_tile_cap picked from {json.dumps(picks)}"
+                     if picks else ""))
+            if s.raster_passes < 2:
+                raise AssertionError(f"config-4 {mode}: a single raster "
+                                     "pass was derived")
+            frames.append((f"{view_def[0]}, {mode}", data, vb, s))
+
+    # Kernel phases on the frames' own inputs.
+    calls: dict = {}
+    per_frame = []
+    for label, data, vb, s in frames:
+        before = {k: len(v) for k, v in calls.items()}
+        render_frame(data, vb, fp, mats, None, s,
+                     kernels=capture_kernels(KERNELS, calls))
+        per_frame.append({k: len(v) - before.get(k, 0)
+                          for k, v in calls.items()})
+    torch.cuda.synchronize()
+    n_modes = len(C4_MODES)
+    first = calls["raster"][:per_frame[0]["raster"]]
+    sorts = calls["sort"][:per_frame[0]["sort"]]
+    kres = {
+        "raster": check_raster(first[0], "raster", first[1:]),
+        "sort": check_sorts(sorts),
+        "raster_earlyz": check_raster(calls["raster_earlyz"][0],
+                                      "raster_earlyz",
+                                      calls["raster_earlyz"][1:]),
+        "raster_fine": check_raster(calls["raster_fine"][0], "raster_fine",
+                                    calls["raster_fine"][1:]),
+    }
+    args, kw, _ = calls["shade"][0]
+    got = shade_sampled(*args, **kw)
+    want = PLAIN.shade(*args, **kw)
+    torch.cuda.synchronize()
+    err = assert_shade_close(got, want, "K2 (config 4)")
+    kres["shade"] = dict(
+        max_abs_err=err, pixels=int(args[1].numel()), library_ms=None,
+        **shade_bound(args, kw, got, args[7].num_lights, 25 * 3 + 4 * 7),
+        ms=cuda_ms(lambda: shade_sampled(*args, **kw)),
+        plain_ms=cuda_ms(lambda: PLAIN.shade(*args, **kw)))
+    # K9's skipped-chunk share over every captured call (all passes).
+    scanned = present = 0
+    for a, k, _ in calls["raster_earlyz"]:
+        st = torch.zeros(2, dtype=torch.int64, device=dev)
+        fused.raster_tiles_earlyz(*a, **k, stats=st)
+        sc, pr = st.tolist()
+        scanned, present = scanned + sc, present + pr
+    kres["raster_earlyz"]["all_calls_skipped_chunk_share"] = (
+        1.0 - scanned / max(present, 1))
+    print(f"config-4 K9 early-z: {present - scanned} of {present} window "
+          f"chunks skipped by the break "
+          f"({1.0 - scanned / max(present, 1):.4f}) over "
+          f"{len(calls['raster_earlyz'])} launches")
+    for k, v in kres.items():
+        print(f"kernel {k} (config 4): " + json.dumps(v))
+    del calls
+
+    # Main path: counters to 0, the nine frames through render_frame.
+    counters = (fused.raster_tiles, sort_keys, shade_sampled,
+                fused.raster_tiles_earlyz, fused.raster_tiles_fine)
+    for fn in counters:
+        fn.launches = 0
+    cover: list = []
+
+    def cov(kern):
+        def run(*args, **kw):
+            out = kern(*args, **kw)
+            if not cover:
+                cover.append(out[-1][args[-1].index("idf")] >= 0.5)
+            return out
+        return run
+
+    counted = KERNELS._replace(raster=cov(KERNELS.raster),
+                               raster_earlyz=cov(KERNELS.raster_earlyz),
+                               raster_fine=cov(KERNELS.raster_fine))
+    outs = []
+    for label, data, vb, s in frames:
+        cover.clear()
+        out = render_frame(data, vb, fp, mats, None, s, kernels=counted)
+        outs.append((out, cover[0]))
+    torch.cuda.synchronize()
+    launches = {"raster": fused.raster_tiles.launches,
+                "sort": sort_keys.launches,
+                "shade": shade_sampled.launches,
+                "raster_earlyz": fused.raster_tiles_earlyz.launches,
+                "raster_fine": fused.raster_tiles_fine.launches}
+    print("config-4 main-path launches: " + json.dumps(launches))
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the "
+                                 "config-4 frames")
+
+    frame_ms = []
+    for label, data, vb, s in frames:
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render_frame(data, vb, fp, mats, None, s)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        frame_ms.append(statistics.median(times))
+    for v in range(len(C4_VIEWS)):
+        _, data, vb, s_def = frames[v * n_modes]
+        ref = render_frame(data, vb, fp, mats, None, s_def,
+                           kernels=PLAIN)["image"]
+        for m in range(n_modes):
+            i = v * n_modes + m
+            (out, cv), (label, _, _, s) = outs[i], frames[i]
+            summary = check_frame(i, out, cv, ref, (HEIGHT, WIDTH, 3),
+                                  "config-4")
+            if C4_MODES[m][0] in ("default", "early_z") \
+                    and not torch.equal(out["image"], ref):
+                raise AssertionError(f"config-4 frame {i} ({label}) differs "
+                                     "from the all-plain default render")
+            print(f"config-4 frame {i}: {label}, {s.raster_passes} passes, "
+                  f"host median {frame_ms[i]:.2f} ms ({name}, {smi}), "
+                  + summary)
+    print(f"config-4 frame time median: {statistics.median(frame_ms):.2f} "
+          f"ms (host clock around render_frame + synchronize, {name}, "
+          f"{smi})")
+    return kres, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -773,11 +1193,17 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 2
     try:
+        import dataclasses
+
         from bibim_tpu_torch import _build
         from bibim_tpu_torch.ops import fused
         from bibim_tpu_torch.ops.shading import shade_sampled
         from bibim_tpu_torch.ops.sort import sort_keys
         from bibim_tpu_torch.pipeline import KERNELS, PLAIN, render_frame
+        from bibim_tpu_torch.pipeline.autotune import (
+            derive_settings,
+            probe_frame_caps,
+        )
     except ImportError as e:
         print(f"chip_smoke: the bibim_tpu_torch package is not importable "
               f"({e}); run from the repository root", file=sys.stderr)
@@ -811,57 +1237,89 @@ def main() -> int:
                      settings, kernels=capture_kernels(KERNELS, calls))
     torch.cuda.synchronize()
     kres = check_kernels(calls)
-    for k, v in kres.items():
-        print(f"kernel {k}: " + json.dumps(v))
     del calls
 
-    # Main path: counters to 0, four frames through render_frame.
-    vbs = [view_block(y, proj, dev) for y in YAWS]
+    # The group-window frame: group_pair_cap from the port's probe of the
+    # first view (derive_settings' rule), the other capacities as above.
+    vb0 = view_block(YAWS[0], proj, dev)
+    probe = probe_frame_caps(scene, vb0, settings)
+    gw_cap = derive_settings(dataclasses.replace(
+        settings, group_pair_cap=settings.max_candidates),
+        probe).group_pair_cap
+    if gw_cap is None:
+        raise AssertionError("no group window derived for the 1080p frame")
+    settings_gw = dataclasses.replace(settings, group_pair_cap=gw_cap)
+    print(f"group window: probe group_win {probe.group_win} (max "
+          f"candidates {probe.max_candidates}, bin tiles "
+          f"{probe.bin_tiles}) → group_pair_cap {gw_cap}")
+    calls = {}
+    render_frame(scene, vb0, fp, mats, overlay, settings_gw,
+                 kernels=capture_kernels(KERNELS, calls))
+    torch.cuda.synchronize()
+    kres["raster_gw"] = check_raster(calls["raster_gw"][0], "raster_gw")
+    del calls
+    for k, v in kres.items():
+        print(f"kernel {k}: " + json.dumps(v))
+
+    # Main path: counters to 0, four frames and the group-window frame
+    # through render_frame.
+    frames = [(f"yaw {y}", view_block(y, proj, dev), settings) for y in YAWS]
+    frames.append((f"yaw {YAWS[0]}, group window", vb0, settings_gw))
     counters = (fused.raster_tiles, shade_sampled, sort_keys,
-                fused.overlay_tiles)
+                fused.overlay_tiles, fused.raster_tiles_gw)
     for fn in counters:
         fn.launches = 0
     cover: list = []
 
-    def raster_cover(*args, **kw):
-        zk, f = KERNELS.raster(*args, **kw)
-        cover.append(f[args[11].index("idf")] >= 0.5)
-        return zk, f
+    def cov(kern):
+        def run(*args, **kw):
+            out = kern(*args, **kw)
+            cover.append(out[-1][args[-1].index("idf")] >= 0.5)
+            return out
+        return run
 
-    counted = KERNELS._replace(raster=raster_cover)
+    counted = KERNELS._replace(raster=cov(KERNELS.raster),
+                               raster_gw=cov(KERNELS.raster_gw))
     outs, frame_ms = [], []
-    for vb in vbs:
+    for _, vb, s in frames:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = render_frame(scene, vb, fp, mats, overlay, settings,
-                           kernels=counted)
+        out = render_frame(scene, vb, fp, mats, overlay, s, kernels=counted)
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         outs.append((out, cover[-1]))
     launches = {"raster": fused.raster_tiles.launches,
                 "shade": shade_sampled.launches,
                 "sort": sort_keys.launches,
-                "overlay": fused.overlay_tiles.launches}
+                "overlay": fused.overlay_tiles.launches,
+                "raster_gw": fused.raster_tiles_gw.launches}
     print("main-path launches: " + json.dumps(launches))
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {k} was not launched by the frame")
 
-    for i, ((out, cov), vb) in enumerate(zip(outs, vbs)):
-        ref = render_frame(scene, vb, fp, mats, overlay, settings,
+    for i, ((out, cov_i), (label, vb, s)) in enumerate(zip(outs, frames)):
+        ref = render_frame(scene, vb, fp, mats, overlay, s,
                            kernels=PLAIN)["image"]
-        summary = check_frame(i, out, cov, ref, (HEIGHT, WIDTH, 3), "1080p")
-        print(f"frame {i}: yaw {YAWS[i]}, {frame_ms[i]:.2f} ms, " + summary)
-    print(f"frame time median: {statistics.median(frame_ms):.2f} ms "
-          f"(host clock around render_frame + synchronize, {name}, {smi})")
+        summary = check_frame(i, out, cov_i, ref, (HEIGHT, WIDTH, 3),
+                              "1080p")
+        print(f"frame {i}: {label}, {frame_ms[i]:.2f} ms, " + summary)
+    if not torch.equal(outs[-1][0]["image"], outs[0][0]["image"]):
+        raise AssertionError("the group-window frame differs from the "
+                             "default frame of its yaw")
+    print(f"frame time median: {statistics.median(frame_ms[:len(YAWS)]):.2f}"
+          f" ms (host clock around render_frame + synchronize, {name}, "
+          f"{smi}); group-window frame {frame_ms[-1]:.2f} ms")
     del outs
 
     kres5, launches5 = run_config5(dev, smi, name)
     kres2, launches2 = run_config2(dev, smi, name)
+    kres4, launches4 = run_config4(dev, smi, name)
 
-    # One row per kernel and path: K1-K4 on the 1080p path, every kernel
-    # the config-5 path runs (K1 twice: main and shadow pass), then every
-    # kernel of the config-2 path (K2 with the mip groups, K8, K7 routed).
+    # One row per kernel and path: K1-K4 and K10 on the 1080p path, every
+    # kernel the config-5 path runs (K1 twice: main and shadow pass), every
+    # kernel of the config-2 path (K2 with the mip groups, K8, K7 routed),
+    # then the config-4 path (K1, K3, K2, K9, K11).
     rows = [(k, KERNEL_INFO[k][0] + ", 1080p", kres[k], launches[k])
             for k in kres]
     rows += [(k, KERNEL_INFO[k][0] + ", config-5 4K", kres5[k],
@@ -871,13 +1329,20 @@ def main() -> int:
                  launches5["raster_shadow_pass"]))
     rows += [(k, KERNEL_INFO[k][0] + ", config-2 720p cubes", kres2[k],
               launches2[k]) for k in kres2]
+    rows += [(k, KERNEL_INFO[k][0] + ", config-4 1080p x64", kres4[k],
+              launches4[k]) for k in kres4]
     kernels = []
     for k, label, r, n in rows:
         _, src, repl = KERNEL_INFO[k]
         kernels.append({"name": label, "route": "cuda", "source": src,
                         "replaces": repl, "launches": n,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
+    if len({KERNEL_INFO[k][0] for k, *_ in rows}) != 11:
+        raise AssertionError("the kernels line does not list all eleven "
+                             "kernels")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

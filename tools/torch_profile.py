@@ -4,9 +4,12 @@
 Run from the repository root: ``python3 tools/torch_profile.py``. It takes
 the frames of ``chip_smoke.py`` (same stand-in scenes, maps and
 capacities) with ``outputs="image"``: the 1920×1080 deferred frame
-(config 3), the 3840×2160 shadows + IBL frame (config 5) and the
-1280×720 textured-cube frame (config 2, at the bench's camera) and its
-ALBEDO G-buffer view. Per frame:
+(config 3) and its group-window variant (K10), the 3840×2160 shadows +
+IBL frame (config 5), the 1280×720 textured-cube frame (config 2, at the
+bench's camera) and its ALBEDO G-buffer view, and the 1920×1080
+64-instance frame (config 4, bench camera, culled on the host and
+autotuned) in its three raster modes: default (K1), early-z (K9) and fine
+bins (K11). Per frame:
 
 - 2 warm-up renders, then 6 renders timed on the host clock around
   ``render_frame`` + ``torch.cuda.synchronize()`` (no profiler);
@@ -48,6 +51,8 @@ KERNEL_OF = {
     "global_step": "K3", "local_merge": "K3", "overlay_kernel": "K4",
     "gbuffer_shade_kernel": "K5", "sample_block_kernel": "K6",
     "sample_small_kernel": "K7", "mip_block_kernel": "K8",
+    "raster_earlyz_kernel": "K9", "raster_gw_kernel": "K10",
+    "raster_fine_kernel": "K11",
 }
 PROBE_CAPS = dict(
     max_candidates=2048, raster_passes=1, overflow_cap=256, span_cap=32,
@@ -84,6 +89,75 @@ def cube_frames(dev, **extra):
 
     def frame(i):
         render_frame(scene, vb, fp, mats, None, s)
+
+    return frame
+
+
+def group_window_frames(dev):
+    """``frame(i)`` rendering config 3 with group_pair_cap from the port's
+    probe of the first yaw (as chip_smoke.py sizes it)."""
+    from bibim_tpu_torch.pipeline import render_frame
+    from bibim_tpu_torch.pipeline.autotune import (
+        derive_settings,
+        probe_frame_caps,
+    )
+
+    scene, mats, overlay, proj, fp, s = cs.build_inputs(dev)
+    s = dataclasses.replace(s, outputs="image")
+    vbs = [cs.view_block(y, proj, dev) for y in cs.YAWS]
+    probe = probe_frame_caps(scene, vbs[0], s)
+    s = dataclasses.replace(s, group_pair_cap=derive_settings(
+        dataclasses.replace(s, group_pair_cap=s.max_candidates),
+        probe).group_pair_cap)
+
+    def frame(i):
+        render_frame(scene, vbs[i % len(vbs)], fp, mats, overlay, s)
+
+    return frame
+
+
+def instanced_frames(dev, **extra):
+    """``frame(i)`` rendering config 4 at the bench camera: culled on the
+    host, autotuned for ``extra`` (the dense-pass slot count picked by
+    measurement, as chip_smoke.py picks it)."""
+    import torch
+
+    from bibim_tpu_torch import math3d as m3
+    from bibim_tpu_torch.pipeline import FrameParams, RenderSettings
+    from bibim_tpu_torch.pipeline import render_frame
+    from bibim_tpu_torch.pipeline.autotune import (
+        autotune_settings,
+        dense_cap_candidates,
+        pick_measured,
+    )
+    from bibim_tpu_torch.scene.meshgen import generate_uv_sphere_mesh
+    from bibim_tpu_torch.scene.shaderball import ShaderBallScene
+
+    scene = ShaderBallScene(num_instances=cs.C4_INSTANCES, device=dev,
+                            ball_mesh=generate_uv_sphere_mesh(100.0, 100,
+                                                              51))
+    mats = cs.standin_materials(dev)
+    proj_host = m3.perspective(60.0, cs.WIDTH / cs.HEIGHT, 0.1,
+                               1000.0).numpy()
+    proj = torch.as_tensor(proj_host, device=dev)
+    vb, view_host = cs.c4_view(cs.C4_VIEWS[0], proj, dev)
+    data = scene.culled_scene_data(view_host, proj_host)
+    fp = FrameParams(torch.tensor(1, dtype=torch.int32, device=dev),
+                     torch.tensor(1.0, device=dev))
+    base = RenderSettings(width=cs.WIDTH, height=cs.HEIGHT, outputs="image",
+                          show_gizmo=False, show_lights=False, **extra)
+    s, probe = autotune_settings(data, vb, base, margin=cs.C4_MARGIN)
+    cands = dense_cap_candidates(s, probe, margin=cs.C4_MARGIN)
+    if len(cands) > 1:
+        s, _ = pick_measured(cands, lambda sx: cs.cuda_ms(
+            lambda: render_frame(data, vb, fp, mats, None, sx), reps=3))
+    print(json.dumps({"config4_settings": {
+        k: getattr(s, k) for k in ("max_candidates", "raster_passes",
+                                   "merged_coverage", "dense_tile_cap",
+                                   "early_z", "fine_bins")}}))
+
+    def frame(i):
+        render_frame(data, vb, fp, mats, None, s)
 
     return frame
 
@@ -221,12 +295,17 @@ def main() -> int:
 
     profile("config3_1080p", shaderball_frames(
         dev, cs.WIDTH, cs.HEIGHT, cs.CAPS, {}, None, cs.YAWS), args.trace)
+    profile("config3_1080p_group_window", group_window_frames(dev),
+            args.trace)
     profile("config5_4k_shadows_ibl", shaderball_frames(
         dev, cs.C5_WIDTH, cs.C5_HEIGHT, cs.C5_CAPS, C5_EXTRA,
         make_ibl_sh(device=dev), cs.C5_YAWS), args.trace)
     profile("config2_720p_cubes", cube_frames(dev), args.trace)
     profile("config2_720p_albedo_view",
             cube_frames(dev, gbuffer_viz=GBufferViz.ALBEDO), args.trace)
+    for label, extra in cs.C4_MODES:
+        profile(f"config4_x64_1080p_{label}", instanced_frames(dev, **extra),
+                args.trace)
     return 0
 
 
