@@ -2,10 +2,11 @@
 
 The JAX package ``bibim_tpu`` is the reference; this package mirrors its
 layout module for module and runs the deferred PBR frame on an NVIDIA
-Hopper card, with the shadow map and image-based lighting. Plain tensor
-code is PyTorch; the kernels of the frame's hot path are hand-written CUDA
-C++ (``csrc/``), built with ``nvcc`` into one shared library at first use
-(see ``_build.py``):
+Hopper card, with the shadow map, image-based lighting, trilinear mips,
+and the instanced frame with host culling and the capacity autotune.
+Plain tensor code is PyTorch; the kernels of the frame's hot path are
+hand-written CUDA C++ (``csrc/``), built with ``nvcc`` into one shared
+library at first use (see ``_build.py``):
 
 - K1 raster + resolve        → ``ops.fused.raster_tiles``   (csrc/raster.cu)
 - K2 sampled shade           → ``ops.shading.shade_sampled`` (csrc/shade.cu)
@@ -17,6 +18,14 @@ C++ (``csrc/``), built with ``nvcc`` into one shared library at first use
   (csrc/sample.cu)
 - K7 small-table sample      → ``ops.texture_quad.sample_rows_small``
   (csrc/sample.cu)
+- K8 mip-block sample        → ``ops.texture_quad.sample_mip_block_kernel``
+  (csrc/mip_sample.cu)
+- K9 early-z raster          → ``ops.fused.raster_tiles_earlyz``
+  (csrc/raster_earlyz.cu)
+- K10 group-window raster    → ``ops.fused.raster_tiles_gw``
+  (csrc/raster_gw.cu)
+- K11 fine-subtile raster    → ``ops.fused.raster_tiles_fine``
+  (csrc/raster_fine.cu)
 
 Every kernel wrapper takes its plain PyTorch version for CPU tensors only;
 a CUDA tensor reaches the kernel or the wrapper raises. Importing this
@@ -25,12 +34,15 @@ package needs neither ``nvcc`` nor a GPU, and never imports ``jax``.
 Layout:
 
 - :mod:`bibim_tpu_torch.math3d`    — matrix conventions (reversed-Z)
-- :mod:`bibim_tpu_torch.scene`     — draw batches, lights, camera, scenes
+- :mod:`bibim_tpu_torch.scene`     — draw batches, lights, camera, scenes,
+  host culling
+- :mod:`bibim_tpu_torch.assets`    — FBX / OBJ / image / PBR-set loaders
 - :mod:`bibim_tpu_torch.ops`       — geometry, setup, binning, kernels,
   texture tables, shading, shadow map, IBL, tone mapping
-- :mod:`bibim_tpu_torch.pipeline`  — ``render_frame``
+- :mod:`bibim_tpu_torch.pipeline`  — ``render_frame``, the capacity
+  autotune
 - :mod:`bibim_tpu_torch.interop`   — numpy state of the JAX package → port
-- :mod:`bibim_tpu_torch.utils`     — capacity validation
+- :mod:`bibim_tpu_torch.utils`     — capacity validation, resource root
 """
 
 __version__ = "0.1.0"

@@ -1100,7 +1100,7 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
             counts_p = torch.clamp(counts, max=maxc)
         else:
             live = counts > p * maxc
-            k = dense_tile_cap
+            k = min(dense_tile_cap, nt)  # a larger list holds only dead slots
             ids, dropped_p = _compact_tile_list(live, k)
             dropped_tiles = dropped_tiles + dropped_p
             n_live_p = torch.clamp(live.sum(dtype=torch.int32), max=k)

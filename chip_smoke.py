@@ -39,8 +39,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    the selected mip level and the share of pixels blending two levels;
 6. the 1920×1080 instanced path (BASELINE config 4: 64 instances of the
    stand-in ball, 640,002 triangles before culling): three views (the
-   bench camera, an orbit to yaw -25, the camera 20 units along the
-   row), each culled on the host and autotuned three ways — default
+   bench camera, orbits to yaw -25 and yaw -45: 16-, 32- and 64-instance
+   buckets), each culled on the host and autotuned three ways — default
    (multi-pass K1 with the merged slot order), ``early_z`` (K9 on every
    pass) and ``fine_bins`` (K11 on pass 0) — with the dense-pass slot
    count picked by measurement; prints the probes, the derived settings
@@ -48,7 +48,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    skipped-chunk share) and K11 against their plain versions on those
    frames' inputs; renders the nine frames with the counters reset just
    before; the default and early-z frames must equal the all-plain
-   render of the default settings;
+   render of the default settings; a fine-bin frame may differ from them
+   only at masked-key ties and where the default winner's bounding box
+   misses the pixel (``c4_fine_vs_default``);
 7. checks, on every frame, zero capacity drops (shadow pass included),
    coverage, that the image is not background, and the frame against the
    all-plain render of the same frame at the golden-image bound;
@@ -116,11 +118,13 @@ C2_CAPS = dict(
 )
 # BASELINE config 4 (bench.py bench_instanced): 64 instances, 1080p, no
 # light spheres, no gizmo, autotuned at the bench's margin; pair sampling
-# is not ported (base pair_sampling=0). Views: the bench camera, an orbit
-# to yaw -25 (more of the row in view), the camera 20 units along x.
+# is not ported (base pair_sampling=0). Views: the bench camera (14 of 64
+# instances in view: bucket 16), orbits to yaw -25 (28: bucket 32) and to
+# yaw -45 (60: bucket 64, 640,002 triangles, so the early-z pair key has no
+# room in 31 bits and sorts as int64 with a 16-bit depth bucket).
 C4_INSTANCES = 64
 C4_VIEWS = (("bench camera", 0.0, 0.0), ("yaw -25", -25.0, 0.0),
-            ("x + 20", 0.0, 20.0))
+            ("yaw -45", -45.0, 0.0))
 C4_MODES = (("default", {}), ("early_z", {"early_z": True}),
             ("fine_bins", {"fine_bins": True}))
 C4_MARGIN = 1.05
@@ -436,6 +440,7 @@ def check_sorts(calls: list) -> dict:
     n = keys.numel()
     return dict(max_abs_err=0.0, sorts=len(calls), shape=list(keys.shape),
                 dtype=str(keys.dtype),
+                dtypes=sorted({str(c[0][0].dtype) for c in calls}),
                 ms=cuda_ms(lambda: sort_keys(keys)),
                 plain_ms=cuda_ms(lambda: sort_keys_plain(keys)),
                 library_ms=cuda_ms(lambda: torch.sort(keys)),
@@ -975,6 +980,62 @@ def c4_view(label_yaw_dx, proj, dev):
                                        device=dev)), view
 
 
+def c4_fine_vs_default(default, fine, differ) -> str:
+    """A fine-bin frame against the default frame of its view. A fine bin
+    (16 px wide) holds a subset of the candidates its coarse tile holds,
+    so the two frames may differ only at pixels where the default winner
+    is (a) tied on the masked depth key by the fine winner, which the
+    dense passes resolve by fine-bin window position, not draw order (the
+    reference's fine_bins multi-pass knife-edge, bibim_tpu/ops/fused.py
+    raster_fused_pallas), or (b) a triangle whose bounding box misses the
+    pixel: a near-degenerate sliver whose three edge functions round to
+    >= 0 along its line, outside the triangle. The coarse tile admits such
+    a candidate wherever the line crosses it; the fine bin does not. Both
+    follow from the reference's coverage test and binning. Everywhere
+    else the final depth keys and winners must be equal, and no fine key
+    may be nearer than the default's. ``differ``: the image pixels that
+    differ from the default frame."""
+    import torch
+
+    from bibim_tpu_torch.ops.geometry import assemble_scene_planar
+    from bibim_tpu_torch.ops.raster import triangle_setup_planar
+    from bibim_tpu_torch.pipeline import KERNELS
+    from bibim_tpu_torch.pipeline.framegraph import (
+        _assemble_and_raster,
+        _untile,
+    )
+
+    (_, data, vb, s_d), (_, _, _, s_f) = default, fine
+    px_d, zk_d, _, _ = _assemble_and_raster(data, vb, s_d, KERNELS)
+    px_f, zk_f, _, _ = _assemble_and_raster(data, vb, s_f, KERNELS)
+    if bool((zk_f > zk_d).any()):
+        raise AssertionError("config-4 fine bins: a final depth key is "
+                             "nearer than the default frame's")
+    psoup = assemble_scene_planar(data.batches, vb.view, vb.proj,
+                                  s_d.batch_material_ids)
+    bbox = triangle_setup_planar(psoup.clip, s_d.width, s_d.height).bbox
+    tri = _untile(px_d.tri_id, s_d).long()
+    ys, xs = torch.meshgrid(
+        torch.arange(s_d.height, device=tri.device),
+        torch.arange(s_d.width, device=tri.device), indexing="ij")
+    t = tri.clamp(min=0)
+    outside = (tri >= 0) & ((xs < bbox[0][t]) | (ys < bbox[1][t])
+                            | (xs > bbox[2][t]) | (ys > bbox[3][t]))
+    tie = _untile(zk_d == zk_f, s_d)
+    moved = _untile((zk_d != zk_f) | (px_d.tri_id != px_f.tri_id), s_d)
+    if bool((moved & ~(tie | outside)).any()):
+        raise AssertionError("config-4 fine bins: a winner differs from the "
+                             "default frame's with neither a key tie nor "
+                             "a pixel outside the default winner's bbox")
+    if bool((differ & ~moved).any()):
+        raise AssertionError("config-4 fine bins: a pixel differs from the "
+                             "default frame where the winner is the same")
+    return (f"vs the default frame {int(differ.sum())} pixels differ; "
+            f"winners differ at {int((moved & tie).sum())} masked-key ties "
+            f"and {int((moved & ~tie).sum())} pixels outside the default "
+            "winner's bbox")
+
+
 def run_config4(dev, smi: str, name: str):
     """The instanced path: per view host culling and the autotune of each
     raster mode, the kernel phases, then the counted frames."""
@@ -1078,10 +1139,11 @@ def run_config4(dev, smi: str, name: str):
     torch.cuda.synchronize()
     n_modes = len(C4_MODES)
     first = calls["raster"][:per_frame[0]["raster"]]
-    sorts = calls["sort"][:per_frame[0]["sort"]]
     kres = {
         "raster": check_raster(first[0], "raster", first[1:]),
-        "sort": check_sorts(sorts),
+        # Every sort of the nine frames: int32 packed keys, and on the
+        # 64-instance view's early-z frame int64 keys.
+        "sort": check_sorts(calls["sort"]),
         "raster_earlyz": check_raster(calls["raster_earlyz"][0],
                                       "raster_earlyz",
                                       calls["raster_earlyz"][1:]),
@@ -1098,19 +1160,27 @@ def run_config4(dev, smi: str, name: str):
         **shade_bound(args, kw, got, args[7].num_lights, 25 * 3 + 4 * 7),
         ms=cuda_ms(lambda: shade_sampled(*args, **kw)),
         plain_ms=cuda_ms(lambda: PLAIN.shade(*args, **kw)))
-    # K9's skipped-chunk share over every captured call (all passes).
-    scanned = present = 0
-    for a, k, _ in calls["raster_earlyz"]:
-        st = torch.zeros(2, dtype=torch.int64, device=dev)
-        fused.raster_tiles_earlyz(*a, **k, stats=st)
-        sc, pr = st.tolist()
-        scanned, present = scanned + sc, present + pr
+    # K9's skipped-chunk share per view and over every captured call (all
+    # passes).
+    ez = iter(calls["raster_earlyz"])
+    total = [0, 0]
+    for (label, data, vb, s), n in zip(frames, per_frame):
+        view = [0, 0]
+        for _ in range(n.get("raster_earlyz", 0)):
+            a, k, _ = next(ez)
+            st = torch.zeros(2, dtype=torch.int64, device=dev)
+            fused.raster_tiles_earlyz(*a, **k, stats=st)
+            view = [x + y for x, y in zip(view, st.tolist())]
+        if s.early_z:
+            total = [x + y for x, y in zip(total, view)]
+            print(f"config-4 K9 early-z, {label}: {view[1] - view[0]} of "
+                  f"{view[1]} window chunks skipped by the break over "
+                  f"{n['raster_earlyz']} launches")
     kres["raster_earlyz"]["all_calls_skipped_chunk_share"] = (
-        1.0 - scanned / max(present, 1))
-    print(f"config-4 K9 early-z: {present - scanned} of {present} window "
+        1.0 - total[0] / total[1])
+    print(f"config-4 K9 early-z: {total[1] - total[0]} of {total[1]} window "
           f"chunks skipped by the break "
-          f"({1.0 - scanned / max(present, 1):.4f}) over "
-          f"{len(calls['raster_earlyz'])} launches")
+          f"({kres['raster_earlyz']['all_calls_skipped_chunk_share']:.4f})")
     for k, v in kres.items():
         print(f"kernel {k} (config 4): " + json.dumps(v))
     del calls
@@ -1161,16 +1231,21 @@ def run_config4(dev, smi: str, name: str):
             times.append((time.perf_counter() - t0) * 1e3)
         frame_ms.append(statistics.median(times))
     for v in range(len(C4_VIEWS)):
-        _, data, vb, s_def = frames[v * n_modes]
-        ref = render_frame(data, vb, fp, mats, None, s_def,
-                           kernels=PLAIN)["image"]
+        ref_default = None
         for m in range(n_modes):
             i = v * n_modes + m
-            (out, cv), (label, _, _, s) = outs[i], frames[i]
+            (out, cv), (label, data, vb, s) = outs[i], frames[i]
+            ref = render_frame(data, vb, fp, mats, None, s,
+                               kernels=PLAIN)["image"]
+            if m == 0:
+                ref_default = ref
             summary = check_frame(i, out, cv, ref, (HEIGHT, WIDTH, 3),
                                   "config-4")
-            if C4_MODES[m][0] in ("default", "early_z") \
-                    and not torch.equal(out["image"], ref):
+            differ = (out["image"] != ref_default).any(dim=-1)
+            if C4_MODES[m][0] == "fine_bins":
+                summary += "; " + c4_fine_vs_default(
+                    frames[v * n_modes], frames[i], differ)
+            elif bool(differ.any()):
                 raise AssertionError(f"config-4 frame {i} ({label}) differs "
                                      "from the all-plain default render")
             print(f"config-4 frame {i}: {label}, {s.raster_passes} passes, "

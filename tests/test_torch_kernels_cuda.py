@@ -35,7 +35,7 @@ from bibim_tpu_torch.pipeline.framegraph import (
     _light_sphere_planar_soup,
 )
 from bibim_tpu_torch.ops.geometry import assemble_scene_planar
-from bibim_tpu_torch.ops.raster import triangle_setup_planar
+from bibim_tpu_torch.ops.raster import triangle_setup, triangle_setup_planar
 from bibim_tpu_torch.scene.camera import FreeLookCamera
 from bibim_tpu_torch.scene.meshgen import generate_uv_sphere_mesh
 from bibim_tpu_torch.scene.scene import SceneData, batch_from_mesh
@@ -506,28 +506,59 @@ def test_raster_variant_kernels_bit_equal(dev, frame, kw):
         assert "group_pair_cap" in kw
 
 
+def _occluded_layers(dev, layers=8, cell=16):
+    """Clip-space test geometry for K9's break: two near triangles (z 0.9,
+    spanning the viewport: the overflow list) in front of ``layers`` grids
+    of small far triangles (z 0.05-0.4), one per 16-px cell and layer."""
+    tris = [[[-3.0, -3.0, 0.9, 1.0], [3.0, -3.0, 0.9, 1.0],
+             [0.0, 5.0, 0.9, 1.0]]] * 2
+    for layer in range(layers):
+        z = 0.4 - 0.05 * layer
+        for y0 in range(0, H, cell):
+            for x0 in range(0, W, cell):
+                c = [(x0 + 1, y0 + 1), (x0 + cell - 1, y0 + 1),
+                     (x0 + 1, y0 + cell - 1)]
+                tris.append([[2.0 * x / W - 1.0, 2.0 * y / H - 1.0, z, 1.0]
+                             for x, y in c])
+    clip = torch.tensor(tris, dtype=torch.float32, device=dev).reshape(-1, 4)
+    idx = torch.arange(clip.shape[0], dtype=torch.int32,
+                       device=dev).reshape(-1, 3)
+    setup = triangle_setup(clip, idx, W, H)
+    z3 = torch.zeros((clip.shape[0], 3), device=dev)
+    rec = fused.build_record_table(setup, idx, z3[:, :2], z3, z3, clip[:, :3],
+                                   z3)
+    return rec, setup
+
+
 @pytest.mark.cuda
-def test_earlyz_kernel_counts_chunks(dev, frame):
-    """K9's debug counter: window chunks scanned never exceed those
-    present, and the launch's outputs equal the plain version's."""
-    rec, setup = _setup(frame)
+def test_earlyz_kernel_break_fires(dev):
+    """K9's break on the card: behind a near occluder (the overflow list)
+    every window candidate is farther, so each tile stops after its first
+    window round; the chunk counter shows the skip, and zkey, okey and
+    every plane equal the plain version's (which scans everything) and
+    K1's frame."""
+    rec, setup = _occluded_layers(dev)
     calls = []
 
     def capture(*a, **k):
         calls.append((a, k))
         return fused.raster_tiles_earlyz(*a, **k)
 
-    fused.raster_fused(rec, setup, W, H, max_candidates=512, overflow_cap=64,
-                       span_cap=16, earlyz=True, raster_earlyz=capture)
+    kw = dict(max_candidates=512, overflow_cap=8, span_cap=4)
+    got = fused.raster_fused(rec, setup, W, H, earlyz=True,
+                             raster_earlyz=capture, **kw)
+    base = fused.raster_fused(rec, setup, W, H, **kw)
     a, k = calls[0]
     stats = torch.zeros(2, dtype=torch.int64, device=dev)
-    got = fused.raster_tiles_earlyz(*a, **k, stats=stats)
+    out = fused.raster_tiles_earlyz(*a, **k, stats=stats)
     want = fused.raster_tiles_earlyz_plain(*a, **k)
     torch.cuda.synchronize()
-    for x, y in zip(got, want):
+    for x, y in zip(out, want):
         assert torch.equal(x, y)
+    _assert_rasters_equal(got, base)
     scanned, present = stats.tolist()
-    assert 0 < scanned <= present
+    assert 0 < scanned <= present // 2, (scanned, present)
+    assert bool((got[0].tri_id >= 0).all())
 
 
 @pytest.mark.cuda
