@@ -14,10 +14,10 @@ raster_passes``, ``pair_budget``, ``live_tile_cap``, ``raster_tile_cap``,
 3. :func:`dense_cap_candidates` + :func:`pick_measured` choose the dense-pass
    slot count of merged multi-pass frames by measurement.
 
-Not ported yet: the escape-tile probe of pair sampling, the measured
-overlay and gizmo caps (``derive_overlay_caps``), the shadow pass's
-derivation, the band probes of the sharded renderer; asking for any of
-them raises NotImplementedError.
+Not ported yet: the escape-tile probe of pair sampling, the overlay
+(light-sphere and gizmo) caps' derivation, the shadow pass's derivation,
+the band probes of the sharded renderer; :func:`autotune_settings`
+raises NotImplementedError where a frame would need one of them.
 """
 
 from __future__ import annotations
@@ -25,7 +25,6 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from bibim_tpu_torch.ops import fused
@@ -196,40 +195,6 @@ def _bucket(x: int, floor: int = 64) -> int:
     return -(-x // g) * g
 
 
-def derive_overlay_tiles(lights_pos, view, proj, settings,
-                         radius: float = 0.1, margin: float = 1.5) -> int:
-    """Conservative screen-tile bound of the light-sphere pass: each
-    light's AABB corners projected (a sphere straddling the near plane
-    counts the full screen)."""
-    nt = (-(-settings.width // settings.tile_w)
-          * -(-settings.height // settings.tile_h))
-    vp = np.asarray(proj, np.float64) @ np.asarray(view, np.float64)
-    tiles = 0
-    corners = np.array(
-        [[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
-         for sz in (-1, 1)], np.float64) * radius
-    for p in np.asarray(lights_pos, np.float64):
-        pts = p[None, :] + corners
-        h = np.concatenate([pts, np.ones((8, 1))], axis=1) @ vp.T
-        if (h[:, 3] <= 1e-6).any():
-            return nt
-        ndc = h[:, :2] / h[:, 3:4]
-        x = (ndc[:, 0] * 0.5 + 0.5) * settings.width
-        y = (ndc[:, 1] * 0.5 + 0.5) * settings.height
-        x0 = int(np.clip(np.floor(x.min() / settings.tile_w), 0,
-                         settings.tiles_x - 1))
-        x1 = int(np.clip(np.floor(x.max() / settings.tile_w), 0,
-                         settings.tiles_x - 1))
-        y0 = int(np.clip(np.floor(y.min() / settings.tile_h), 0,
-                         settings.tiles_y - 1))
-        y1 = int(np.clip(np.floor(y.max() / settings.tile_h), 0,
-                         settings.tiles_y - 1))
-        if x.max() >= 0 and x.min() < settings.width \
-                and y.max() >= 0 and y.min() < settings.height:
-            tiles += (x1 - x0 + 1) * (y1 - y0 + 1)
-    return min(_bucket(int(tiles * margin) + 8, floor=64), nt)
-
-
 def derive_settings(settings, probe: CapProbe, margin: float = 1.25):
     """RenderSettings with capacities derived from a :class:`CapProbe`
     (the JAX package's rules; ``margin`` is headroom for camera motion —
@@ -319,30 +284,26 @@ def derive_settings(settings, probe: CapProbe, margin: float = 1.25):
 
 
 def autotune_settings(scene, view_block, settings, margin: float = 1.25,
-                      measure_coverage: bool = True, materials=None,
-                      overlay=None, kernels: Kernels = KERNELS):
+                      kernels: Kernels = KERNELS):
     """Probe + derive in one call. Returns (settings, probe).
 
     When the derivation picks another span_cap, the bin statistics are
-    probed again at that span (coverage is span-independent). With light
-    spheres on, ``overlay_max_tiles`` takes the projected-bounds bound.
-    ``materials`` is read only by the escape-tile probe (pair sampling),
-    which is not ported: ``pair_sampling`` raises, as do ``overlay``
-    (measured overlay caps) and shadows (the light-view derivation)."""
+    probed again at that span (coverage is span-independent). The parts
+    that are not ported raise NotImplementedError: ``pair_sampling`` (the
+    escape-tile probe), light spheres with lights (the overlay caps'
+    derivation) and shadows (the light-view derivation)."""
     lights = getattr(scene, "lights", None)
+    has_lights = lights is not None and lights.num_lights > 0
     if settings.pair_sampling:
         raise NotImplementedError("autotune with pair_sampling (the "
                                   "escape-tile probe) is not ported")
-    if overlay is not None:
-        raise NotImplementedError("autotune of the measured overlay caps "
-                                  "is not ported")
-    if settings.enable_shadows and lights is not None \
-            and lights.num_lights > 0:
+    if settings.show_lights and has_lights:
+        raise NotImplementedError("autotune of the light-sphere overlay "
+                                  "caps is not ported")
+    if settings.enable_shadows and has_lights:
         raise NotImplementedError("autotune of the shadow pass is not "
                                   "ported")
-    probe = probe_frame_caps(scene, view_block, settings,
-                             measure_coverage=measure_coverage,
-                             kernels=kernels)
+    probe = probe_frame_caps(scene, view_block, settings, kernels=kernels)
     derived = derive_settings(settings, probe, margin=margin)
     if derived.span_cap != settings.span_cap:
         base2 = dataclasses.replace(settings, span_cap=derived.span_cap)
@@ -351,13 +312,4 @@ def autotune_settings(scene, view_block, settings, margin: float = 1.25,
         probe = probe2._replace(covered_tiles=probe.covered_tiles,
                                 escape_tiles=probe.escape_tiles)
         derived = derive_settings(base2, probe, margin=margin)
-    if derived.show_lights and lights is not None and lights.num_lights > 0:
-        derived = dataclasses.replace(
-            derived,
-            overlay_max_tiles=min(
-                derived.overlay_max_tiles,
-                derive_overlay_tiles(
-                    lights.pos[: lights.num_lights].cpu().numpy(),
-                    view_block.view.cpu().numpy(),
-                    view_block.proj.cpu().numpy(), derived)))
     return derived, probe

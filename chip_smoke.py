@@ -136,6 +136,7 @@ C4_MARGIN = 1.05
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 COVER_OPS = 25
+COVER_CH = 15  # coverage floats a raster kernel reads per candidate
 RESOLVE_OPS = 100
 SAMPLE_TAP_OPS = 8  # per tap and output channel (4 weights, 4 fma)
 LIGHT_OPS = 80  # GGX per light and pixel
@@ -322,6 +323,156 @@ def tensor_bytes(*objs) -> int:
     return total
 
 
+def field_channels(out_fields) -> int:
+    """Record channels a raster kernel's resolve needs per winner for the
+    output planes ``out_fields`` (ops/fused.py record layout): the
+    barycentric planes need the edge rows, and every plane but ``matf``
+    the hit test on ``_ID``."""
+    from bibim_tpu_torch.ops import fused as f
+
+    def rng(base, n=3):
+        return set(range(base, base + n))
+
+    bary = rng(f._A, 9) | {f._ID}
+    need = {"depth": rng(f._ZC, 6) | {f._ID}, "idf": {f._ID},
+            "matf": {f._MAT}, "b0": bary, "b1": bary,
+            "u": bary | rng(f._U), "v": bary | rng(f._V)}
+    for j, axis in enumerate("xyz"):
+        need["n" + axis] = bary | rng(f._N + 3 * j)
+        need["t" + axis] = bary | rng(f._T + 3 * j)
+        need["w" + axis] = bary | rng(f._W + 3 * j)
+    for j, c in enumerate("rgb"):
+        need["c" + c] = bary | rng(f._COL + 3 * j)
+    return len(set().union(*(need[x] for x in out_fields)))
+
+
+def window_rows(pair_len: int, lo, n):
+    """(pair_len,) bool: the pair-list rows inside any window [lo, lo + n)
+    (flattened, clipped to the list)."""
+    import torch
+
+    lo = lo.reshape(-1).long().clamp(0, pair_len)
+    hi = torch.maximum((lo + n.reshape(-1).long().clamp(min=0)).clamp(
+        max=pair_len), lo)
+    d = torch.zeros(pair_len + 1, dtype=torch.int64, device=lo.device)
+    d.index_add_(0, lo, torch.ones_like(lo))
+    d.index_add_(0, hi, -torch.ones_like(hi))
+    return d.cumsum(0)[:pair_len] > 0
+
+
+def n_distinct(t) -> int:
+    import torch
+
+    t = t.reshape(-1)
+    return int(torch.unique(t[t >= 0]).numel())
+
+
+def raster_bytes(name: str, args, out, window_share: float = 1.0) -> int:
+    """Bytes one raster-kernel call (K1, K9, K10, K11; K4 as "overlay")
+    must move: the 15 coverage floats of each distinct candidate of the
+    overflow list and of the windows its slots scan (K9: also the draw
+    order and depth bound; ``window_share`` of the window candidates, the
+    share of chunks its break left), the pair-list rows of those windows,
+    the per-slot window ids, the initial planes, the record channels of
+    each distinct winner that its output planes need, and the outputs.
+    Pad instances, unused channels and rows outside the windows are not
+    read, so they do not count."""
+    import torch
+
+    from bibim_tpu_torch.ops import fused
+
+    rec, big_ids, n_big, pair_tri, ids = args[:5]
+    nb = min(int(n_big[0]), big_ids.shape[0])
+    k = ids.shape[0]
+    if name == "raster_gw":
+        win, lb_al, cnt, init, group = args[5], args[6], args[7], args[8], \
+            args[9]
+        lo, index = win.repeat_interleave(group) + lb_al, (win, lb_al, cnt)
+    elif name == "raster_fine":
+        starts, lb_al, cnt, init = args[5], args[6], args[7], args[8]
+        lo, index = starts[:, None] + lb_al, (starts, lb_al, cnt)
+    elif name == "overlay":
+        k = int(args[7])  # live slots; the rest are skipped
+        starts, cnt, ids = args[5][:k], args[6][:k], ids[:k]
+        lo, index = starts, (starts, cnt)
+        init = args[8][ids.long()]
+    else:
+        starts, cnt, init = args[5], args[6], args[7]
+        lo, index = starts, (starts, cnt)
+    inwin = window_rows(pair_tri.shape[0], lo, cnt)
+    big = big_ids[:nb]
+    n_big_c = n_distinct(big)
+    n_win_c = n_distinct(torch.cat([big, pair_tri[inwin]])) - n_big_c
+    per_cand = COVER_CH
+    if name == "raster_earlyz":
+        per_cand += 2  # _ID (draw order) and _ZUB (the break's bucket)
+        init = (init, args[8])
+    cands = n_big_c + n_win_c * window_share
+    nbytes = (cands * per_cand * 4 + int(inwin.sum()) * 4 + nb * 4 + 4
+              + 4 * ids.numel() + sum(4 * t[:k].numel() for t in index)
+              + tensor_bytes(init))
+    if name == "overlay":
+        # Winners by the plain scan of the live slots; the output is a new
+        # image (the LDR planes read once, written once).
+        px, py = fused._pixel_centres(ids, args[10], args[11], args[12])
+        _, best = fused._scan_plain(rec, big_ids, n_big, pair_tri, starts,
+                                    cnt, init, px, py)
+        chans = field_channels(("cr", "cg", "cb"))
+        return int(nbytes + n_distinct(best) * chans * 4
+                   + 2 * tensor_bytes(args[9]))
+    out_fields = args[-1]
+    fields = out[-1]
+    if "idf" not in out_fields:
+        # The winners of the same call with every plane (the scan does not
+        # depend on the planes asked for).
+        kern = getattr(fused, RASTER_FNS[name][0])
+        fields = kern(*args[:-1], fused._OUT_FIELDS)[-1]
+        idf = fields[fused._OUT_FIELDS.index("idf")]
+    else:
+        idf = fields[out_fields.index("idf")]
+    winners = n_distinct(torch.where(idf >= 0.5, torch.round(idf) - 1,
+                                     torch.full_like(idf, -1.0)))
+    return int(nbytes + winners * field_channels(out_fields) * 4
+               + tensor_bytes(out))
+
+
+def table_rows(table, u, v, mat_id, tile_h: int, tile_w: int):
+    """The row of material table ``table`` each pixel reads (its layout's
+    footprint, as the samplers compute it)."""
+    from bibim_tpu_torch.ops import texture_quad as tq
+
+    if isinstance(table, tq.BlockTable):
+        x0, y0, _, _ = tq._footprint_ints(u, v, table.height, table.width)
+        return (y0 // tq.BLOCK_B) * (table.width // tq.BLOCK_B) \
+            + x0 // tq.BLOCK_B
+    if isinstance(table, tq.QuadTable):
+        return tq._footprint(u, v, table.height, table.width)[0]
+    if isinstance(table, tq.MipBlockMulti):
+        return tq._mip_block_geometry(table, mat_id, u, v, tile_h,
+                                      tile_w)["idx"]
+    return tq.small_footprint_multi(table, mat_id, u, v)[0]
+
+
+def rows_bytes(tab, rows) -> int:
+    """Bytes of the distinct in-range rows ``rows`` of table ``tab``."""
+    r = rows.reshape(-1)
+    r = r[(r >= 0) & (r < tab.shape[0])]
+    return n_distinct(r) * tab.shape[1]
+
+
+def tables_bytes(tables, u, v, mat_id, tile_h, tile_w, mask=None) -> int:
+    """Bytes of the distinct table rows the pixels of ``mask`` (default:
+    all) read, over every table of a material binding."""
+    total = 0
+    for t in tables:
+        rows = table_rows(t, u, v, mat_id, tile_h, tile_w).reshape(-1)
+        if mask is not None:
+            rows = rows[mask.reshape(-1)]
+        total += rows_bytes(t.blocks if hasattr(t, "blocks") else t.quads,
+                            rows)
+    return total
+
+
 def bound(nbytes: int, ops: float) -> dict:
     """The least time of the work on an H100 SXM: its bytes (inputs read
     once, outputs written once) at the HBM rate, or its operations at the
@@ -398,13 +549,15 @@ def check_raster(call, name: str = "raster", calls=()) -> dict:
             raise AssertionError(f"K1 attribute planes differ by {err}")
     args, kw, _ = call
     scanned_rows = None
+    share = 1.0
     if name == "raster_earlyz":
         stats = torch.zeros(2, dtype=torch.int64, device=args[0].device)
         kern(*args, **kw, stats=stats)
         torch.cuda.synchronize()
         scanned, present = stats.tolist()
         scanned_rows = 8 * scanned
-        skipped = 1.0 - scanned / max(present, 1)
+        share = scanned / max(present, 1)
+        skipped = 1.0 - share
     out = kern(*args, **kw)
     tile_h, tile_w = (args[-3], args[-2])
     ops = (raster_tests(name, args, scanned_rows) * COVER_OPS
@@ -413,8 +566,8 @@ def check_raster(call, name: str = "raster", calls=()) -> dict:
                checked_calls=1 + len(calls), planes=len(args[-1]),
                ms=cuda_ms(lambda: kern(*args, **kw)),
                plain_ms=cuda_ms(lambda: plain(*args, **kw)),
-               library_ms=None,
-               **bound(tensor_bytes(args, out), ops))
+               library_ms=None, whole_tensor_bytes=tensor_bytes(args, out),
+               **bound(raster_bytes(name, args, out, share), ops))
     if skipped is not None:
         res["skipped_chunk_share"] = skipped
     return res
@@ -472,16 +625,41 @@ def check_overlay(calls: list) -> dict:
                 ms=cuda_ms(lambda: fused.overlay_tiles(*args, **kw)),
                 plain_ms=cuda_ms(lambda: fused.overlay_tiles_plain(*args,
                                                                    **kw)),
-                library_ms=None, **bound(tensor_bytes(args, got), ops))
+                library_ms=None, whole_tensor_bytes=tensor_bytes(args, got),
+                **bound(raster_bytes("overlay", args, got), ops))
 
 
-def shade_bound(args, kw, out, n_lights: int, tap_channels: int) -> dict:
-    """Bound of a shading kernel call (K2, K5): its planes and tables read
-    once, the three output planes written once; per pixel the light loop
-    and ``tap_channels`` material taps × channels."""
-    n = out[0].numel()
-    ops = n * (n_lights * LIGHT_OPS + tap_channels * SAMPLE_TAP_OPS)
-    return bound(tensor_bytes(args, kw, out), ops)
+def shade_bound(args, kw, out, tap_channels: int,
+                sampled: bool = True) -> dict:
+    """Bound of a shading kernel call (K2 ``sampled``, K5): the valid
+    plane read whole, the other input planes only at valid pixels (the
+    output is 0 elsewhere), K2's material tables as the distinct rows the
+    valid pixels read, the lights, the three output planes written once;
+    per valid pixel the light loop and ``tap_channels`` material taps ×
+    channels."""
+    from bibim_tpu_torch.ops import texture_quad as tq
+
+    valid, lights = args[6], args[7]
+    nv = int(valid.sum())
+    opt = [kw.get("vis_plane")]
+    if sampled:
+        tables = args[0]
+        routed = any(isinstance(t, (tq.MipBlockMulti, tq.MipQuadMulti))
+                     for t in tables)
+        n_planes = 11 + (routed and kw.get("mat_id") is not None)
+        tabs = tables_bytes(tables, args[1], args[2], kw.get("mat_id"),
+                            kw.get("tile_h", 8), kw.get("tile_w", 128),
+                            valid)
+    else:
+        n_planes, tabs = 12, 0
+        opt += list(kw.get("ambient") or ())
+    n_planes += sum(t is not None for t in opt)
+    nbytes = (valid.numel() + 4 * n_planes * nv + tabs
+              + tensor_bytes(args[7:]) + tensor_bytes(out))
+    ops = nv * (lights.num_lights * LIGHT_OPS
+                + tap_channels * SAMPLE_TAP_OPS)
+    return dict(whole_tensor_bytes=tensor_bytes(args, kw, out),
+                valid_pixels=nv, **bound(nbytes, ops))
 
 
 def check_kernels(calls: dict) -> dict:
@@ -520,8 +698,7 @@ def check_kernels(calls: dict) -> dict:
     res["shade"] = dict(max_abs_err=max(errs + [vis_err]),
                         vis_max_abs_err=vis_err,
                         pixels=int(args[1].numel()), library_ms=None,
-                        **shade_bound(args, kw, out,
-                                      args[7].num_lights, 25 * 3 + 4 * 7),
+                        **shade_bound(args, kw, out, 25 * 3 + 4 * 7),
                         ms=cuda_ms(lambda: shade_sampled(*args, **kw)),
                         plain_ms=cuda_ms(
                             lambda: shade_sampled_plain(*args, **kw)),
@@ -566,7 +743,7 @@ def check_kernels_c5(calls: dict) -> dict:
     res["shade_gbuffer"] = dict(
         max_abs_err=max(errs), pixels=int(args[3].numel()),
         library_ms=None, **shade_bound(args, kw, shade_tonemap(*args, **kw),
-                                       args[7].num_lights, 0),
+                                       0, sampled=False),
         vis=kw.get("vis_plane") is not None,
         ambient=kw.get("ambient") is not None,
         ms=cuda_ms(lambda: shade_tonemap(*args, **kw)),
@@ -584,6 +761,29 @@ def check_kernels_c5(calls: dict) -> dict:
 
 SAMPLER_TAPS = {"sample_block": 25, "sample_small": 4,
                 "sample_mip_block": 8}
+
+
+def sampler_bytes(args, out) -> int:
+    """Bytes a sampler call (K6, K7, K8) must move: every pixel's inputs
+    (uv and the material ids; K7: its row index and fractions), the
+    distinct table rows the pixels read, the output planes."""
+    import torch
+
+    from bibim_tpu_torch.ops import texture_quad as tq
+
+    if isinstance(args[0], torch.Tensor):  # K7: (quads, idx, tx, ty, ..)
+        idx = args[1]
+        return rows_bytes(args[0], idx) + 12 * idx.numel() \
+            + tensor_bytes(out)
+    if isinstance(args[0], tq.BlockTable):  # K6: (table, u, v)
+        table, u, v = args[:3]
+        mat_id, tile = None, (8, 128)
+    else:  # K8: (table, mat_id, u, v, tile_h, tile_w)
+        table, mat_id, u, v = args[:4]
+        tile = tuple(args[4:6]) or (8, 128)
+    n_planes = 2 + (mat_id is not None)
+    return (tables_bytes((table,), u, v, mat_id, *tile)
+            + 4 * n_planes * u.numel() + tensor_bytes(out))
 
 
 def check_sampler(call, kern, plain, name: str, taps: int) -> dict:
@@ -606,7 +806,8 @@ def check_sampler(call, kern, plain, name: str, taps: int) -> dict:
     ops = plane.numel() * len(want) * taps * SAMPLE_TAP_OPS
     return dict(max_abs_err=0.0, pixels=int(plane.numel()),
                 table=list(table.shape), slots=len(want), library_ms=None,
-                **bound(tensor_bytes(args, kw, got), ops),
+                whole_tensor_bytes=tensor_bytes(args, kw, got),
+                **bound(sampler_bytes(args, got), ops),
                 ms=cuda_ms(lambda: kern(*args, **kw)),
                 plain_ms=cuda_ms(lambda: plain(*args, **kw)))
 
@@ -823,7 +1024,7 @@ def check_kernels_c2(calls: dict) -> dict:
     res["shade"] = dict(
         max_abs_err=0.0, calls=len(calls["shade"]),
         pixels=int(args[1].numel()), library_ms=None,
-        **shade_bound(args, kw, out, args[7].num_lights, 8 * 3 + 4 * 7),
+        **shade_bound(args, kw, out, 8 * 3 + 4 * 7),
         groups=[type(t).__name__ for t in args[0]],
         ms=cuda_ms(lambda: shade_sampled(*args, **kw)),
         plain_ms=cuda_ms(lambda: shade_sampled_plain(*args, **kw)))
@@ -1157,7 +1358,7 @@ def run_config4(dev, smi: str, name: str):
     err = assert_shade_close(got, want, "K2 (config 4)")
     kres["shade"] = dict(
         max_abs_err=err, pixels=int(args[1].numel()), library_ms=None,
-        **shade_bound(args, kw, got, args[7].num_lights, 25 * 3 + 4 * 7),
+        **shade_bound(args, kw, got, 25 * 3 + 4 * 7),
         ms=cuda_ms(lambda: shade_sampled(*args, **kw)),
         plain_ms=cuda_ms(lambda: PLAIN.shade(*args, **kw)))
     # K9's skipped-chunk share per view and over every captured call (all
@@ -1336,14 +1537,13 @@ def main() -> int:
     for k, v in kres.items():
         print(f"kernel {k}: " + json.dumps(v))
 
-    # Main path: counters to 0, four frames and the group-window frame
-    # through render_frame.
+    # Main path: counters to 0, the four frames through render_frame; then
+    # counters to 0 again and the group-window frame in its own window.
     frames = [(f"yaw {y}", view_block(y, proj, dev), settings) for y in YAWS]
     frames.append((f"yaw {YAWS[0]}, group window", vb0, settings_gw))
-    counters = (fused.raster_tiles, shade_sampled, sort_keys,
-                fused.overlay_tiles, fused.raster_tiles_gw)
-    for fn in counters:
-        fn.launches = 0
+    counters = {"raster": fused.raster_tiles, "shade": shade_sampled,
+                "sort": sort_keys, "overlay": fused.overlay_tiles,
+                "raster_gw": fused.raster_tiles_gw}
     cover: list = []
 
     def cov(kern):
@@ -1355,20 +1555,23 @@ def main() -> int:
 
     counted = KERNELS._replace(raster=cov(KERNELS.raster),
                                raster_gw=cov(KERNELS.raster_gw))
-    outs, frame_ms = [], []
-    for _, vb, s in frames:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = render_frame(scene, vb, fp, mats, overlay, s, kernels=counted)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-        outs.append((out, cover[-1]))
-    launches = {"raster": fused.raster_tiles.launches,
-                "shade": shade_sampled.launches,
-                "sort": sort_keys.launches,
-                "overlay": fused.overlay_tiles.launches,
-                "raster_gw": fused.raster_tiles_gw.launches}
-    print("main-path launches: " + json.dumps(launches))
+    outs, frame_ms, windows = [], [], []
+    for window in (frames[:len(YAWS)], frames[len(YAWS):]):
+        for fn in counters.values():
+            fn.launches = 0
+        for _, vb, s in window:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = render_frame(scene, vb, fp, mats, overlay, s,
+                               kernels=counted)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append((out, cover[-1]))
+        windows.append({k: fn.launches for k, fn in counters.items()})
+    launches = dict(windows[0], raster_gw=windows[1]["raster_gw"])
+    print(f"main-path launches ({len(YAWS)} frames): "
+          + json.dumps(windows[0]))
+    print("group-window frame launches (1 frame): " + json.dumps(windows[1]))
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {k} was not launched by the frame")
@@ -1391,26 +1594,28 @@ def main() -> int:
     kres2, launches2 = run_config2(dev, smi, name)
     kres4, launches4 = run_config4(dev, smi, name)
 
-    # One row per kernel and path: K1-K4 and K10 on the 1080p path, every
-    # kernel the config-5 path runs (K1 twice: main and shadow pass), every
-    # kernel of the config-2 path (K2 with the mip groups, K8, K7 routed),
-    # then the config-4 path (K1, K3, K2, K9, K11).
-    rows = [(k, KERNEL_INFO[k][0] + ", 1080p", kres[k], launches[k])
-            for k in kres]
+    # One row per kernel and path: K1-K4 on the 1080p path's 4 frames, K10
+    # on its group-window frame, every kernel the config-5 path runs (K1
+    # twice: main and shadow pass), every kernel of the config-2 path (K2
+    # with the mip groups, K8, K7 routed), then the config-4 path (K1, K3,
+    # K2, K9, K11). ``frames``: the main-path frames its launches count.
+    n2, n4 = len(C2_CAMERA_Z) + len(C2_VIEWS), len(C4_VIEWS) * len(C4_MODES)
+    rows = [(k, KERNEL_INFO[k][0] + ", 1080p", kres[k], launches[k],
+             1 if k == "raster_gw" else len(YAWS)) for k in kres]
     rows += [(k, KERNEL_INFO[k][0] + ", config-5 4K", kres5[k],
-              launches5[k]) for k in kres5 if k in KERNEL_INFO]
+              launches5[k], len(C5_YAWS)) for k in kres5 if k in KERNEL_INFO]
     rows.append(("raster", KERNEL_INFO["raster"][0]
                  + ", config-5 shadow pass", kres5["raster_shadow_pass"],
-                 launches5["raster_shadow_pass"]))
+                 launches5["raster_shadow_pass"], len(C5_YAWS)))
     rows += [(k, KERNEL_INFO[k][0] + ", config-2 720p cubes", kres2[k],
-              launches2[k]) for k in kres2]
+              launches2[k], n2) for k in kres2]
     rows += [(k, KERNEL_INFO[k][0] + ", config-4 1080p x64", kres4[k],
-              launches4[k]) for k in kres4]
+              launches4[k], n4) for k in kres4]
     kernels = []
-    for k, label, r, n in rows:
+    for k, label, r, n, frames in rows:
         _, src, repl = KERNEL_INFO[k]
         kernels.append({"name": label, "route": "cuda", "source": src,
-                        "replaces": repl, "launches": n,
+                        "replaces": repl, "launches": n, "frames": frames,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

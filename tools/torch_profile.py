@@ -27,6 +27,11 @@ bins (K11). Per frame:
 capacities and prints, for every raster pass and the overlay, the tiles
 with pairs, the largest per-tile count, the overflow triangles and the
 covered tiles: the numbers ``C5_CAPS`` in chip_smoke.py was sized from.
+
+``--merged`` instead profiles config 4's default frame at each of
+chip_smoke.py's three views, autotuned once, with ``merged_coverage`` on
+and off (on, off, off, on): what the chunk-class slot order costs or
+earns.
 """
 
 from __future__ import annotations
@@ -116,34 +121,41 @@ def group_window_frames(dev):
     return frame
 
 
-def instanced_frames(dev, **extra):
-    """``frame(i)`` rendering config 4 at the bench camera: culled on the
-    host, autotuned for ``extra`` (the dense-pass slot count picked by
-    measurement, as chip_smoke.py picks it)."""
+def instanced_scene(dev):
+    """Config 4's scene, maps, projection (host and device) and frame
+    parameters, as chip_smoke.py builds them."""
     import torch
 
     from bibim_tpu_torch import math3d as m3
-    from bibim_tpu_torch.pipeline import FrameParams, RenderSettings
-    from bibim_tpu_torch.pipeline import render_frame
-    from bibim_tpu_torch.pipeline.autotune import (
-        autotune_settings,
-        dense_cap_candidates,
-        pick_measured,
-    )
+    from bibim_tpu_torch.pipeline import FrameParams
     from bibim_tpu_torch.scene.meshgen import generate_uv_sphere_mesh
     from bibim_tpu_torch.scene.shaderball import ShaderBallScene
 
     scene = ShaderBallScene(num_instances=cs.C4_INSTANCES, device=dev,
                             ball_mesh=generate_uv_sphere_mesh(100.0, 100,
                                                               51))
-    mats = cs.standin_materials(dev)
     proj_host = m3.perspective(60.0, cs.WIDTH / cs.HEIGHT, 0.1,
                                1000.0).numpy()
-    proj = torch.as_tensor(proj_host, device=dev)
-    vb, view_host = cs.c4_view(cs.C4_VIEWS[0], proj, dev)
-    data = scene.culled_scene_data(view_host, proj_host)
     fp = FrameParams(torch.tensor(1, dtype=torch.int32, device=dev),
                      torch.tensor(1.0, device=dev))
+    return (scene, cs.standin_materials(dev), proj_host,
+            torch.as_tensor(proj_host, device=dev), fp)
+
+
+def instanced_settings(dev, c4, view=cs.C4_VIEWS[0], **extra):
+    """(frame data, view block, settings) of config 4 at ``view``: culled
+    on the host, autotuned for ``extra`` (the dense-pass slot count picked
+    by measurement, as chip_smoke.py picks it)."""
+    from bibim_tpu_torch.pipeline import RenderSettings, render_frame
+    from bibim_tpu_torch.pipeline.autotune import (
+        autotune_settings,
+        dense_cap_candidates,
+        pick_measured,
+    )
+
+    scene, mats, proj_host, proj, fp = c4
+    vb, view_host = cs.c4_view(view, proj, dev)
+    data = scene.culled_scene_data(view_host, proj_host)
     base = RenderSettings(width=cs.WIDTH, height=cs.HEIGHT, outputs="image",
                           show_gizmo=False, show_lights=False, **extra)
     s, probe = autotune_settings(data, vb, base, margin=cs.C4_MARGIN)
@@ -151,10 +163,18 @@ def instanced_frames(dev, **extra):
     if len(cands) > 1:
         s, _ = pick_measured(cands, lambda sx: cs.cuda_ms(
             lambda: render_frame(data, vb, fp, mats, None, sx), reps=3))
-    print(json.dumps({"config4_settings": {
+    print(json.dumps({"config4_settings": {"view": view[0], **{
         k: getattr(s, k) for k in ("max_candidates", "raster_passes",
                                    "merged_coverage", "dense_tile_cap",
-                                   "early_z", "fine_bins")}}))
+                                   "early_z", "fine_bins")}}}))
+    return data, vb, s
+
+
+def instanced_frames(c4, data, vb, s):
+    """``frame(i)`` rendering one config-4 view with settings ``s``."""
+    from bibim_tpu_torch.pipeline import render_frame
+
+    _, mats, _, _, fp = c4
 
     def frame(i):
         render_frame(data, vb, fp, mats, None, s)
@@ -275,6 +295,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--probe", action="store_true",
                     help="capacity probe of the config-5 frame")
+    ap.add_argument("--merged", action="store_true",
+                    help="config 4's default frame at each view with "
+                    "merged_coverage on and off (on, off, off, on)")
     ap.add_argument("--trace", metavar="DIR",
                     help="write each frame's Chrome trace into DIR")
     args = ap.parse_args()
@@ -291,6 +314,15 @@ def main() -> int:
     if args.probe:
         probe(dev)
         return 0
+    if args.merged:
+        c4 = instanced_scene(dev)
+        for view in cs.C4_VIEWS:
+            data, vb, s = instanced_settings(dev, c4, view)
+            for on in (True, False, False, True):
+                sx = dataclasses.replace(s, merged_coverage=on)
+                profile(f"config4 {view[0]} merged_coverage={on}",
+                        instanced_frames(c4, data, vb, sx), args.trace)
+        return 0
     from bibim_tpu_torch.pipeline import GBufferViz
 
     profile("config3_1080p", shaderball_frames(
@@ -303,9 +335,10 @@ def main() -> int:
     profile("config2_720p_cubes", cube_frames(dev), args.trace)
     profile("config2_720p_albedo_view",
             cube_frames(dev, gbuffer_viz=GBufferViz.ALBEDO), args.trace)
+    c4 = instanced_scene(dev)
     for label, extra in cs.C4_MODES:
-        profile(f"config4_x64_1080p_{label}", instanced_frames(dev, **extra),
-                args.trace)
+        profile(f"config4_x64_1080p_{label}", instanced_frames(
+            c4, *instanced_settings(dev, c4, **extra)), args.trace)
     return 0
 
 
