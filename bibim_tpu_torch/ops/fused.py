@@ -962,16 +962,6 @@ def _ceil8(n: int) -> int:
     return -(-n // CHUNK) * CHUNK
 
 
-def _chunk_class_order(ids, counts_p, slot_live):
-    """merged_coverage's slot order: live slots by descending chunk count
-    of their window, tile id ascending within a class, dead slots last
-    (the reference's 2-key slot sort)."""
-    ckey = torch.where(slot_live, -((counts_p + (CHUNK - 1)) // CHUNK),
-                       torch.ones_like(counts_p))
-    key = (ckey.to(torch.int64) << 32) | ids.to(torch.int64)
-    return (torch.sort(key).values & 0xFFFFFFFF).to(torch.int32)
-
-
 def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
                  height: int, tile_h: int = 8, tile_w: int = 128,
                  max_candidates: int = 320, overflow_cap: int = 64,
@@ -981,8 +971,7 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
                  raster_tile_cap: int | None = None,
                  span_mid_cap: int | None = None,
                  group_pair_cap: int | None = None, drop_fields: tuple = (),
-                 fine_bins: bool = False, merged_coverage: bool = False,
-                 earlyz: bool = False, raster=raster_tiles,
+                 fine_bins: bool = False, earlyz: bool = False, raster=raster_tiles,
                  raster_earlyz=raster_tiles_earlyz, raster_gw=raster_tiles_gw,
                  raster_fine=raster_tiles_fine, sort=sort_keys):
     """Bin + rasterize + resolve: the host side of K1 and its schedule
@@ -1008,8 +997,11 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
     - ``earlyz`` (K9, ``raster_earlyz``, every pass) unless ``fine_bins``
       or the group window is on, or the setup has no ``zub``: windows sort
       near-first and the winner carries its draw order across passes.
-    - ``merged_coverage``: pass-0 and dense-pass slots sort by chunk class
-      (the reference's group-loop schedule; the kernels are unchanged).
+
+    The reference's ``merged_coverage`` (one coverage loop per group of
+    tiles, slots sorted by chunk class) has no counterpart: a block here is
+    one tile and loops to its own count, and the chunk-class slot order
+    cost more in its sort than it saved in K1 (PERF.md, config 4).
 
     Returns (pixels: FusedPixels, zkey (NT, NPX) int32, diag: BinDiag)."""
     maxc = _ceil8(max_candidates)
@@ -1084,9 +1076,6 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
             dropped_tiles = dropped_tiles + dropped0
             n_live = torch.clamp(live0.sum(dtype=torch.int32), max=k)
             slot_live = torch.arange(k, device=dev) < n_live
-            if merged_coverage and not use_gw and not fine_bins:
-                ids = _chunk_class_order(
-                    ids, torch.clamp(counts[ids.long()], max=maxc), slot_live)
             scatter_ids = torch.where(slot_live, ids.long(),
                                       torch.full_like(ids.long(), nt))
             starts_p = starts[ids.long()]
@@ -1105,10 +1094,6 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
             dropped_tiles = dropped_tiles + dropped_p
             n_live_p = torch.clamp(live.sum(dtype=torch.int32), max=k)
             slot_live_p = torch.arange(k, device=dev) < n_live_p
-            if merged_coverage and not fine_bins:
-                ids = _chunk_class_order(
-                    ids, torch.clamp(counts[ids.long()] - p * maxc, 0, maxc),
-                    slot_live_p)
             starts_p = starts[ids.long()] + p * maxc
             counts_p = torch.where(
                 slot_live_p,

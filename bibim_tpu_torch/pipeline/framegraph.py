@@ -26,8 +26,8 @@ Stages of :func:`render_frame`:
    viewport), sRGB encode and u8.
 
 The main pass takes the reference's raster schedule variants: early-z
-(K9, every pass), the group window (K10) and fine subtiles (K11), and the
-merged-coverage slot order. Settings outside the port (forward lighting,
+(K9, every pass), the group window (K10) and fine subtiles (K11);
+``merged_coverage`` is accepted and has no counterpart. Settings outside the port (forward lighting,
 pair sampling and pair visibility, anisotropic taps, HUD, TBN, flat
 main-frame shading) raise NotImplementedError.
 """
@@ -140,6 +140,9 @@ class RenderSettings:
     dense_tile_cap: int | None = None
     group_pair_cap: int | None = None
     fine_bins: bool = False
+    # The reference's merged coverage schedule has no counterpart on the
+    # GPU (ops/fused.py raster_fused); the field stays so that settings
+    # derive as the JAX package's, and dense_cap_candidates reads it.
     merged_coverage: bool = False
     sequential_tris: bool = True
     batch_material_ids: tuple | None = None
@@ -257,8 +260,8 @@ def _raster(rec, setup, width, height, settings: RenderSettings,
             tile_cap=None):
     """``tile_cap``: the pass-0 tile compaction of a pass that is not the
     main one (the main pass takes ``settings.raster_tile_cap``). Early-z
-    and merged coverage apply to every pass (shadow and gizmo too), the
-    group window and fine bins to the main pass only."""
+    applies to every pass (shadow and gizmo too), the group window and
+    fine bins to the main pass only."""
     if passes is None:
         passes = settings.raster_passes if cap is None else 1
     return fused.raster_fused(
@@ -275,7 +278,7 @@ def _raster(rec, setup, width, height, settings: RenderSettings,
         drop_fields=(drop_fields if drop_fields is not None
                      else (_prunable_fields(settings) if main_pass else ())),
         fine_bins=settings.fine_bins and main_pass,
-        merged_coverage=settings.merged_coverage, earlyz=settings.early_z,
+        earlyz=settings.early_z,
         raster=kernels.raster, raster_earlyz=kernels.raster_earlyz,
         raster_gw=kernels.raster_gw, raster_fine=kernels.raster_fine,
         sort=kernels.sort,

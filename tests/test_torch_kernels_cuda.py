@@ -477,13 +477,13 @@ def _assert_rasters_equal(a, b):
 @pytest.mark.parametrize("kw", [
     dict(earlyz=True, max_candidates=512),
     dict(earlyz=True, max_candidates=48, passes=4, raster_tile_cap=96,
-         dense_tile_cap=64, merged_coverage=True),
+         dense_tile_cap=64),
     dict(group_pair_cap=4096, max_candidates=512, raster_tile_cap=96),
     dict(group_pair_cap=64, max_candidates=512, raster_tile_cap=96),
     dict(fine_bins=True, max_candidates=512),
     dict(fine_bins=True, max_candidates=48, passes=4, raster_tile_cap=96,
          dense_tile_cap=64),
-], ids=["earlyz", "earlyz_multipass_merged", "group_window",
+], ids=["earlyz", "earlyz_multipass", "group_window",
         "group_window_overflow", "fine_bins", "fine_bins_multipass"])
 def test_raster_variant_kernels_bit_equal(dev, frame, kw):
     """K9, K10 and K11 through raster_fused: bit-equal to their plain

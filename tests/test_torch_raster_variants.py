@@ -1,6 +1,6 @@
 """The raster schedule variants of the port — early-z (K9), the group
-window (K10), fine subtiles (K11), merged coverage — and the early-z pair
-order, against the JAX package's ``raster_fused_pallas`` in interpret mode
+window (K10), fine subtiles (K11) — its raster against the reference's
+merged coverage, and the early-z pair order, against the JAX package's ``raster_fused_pallas`` in interpret mode
 and against the port's own K1, on a config-4-like frame: small UV-sphere
 instances over the ground plane at 256×128 (tests/torch_port_cases.py).
 
@@ -57,7 +57,12 @@ def test_scene_is_dense_enough(inst):
     assert int(counts.max()) > 2 * 128 and int(n_big[0]) > 0
 
 
-@pytest.mark.parametrize("kw", [ONE_PASS, MULTI], ids=["one_pass", "multi"])
+# MULTI without the pass-0 compaction: pass 0 on the full tile grid.
+MULTI_FULL = dict(MULTI, raster_tile_cap=None)
+
+
+@pytest.mark.parametrize("kw", [ONE_PASS, MULTI, MULTI_FULL],
+                         ids=["one_pass", "multi", "multi_full_grid"])
 def test_earlyz_matches_pallas(inst, kw):
     """K9's plain version (every pass) vs the JAX package's early-z."""
     got = _port(inst, earlyz=True, **kw)
@@ -65,9 +70,8 @@ def test_earlyz_matches_pallas(inst, kw):
     assert int(got[2].dropped_cap) == 0
 
 
-@pytest.mark.parametrize("kw", [ONE_PASS, MULTI, dict(MULTI,
-                                                      merged_coverage=True)],
-                         ids=["one_pass", "multi", "multi_merged"])
+@pytest.mark.parametrize("kw", [ONE_PASS, MULTI, MULTI_FULL],
+                         ids=["one_pass", "multi", "multi_full_grid"])
 def test_earlyz_equals_k1(inst, kw):
     """On drop-free capacities the early-z frame is the draw-ordered
     frame bit for bit (no cross-split ties in this scene)."""
@@ -196,19 +200,12 @@ def test_fine_bins_init_zkey_and_drops(inst):
 
 
 def test_merged_coverage_on_off_and_pallas(inst):
-    """The chunk-class slot order changes no pixel, and matches the JAX
-    package's merged-coverage raster."""
-    on = _port(inst, merged_coverage=True, **MULTI)
-    cases.assert_raster_equal(on, _port(inst, **MULTI))
-    cases.assert_raster_close(on, _jax(inst, merged_coverage=True, **MULTI))
-
-
-def test_chunk_class_order():
-    ids = torch.tensor([3, 5, 7, 9, 3], dtype=torch.int32)
-    counts = torch.tensor([9, 30, 9, 1, 0], dtype=torch.int32)
-    live = torch.tensor([True, True, True, True, False])
-    got = fused._chunk_class_order(ids, counts, live)
-    assert got.tolist() == [5, 3, 7, 9, 3]
+    """The port's raster (merged coverage has no counterpart on the GPU)
+    matches the JAX package's raster with its merged-coverage schedule on
+    and off."""
+    got = _port(inst, **MULTI)
+    cases.assert_raster_close(got, _jax(inst, merged_coverage=True, **MULTI))
+    cases.assert_raster_close(got, _jax(inst, **MULTI))
 
 
 @pytest.mark.parametrize("nt,t", [(32, 5000), (4080, 640_002), (1, 1),

@@ -7,9 +7,9 @@ capacities) with ``outputs="image"``: the 1920×1080 deferred frame
 (config 3) and its group-window variant (K10), the 3840×2160 shadows +
 IBL frame (config 5), the 1280×720 textured-cube frame (config 2, at the
 bench's camera) and its ALBEDO G-buffer view, and the 1920×1080
-64-instance frame (config 4, bench camera, culled on the host and
-autotuned) in its three raster modes: default (K1), early-z (K9) and fine
-bins (K11). Per frame:
+64-instance frame (config 4, culled on the host and autotuned) at
+chip_smoke.py's three views in its three raster modes: default (K1),
+early-z (K9) and fine bins (K11). Per frame:
 
 - 2 warm-up renders, then 6 renders timed on the host clock around
   ``render_frame`` + ``torch.cuda.synchronize()`` (no profiler);
@@ -27,11 +27,6 @@ bins (K11). Per frame:
 capacities and prints, for every raster pass and the overlay, the tiles
 with pairs, the largest per-tile count, the overflow triangles and the
 covered tiles: the numbers ``C5_CAPS`` in chip_smoke.py was sized from.
-
-``--merged`` instead profiles config 4's default frame at each of
-chip_smoke.py's three views, autotuned once, with ``merged_coverage`` on
-and off (on, off, off, on): what the chunk-class slot order costs or
-earns.
 """
 
 from __future__ import annotations
@@ -142,7 +137,7 @@ def instanced_scene(dev):
             torch.as_tensor(proj_host, device=dev), fp)
 
 
-def instanced_settings(dev, c4, view=cs.C4_VIEWS[0], **extra):
+def instanced_settings(dev, c4, view, **extra):
     """(frame data, view block, settings) of config 4 at ``view``: culled
     on the host, autotuned for ``extra`` (the dense-pass slot count picked
     by measurement, as chip_smoke.py picks it)."""
@@ -295,9 +290,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--probe", action="store_true",
                     help="capacity probe of the config-5 frame")
-    ap.add_argument("--merged", action="store_true",
-                    help="config 4's default frame at each view with "
-                    "merged_coverage on and off (on, off, off, on)")
     ap.add_argument("--trace", metavar="DIR",
                     help="write each frame's Chrome trace into DIR")
     args = ap.parse_args()
@@ -314,15 +306,6 @@ def main() -> int:
     if args.probe:
         probe(dev)
         return 0
-    if args.merged:
-        c4 = instanced_scene(dev)
-        for view in cs.C4_VIEWS:
-            data, vb, s = instanced_settings(dev, c4, view)
-            for on in (True, False, False, True):
-                sx = dataclasses.replace(s, merged_coverage=on)
-                profile(f"config4 {view[0]} merged_coverage={on}",
-                        instanced_frames(c4, data, vb, sx), args.trace)
-        return 0
     from bibim_tpu_torch.pipeline import GBufferViz
 
     profile("config3_1080p", shaderball_frames(
@@ -336,9 +319,12 @@ def main() -> int:
     profile("config2_720p_albedo_view",
             cube_frames(dev, gbuffer_viz=GBufferViz.ALBEDO), args.trace)
     c4 = instanced_scene(dev)
-    for label, extra in cs.C4_MODES:
-        profile(f"config4_x64_1080p_{label}", instanced_frames(
-            c4, *instanced_settings(dev, c4, **extra)), args.trace)
+    for view in cs.C4_VIEWS:
+        for label, extra in cs.C4_MODES:
+            tag = view[0].replace(" ", "_")
+            profile(f"config4_x64_1080p_{tag}_{label}", instanced_frames(
+                c4, *instanced_settings(dev, c4, view, **extra)),
+                args.trace)
     return 0
 
 
