@@ -18,9 +18,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    the frame itself produces and times both (median of CUDA-event
    timings); sizes ``group_pair_cap`` from the port's capacity probe and
    checks K10 (group window) on that frame; renders 4 frames at 4 camera
-   yaws and the group-window frame through ``render_frame`` with launch
-   counters reset just before (the group-window frame must equal the
-   default frame of its yaw);
+   yaws through ``render_frame`` with launch counters reset just before,
+   then the group-window frame with the counters reset again (it must
+   equal the default frame of its yaw);
 4. the 3840×2160 shadows + IBL path (BASELINE config 5: shadow map of the
    ball at 1024², analytic IBL from the procedural sky): checks K1 (the
    4K main pass and the 1024² shadow pass), K3 (every sort), K4, K5
@@ -55,10 +55,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    coverage, that the image is not background, and the frame against the
    all-plain render of the same frame at the golden-image bound;
 8. prints the GPU's ``nvidia-smi`` name/power-limit line, one JSON line of
-   kernel results (per kernel and path: launches on the main path, error
-   against the plain version, wrapper and plain times, the bound of the
-   inputs' bytes and operations on an H100 SXM, ``torch.sort``'s time for
-   K3) and, last, ``{"ok": true, "device": {...}}``.
+   kernel results (per kernel and path: launches on the main path and the
+   frames they cover, error against the plain version, wrapper and plain
+   times, the bound of the bytes and operations the call needs on an H100
+   SXM, ``torch.sort``'s time for K3) and, last, ``{"ok": true, "device":
+   {...}}``.
 
 Any failure raises, so the exit code is non-zero. Without a GPU, or without
 the repository beside it, it exits non-zero and prints no result.
