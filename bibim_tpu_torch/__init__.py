@@ -28,8 +28,13 @@ library at first use (see ``_build.py``):
   (csrc/raster_fine.cu)
 
 Every kernel wrapper takes its plain PyTorch version for CPU tensors only;
-a CUDA tensor reaches the kernel or the wrapper raises. Importing this
-package needs neither ``nvcc`` nor a GPU, and never imports ``jax``.
+a CUDA tensor reaches the kernel or the wrapper raises. The entry points
+that build tensors (scenes, lights, draw batches, material tables, IBL,
+overlay resources, the ``interop`` converters) take ``device`` and default
+to ``"cuda"``: the frame runs on the card unless the caller asks for the
+CPU with ``device="cpu"``, and without a card asking for ``"cuda"`` raises
+torch's own error. Importing this package needs neither ``nvcc`` nor a
+GPU, and never imports ``jax``.
 
 Layout:
 

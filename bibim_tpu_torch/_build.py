@@ -36,9 +36,6 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
 )
-# Elements one block of the bitonic sort holds in shared memory
-# (1024 threads × 2); must match SORT_BLOCK in csrc/sort.cu.
-SORT_BLOCK_ELEMS = 2048
 # Max (pixels per tile / threads per block) the raster and overlay kernels
 # take; must match MAX_PPT in csrc/common.cuh.
 MAX_TILE_PIXELS = 256 * 8
@@ -159,9 +156,9 @@ def _declare(lib) -> None:
     sigs = {
         # rec, big_ids, n_big, big_len, pair_tri, pair_len, ids, starts,
         # counts, init_zkey, n_slots, tiles_x, tile_h, tile_w, rec_stride,
-        # field mask, zkey out, fields out, stream
+        # field mask, cluster size, zkey out, fields out, stream
         "bb_raster": [p, p, p, i, p, i, p, p, p, p, i, i, i, i, i,
-                      ctypes.c_uint, p, p, p],
+                      ctypes.c_uint, i, p, p, p],
         # rec, big_ids, n_big, big_len, pair_tri, pair_len, ids, starts,
         # counts, init_zkey, init_okey, n_slots, tiles_x, tile_h, tile_w,
         # rec_stride, field mask, zsh, zkey out, okey out, fields out,
@@ -199,13 +196,23 @@ def _declare(lib) -> None:
         # blocks, row_bytes, cs, int planes (5, n), float planes (5, n),
         # n, out, stream
         "bb_sample_mip_block": [p, i, i, p, p, i, p, p],
-        "bb_sort_i32": [p, i, p],
-        "bb_sort_i64": [p, i, p],
+        # keys in, keys out, second key buffer, n, scratch, route (-1:
+        # its pick, 0: many blocks, c: one cluster of c blocks), device
+        # launches made (int out), stream
+        "bb_sort_i32": [p, p, p, i, p, i, p, p],
+        "bb_sort_i64": [p, p, p, i, p, i, p, p],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
+    # n, key bytes, route -> workspace bytes of the sort (0: one cluster
+    # holds the keys, -1: no device or a route that cannot sort n keys);
+    # n, key bytes -> the cluster size it picks (0: many blocks)
+    lib.bb_sort_work_bytes.argtypes = [i, i, i]
+    lib.bb_sort_work_bytes.restype = ctypes.c_longlong
+    lib.bb_sort_cluster.argtypes = [i, i]
+    lib.bb_sort_cluster.restype = ctypes.c_int
 
 
 def library():

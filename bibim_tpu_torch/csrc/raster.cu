@@ -1,64 +1,268 @@
 // K1 — raster + resolve + perspective-correct interpolation.
 //
 // Replaces bibim_tpu/ops/fused.py:_fused_kernel (launched by
-// raster_fused_pallas). One block per 8x128 screen tile (slot), 256 threads,
-// 4 pixels per thread. Each thread scans the overflow list and then the
-// tile's sorted candidate window (common.cuh scan_tile), keeping the best
-// packed depth key with >=, then reads the winner's record row directly and
-// writes the requested output planes.
+// raster_fused_pallas; tie rule in _chunk_test). Slot s rasterizes one
+// 8x128 screen tile from its candidate sequence: the overflow list, then
+// its sorted window. Per pixel the winner is the last candidate whose
+// packed depth key is >= the running key, starting from the initial key —
+// that is, the lexicographic maximum of (key, candidate index) over the
+// candidates and the initial key, which carries index -1.
 //
-// What bounds it on an H100: the scan is compute (about 25 flops per
-// candidate per pixel); the records are small and shared by the 1024 pixels
-// of a tile, so each candidate's 15 coverage floats are read once per block
-// into shared memory and broadcast to all threads. The TPU kernel's one-hot
-// MXU resolve (_resolve_winner) is a TPU workaround for the lack of a
-// per-pixel gather and is not ported: each pixel reads its winner's record
-// (60 floats, L2-resident) by index. Output writes are coalesced (consecutive
-// threads own consecutive pixels).
-//
-// merged_coverage: on the TPU a grid step runs a group of tiles and the
-// merged schedule runs one coverage loop for the whole group, at the
-// group's largest chunk count. Here a block is one tile and loops only to
-// its own count, so that schedule has no counterpart, and the slots keep
-// their tile order: sorting them by chunk class made this kernel up to 8 %
-// faster on config 4 but cost more in the sort than it saved.
+// What bounds it on an H100: operations, about 25 per candidate and pixel
+// (five plane evaluations, the IEEE reciprocal, the key). One block of 256
+// threads scanning a 512-candidate window alone on one SM took as long as
+// a whole pass of config 4 (PERF.md): the longest window set the pace
+// while the other SMs idled. So:
+//   - A slot's sequence is split into `csize` contiguous parts, scanned by
+//     the csize blocks of one thread-block cluster (csize in {1,2,4,8},
+//     chosen by the wrapper from static capacities). Each block keeps per
+//     pixel the lexicographic max of (key, index); the blocks merge it
+//     through distributed shared memory and rank 0 resolves the winner's
+//     record and writes the planes. Parts hold at least MIN_PART
+//     candidates: a slot with fewer (an empty window of a dense pass) is
+//     scanned by rank 0 alone, and the other blocks leave at once.
+//   - The three edge functions come first; when no lane of the warp passes
+//     them the depth planes and the reciprocal are skipped. Exact: a miss's
+//     key does not depend on them.
+//   - Coefficients (the record's first 16 floats: 15 coverage channels and
+//     _ID) are staged 128 candidates a round with 16-byte cp.async copies,
+//     double-buffered: round r+1's copies and round r+2's triangle ids are
+//     in flight while round r is tested.
+// The scan keeps the reference's arithmetic bit for bit (common.cuh):
+// z = zn * __frcp_rn(wn), key bits(z) & ~7 accepted with >=, -fmad=false.
+// Each pixel then reads its winner's record (60 floats, L2-resident) by
+// index — the TPU's one-hot MXU resolve is not ported — and writes the
+// requested planes, coalesced (consecutive threads own consecutive pixels).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace bb {
 
-__global__ void __launch_bounds__(THREADS)
-raster_kernel(const float* __restrict__ rec, int rec_stride,
-              const int* __restrict__ big_ids, const int* __restrict__ n_big,
-              int big_len, const int* __restrict__ pair_tri, int pair_len,
-              const int* __restrict__ ids, const int* __restrict__ starts,
-              const int* __restrict__ counts,
-              const int* __restrict__ init_zkey, int n_slots, int tiles_x,
-              int tile_h, int tile_w, unsigned mask, int* __restrict__ zkey,
-              float* __restrict__ fields) {
-  __shared__ float sco[STAGE][COV_CH];
-  __shared__ int stri[STAGE];
-  const int s = blockIdx.x;
-  const int npx = tile_h * tile_w;
-  float px[MAX_PPT], py[MAX_PPT];
-  int bkey[MAX_PPT], best[MAX_PPT];
-  const int npt = tile_pixels(ids[s], tiles_x, tile_h, tile_w,
-                              init_zkey + (size_t)s * npx, px, py, bkey,
-                              best);
-  TileScan a;
-  a.rec = rec;
-  a.rec_stride = rec_stride;
-  a.big_ids = big_ids;
-  a.nb = min(*n_big, big_len);
-  a.pair_tri = pair_tri;
-  a.pair_len = pair_len;
-  a.start = starts[s];
-  a.count = counts[s];
-  scan_tile(a, px, py, bkey, best, npt, sco, stri);
+constexpr int STAGE_CH = 16;  // floats staged per candidate (4 x 16 bytes)
+// The fewest candidates a cluster block scans (the last part may hold
+// fewer): a slot with at most MIN_PART is scanned by rank 0 alone.
+constexpr int MIN_PART = 64;
 
-  for (int k = 0; k < npt; ++k) {
-    write_pixel(rec, rec_stride, best[k], bkey[k], px[k], py[k], mask, s,
-                n_slots, npx, threadIdx.x + k * blockDim.x, zkey, fields);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool copy) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(copy ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// (key, index) as one unsigned word whose max is their lexicographic max;
+// index -1 (the initial key) packs as 0.
+__device__ __forceinline__ unsigned long long pack_best(int key, int idx) {
+  return ((unsigned long long)((unsigned)key ^ 0x80000000u) << 32) |
+         (unsigned)(idx + 1);
+}
+
+struct RasterArgs {
+  const float* rec;
+  int rec_stride;
+  const int* big_ids;
+  const int* n_big;
+  int big_len;
+  const int* pair_tri;
+  int pair_len;
+  const int* ids;
+  const int* starts;
+  const int* counts;
+  const int* init_zkey;
+  int n_slots, tiles_x, tile_h, tile_w;
+  unsigned mask;
+  int* zkey;
+  float* fields;
+};
+
+// PPT: pixels per thread (tiles of up to PPT·THREADS pixels).
+template <int PPT>
+__global__ void __launch_bounds__(THREADS)
+raster_kernel(const RasterArgs a, int csize) {
+  __shared__ __align__(16) float sco[2][STAGE][STAGE_CH];
+  const int s = blockIdx.x / csize;
+  const int rank = blockIdx.x - s * csize;
+  const int nb = min(*a.n_big, a.big_len);
+  const int start = a.starts[s];
+  const int total = nb + a.counts[s];
+  const int part = max((total + csize - 1) / csize, MIN_PART);
+  // Parts in use: the same in every block of the cluster. With one, rank 0
+  // scans the whole sequence and no block meets another: the others leave.
+  const int parts = (total + part - 1) / part;
+  if (parts <= 1 && rank != 0) return;
+  const int lo = min(total, rank * part), hi = min(total, lo + part);
+  const int npx = a.tile_h * a.tile_w;
+  const int tid = a.ids[s];
+  const int row = tid / a.tiles_x, col = tid - row * a.tiles_x;
+  const int* init = a.init_zkey + (size_t)s * npx;
+  float px[PPT], py[PPT];
+  int bkey[PPT], bidx[PPT];
+  int npt = 0;
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int p = threadIdx.x + k * THREADS;
+    bidx[k] = -1;
+    px[k] = py[k] = 0.f;
+    bkey[k] = 0;
+    if (p < npx) {
+      npt = k + 1;
+      px[k] = (float)(p % a.tile_w + col * a.tile_w) + 0.5f;
+      py[k] = (float)(p / a.tile_w + row * a.tile_h) + 0.5f;
+      bkey[k] = init[p] & LOW3;
+    }
   }
+
+  // Two threads stage each of a round's STAGE candidates, 8 floats each.
+  const int cand = threadIdx.x >> 1, half = (threadIdx.x & 1) * 8;
+  const int rounds = (hi - lo + STAGE - 1) / STAGE;
+  auto tri_at = [&](int c) {
+    return c < hi ? candidate_tri(a.big_ids, nb, a.pair_tri, a.pair_len,
+                                  start, c)
+                  : -1;
+  };
+  auto stage = [&](int buf, int tri) {
+    const bool ok = tri >= 0;
+    const float* src = a.rec + (ok ? (size_t)tri * a.rec_stride : 0) + half;
+    cp_async16(&sco[buf][cand][half], src, ok);
+    cp_async16(&sco[buf][cand][half + 4], src + 4, ok);
+    cp_async_commit();
+  };
+  int tri_next = -1;
+  if (rounds > 0) stage(0, tri_at(lo + cand));
+  if (rounds > 1) tri_next = tri_at(lo + STAGE + cand);
+  const int miss = __float_as_int(-1.f) & LOW3;
+  for (int r = 0; r < rounds; ++r) {
+    const int c0 = lo + r * STAGE;
+    if (r + 1 < rounds) {
+      stage((r + 1) & 1, tri_next);
+      if (r + 2 < rounds) tri_next = tri_at(c0 + 2 * STAGE + cand);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int n = min(STAGE, hi - c0);
+    for (int i = 0; i < n; ++i) {
+      const float4* q = reinterpret_cast<const float4*>(sco[r & 1][i]);
+      const float4 q0 = q[0], q1 = q[1], q2 = q[2], q3 = q[3];
+      const float co[15] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w,
+                            q2.x, q2.y, q2.z, q2.w, q3.x, q3.y, q3.z};
+      bool in[PPT];
+      bool any_in = false;
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        in[k] = k < npt &&
+                plane_eval(co[0], co[3], co[6], px[k], py[k]) >= 0.f &&
+                plane_eval(co[1], co[4], co[7], px[k], py[k]) >= 0.f &&
+                plane_eval(co[2], co[5], co[8], px[k], py[k]) >= 0.f;
+        any_in |= in[k];
+      }
+      const int c = c0 + i;
+      if (__any_sync(0xffffffffu, any_in)) {
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          if (k < npt) {
+            int key = miss;
+            if (in[k]) {
+              const float zn = plane_eval(co[9], co[10], co[11], px[k],
+                                          py[k]);
+              const float wn = plane_eval(co[12], co[13], co[14], px[k],
+                                          py[k]);
+              const bool ok = wn > 0.f && zn >= 0.f && zn <= wn;
+              const float z = zn * __frcp_rn(wn == 0.f ? 1.f : wn);
+              key = __float_as_int(ok ? z : -1.f) & LOW3;
+            }
+            if (key >= bkey[k]) {
+              bkey[k] = key;
+              bidx[k] = c;
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          if (k < npt && miss >= bkey[k]) {
+            bkey[k] = miss;
+            bidx[k] = c;
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (parts > 1) {
+    // Merge the parts: the staging buffers (16 KB) hold each block's
+    // packed winners (at most THREADS · 8 pixels).
+    cg::cluster_group cl = cg::this_cluster();
+    unsigned long long* best = reinterpret_cast<unsigned long long*>(
+        &sco[0][0][0]);
+#pragma unroll
+    for (int k = 0; k < PPT; ++k)
+      best[threadIdx.x + k * THREADS] = pack_best(bkey[k], bidx[k]);
+    cl.sync();
+    if (rank == 0) {
+      for (int o = 1; o < parts; ++o) {
+        const unsigned long long* other = cl.map_shared_rank(best, o);
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          const unsigned long long v = other[threadIdx.x + k * THREADS];
+          if (v > pack_best(bkey[k], bidx[k])) {
+            bkey[k] = (int)((unsigned)(v >> 32) ^ 0x80000000u);
+            bidx[k] = (int)(unsigned)(v & 0xffffffffu) - 1;
+          }
+        }
+      }
+    }
+    cl.sync();  // the other blocks' shared memory stays until rank 0 read it
+    if (rank != 0) return;
+  }
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    if (k < npt) {
+      const int tri = bidx[k] < 0 ? -1
+                                  : candidate_tri(a.big_ids, nb, a.pair_tri,
+                                                  a.pair_len, start, bidx[k]);
+      write_pixel(a.rec, a.rec_stride, tri, bkey[k], px[k], py[k], a.mask, s,
+                  a.n_slots, npx, threadIdx.x + k * THREADS, a.zkey,
+                  a.fields);
+    }
+  }
+}
+
+template <int PPT>
+int launch_raster(const RasterArgs& a, int csize, cudaStream_t st) {
+  const dim3 grid(a.n_slots * csize), block(THREADS);
+  if (csize == 1) {
+    raster_kernel<PPT><<<grid, block, 0, st>>>(a, 1);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, raster_kernel<PPT>, a, csize);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace bb
@@ -68,13 +272,21 @@ extern "C" int bb_raster(const float* rec, const int* big_ids,
                          int pair_len, const int* ids, const int* starts,
                          const int* counts, const int* init_zkey, int n_slots,
                          int tiles_x, int tile_h, int tile_w, int rec_stride,
-                         unsigned mask, int* zkey, float* fields,
+                         unsigned mask, int csize, int* zkey, float* fields,
                          void* stream) {
-  if (n_slots > 0) {
-    bb::raster_kernel<<<n_slots, bb::THREADS, 0, (cudaStream_t)stream>>>(
-        rec, rec_stride, big_ids, n_big, big_len, pair_tri, pair_len, ids,
-        starts, counts, init_zkey, n_slots, tiles_x, tile_h, tile_w, mask,
-        zkey, fields);
-  }
-  return (int)cudaGetLastError();
+  const int npx = tile_h * tile_w;
+  if (npx <= 0 || npx > bb::THREADS * bb::MAX_PPT || rec_stride % 4 != 0 ||
+      rec_stride < bb::STAGE_CH ||
+      (csize != 1 && csize != 2 && csize != 4 && csize != 8))
+    return (int)cudaErrorInvalidValue;
+  if (n_slots <= 0) return (int)cudaGetLastError();
+  const bb::RasterArgs a{rec,    rec_stride, big_ids, n_big,   big_len,
+                         pair_tri, pair_len, ids,     starts,  counts,
+                         init_zkey, n_slots,  tiles_x, tile_h,  tile_w,
+                         mask,   zkey,       fields};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (npx <= bb::THREADS) return bb::launch_raster<1>(a, csize, st);
+  if (npx <= 2 * bb::THREADS) return bb::launch_raster<2>(a, csize, st);
+  if (npx <= 4 * bb::THREADS) return bb::launch_raster<4>(a, csize, st);
+  return bb::launch_raster<8>(a, csize, st);
 }

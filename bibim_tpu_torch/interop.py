@@ -30,7 +30,7 @@ from bibim_tpu_torch.scene.lights import Lights
 from bibim_tpu_torch.scene.scene import DrawBatch, SceneData
 
 
-def tensor(x, device="cpu", dtype=None) -> torch.Tensor:
+def tensor(x, device="cuda", dtype=None) -> torch.Tensor:
     a = np.array(np.asarray(x), copy=True)
     t = torch.as_tensor(a, device=device)
     return t if dtype is None else t.to(dtype)
@@ -42,7 +42,7 @@ def _nested(x, device):
     return tensor(x, device)
 
 
-def draw_batch(b, device="cpu") -> DrawBatch:
+def draw_batch(b, device="cuda") -> DrawBatch:
     """DrawBatch with its corner planes (the per-corner "uv"/"color" planes
     and the corner-concatenated "pos_cat"/"normal_cat"/"tangent_cat")."""
     cp = None
@@ -58,11 +58,11 @@ def draw_batch(b, device="cpu") -> DrawBatch:
     )
 
 
-def lights(lt, device="cpu") -> Lights:
+def lights(lt, device="cuda") -> Lights:
     return Lights(*(tensor(getattr(lt, f), device) for f in Lights._fields))
 
 
-def scene_data(scene, device="cpu") -> SceneData:
+def scene_data(scene, device="cuda") -> SceneData:
     """Every batch and the lights; a frustum-culled scene (its batches'
     bucket-padded instance matrices) carries across the same way."""
     return SceneData(batches=tuple(draw_batch(b, device)
@@ -102,7 +102,7 @@ def _static(x):
     return bool(x) if isinstance(x, (bool, np.bool_)) else int(x)
 
 
-def material_tables(tables, device="cpu") -> tuple:
+def material_tables(tables, device="cuda") -> tuple:
     """QuadTable / BlockTable / MipQuadTable / MipQuadMulti / MipBlockMulti
     tuple, static geometry as Python tuples. Quad rows the JAX package
     stores as int32 lanes (big tables) come back as their little-endian
@@ -131,7 +131,7 @@ def material_tables(tables, device="cpu") -> tuple:
     return tuple(out)
 
 
-def ibl(j, device="cpu"):
+def ibl(j, device="cuda"):
     """The JAX package's ``IblSH`` (analytic fits) or ``IblMaps`` (quad
     tables) → the port's ``ops.ibl`` counterpart."""
     kind = type(j).__name__
@@ -151,7 +151,7 @@ def ibl(j, device="cpu"):
     raise NotImplementedError(f"IBL probe {kind}")
 
 
-def overlay_resources(ov, device="cpu") -> OverlayResources:
+def overlay_resources(ov, device="cuda") -> OverlayResources:
     def opt(x, dtype=None):
         return None if x is None else tensor(x, device, dtype)
 
@@ -165,7 +165,7 @@ def overlay_resources(ov, device="cpu") -> OverlayResources:
     )
 
 
-def view_block(vb, device="cpu") -> ViewBlock:
+def view_block(vb, device="cuda") -> ViewBlock:
     return ViewBlock(
         view=tensor(vb.view, device, torch.float32),
         proj=tensor(vb.proj, device, torch.float32),
@@ -174,7 +174,7 @@ def view_block(vb, device="cpu") -> ViewBlock:
     )
 
 
-def frame_params(fp, device="cpu") -> FrameParams:
+def frame_params(fp, device="cuda") -> FrameParams:
     return FrameParams(
         enable_tone_mapping=tensor(fp.enable_tone_mapping, device,
                                    torch.int32),

@@ -507,12 +507,15 @@ def _resolve_plain(rec, best, px, py, out_fields):
 
 def raster_tiles_plain(rec, big_ids, n_big, pair_tri, ids, starts, counts,
                        init_zkey, tiles_x: int, tile_h: int, tile_w: int,
-                       out_fields: tuple = _OUT_FIELDS):
+                       out_fields: tuple = _OUT_FIELDS,
+                       max_count: int | None = None):
     """Plain version of K1. Slot s rasterizes screen tile ``ids[s]`` from
     the overflow list (``big_ids[:n_big]``) and then
     ``pair_tri[starts[s] : starts[s] + counts[s]]``, continuing the
-    depth keys ``init_zkey[s]``. Returns (zkey (K, NPX) int32, fields
-    (len(out_fields), K, NPX) float32)."""
+    depth keys ``init_zkey[s]``. ``max_count``, the static cap on
+    ``counts``, only sizes the kernel's launch (:func:`raster_cluster`).
+    Returns (zkey (K, NPX) int32, fields (len(out_fields), K, NPX)
+    float32)."""
     px, py = _pixel_centres(ids, tiles_x, tile_h, tile_w)
     best_key, best = _scan_plain(rec, big_ids, n_big, pair_tri, starts,
                                  counts, init_zkey, px, py)
@@ -558,11 +561,38 @@ def _field_mask(out_fields) -> int:
     return mask
 
 
+# K1 splits a slot's window over the blocks of a thread-block cluster
+# (csrc/raster.cu) when its launch leaves SMs idle: each part keeps at
+# least CLUSTER_MIN_PART window candidates (the kernel's MIN_PART: a
+# shorter sequence is scanned by one block), and the launch stays within
+# CLUSTER_MAX_BLOCKS blocks — five waves of the 4 blocks (64 registers ×
+# 256 threads) each of an H100's 132 SMs holds.
+CLUSTER_SIZES = (1, 2, 4, 8)
+CLUSTER_MIN_PART = 64
+CLUSTER_MAX_BLOCKS = 5 * 4 * 132
+
+
+def raster_cluster(k: int, max_count: int | None) -> int:
+    """K1's cluster size for ``k`` slots whose windows hold at most
+    ``max_count`` candidates, from these static numbers alone (no device
+    read): the largest size that keeps every part at least
+    CLUSTER_MIN_PART candidates long and the launch within
+    CLUSTER_MAX_BLOCKS blocks; 1 without a ``max_count``."""
+    if max_count is None:
+        return 1
+    return max(c for c in CLUSTER_SIZES
+               if c == 1 or (max_count >= c * CLUSTER_MIN_PART
+                             and k * c <= CLUSTER_MAX_BLOCKS))
+
+
 def raster_tiles(rec, big_ids, n_big, pair_tri, ids, starts, counts,
                  init_zkey, tiles_x: int, tile_h: int, tile_w: int,
-                 out_fields: tuple = _OUT_FIELDS):
+                 out_fields: tuple = _OUT_FIELDS,
+                 max_count: int | None = None, cluster: int | None = None):
     """K1 wrapper (csrc/raster.cu); same contract as
-    :func:`raster_tiles_plain`, which it runs only for CPU tensors."""
+    :func:`raster_tiles_plain`, which it runs only for CPU tensors.
+    ``cluster`` overrides :func:`raster_cluster`'s size (a measurement
+    knob; any size gives the same result)."""
     k = _check_common(rec, big_ids, n_big, pair_tri, ids, starts, counts)
     npx = tile_h * tile_w
     _check("init_zkey", init_zkey, torch.int32, rec.device, (k, npx))
@@ -575,6 +605,13 @@ def raster_tiles(rec, big_ids, n_big, pair_tri, ids, starts, counts,
     if npx > _build.MAX_TILE_PIXELS:
         raise ValueError(f"raster_tiles: tiles of {npx} px exceed "
                          f"{_build.MAX_TILE_PIXELS}")
+    if cluster is None:
+        cluster = raster_cluster(k, max_count)
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"raster_tiles: cluster {cluster} not in "
+                         f"{CLUSTER_SIZES}")
+    if rec.data_ptr() % 16:
+        raise ValueError("raster_tiles: rec must be 16-byte aligned")
     mask = _field_mask(out_fields)
     zkey = torch.empty((k, npx), dtype=torch.int32, device=rec.device)
     fields = torch.empty((len(out_fields), k, npx), dtype=torch.float32,
@@ -585,7 +622,7 @@ def raster_tiles(rec, big_ids, n_big, pair_tri, ids, starts, counts,
     err = _build.library().bb_raster(
         p(rec), p(big_ids), p(n_big), big_ids.shape[0], p(pair_tri),
         pair_tri.shape[0], p(ids), p(starts), p(counts), p(init_zkey),
-        k, tiles_x, tile_h, tile_w, REC_CH, ctypes.c_uint(mask),
+        k, tiles_x, tile_h, tile_w, REC_CH, ctypes.c_uint(mask), cluster,
         p(zkey), p(fields), _build.stream_ptr(rec.device))
     _build.check(err, "raster")
     raster_tiles.launches += 1
@@ -1146,7 +1183,7 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
             zk_new, fouts = raster(
                 rec_table, big_ids, nb_p, sorted_tri, ids,
                 starts_p.contiguous(), counts_p.contiguous(), zk_in, tiles_x,
-                tile_h, tile_w, out_fields)
+                tile_h, tile_w, out_fields, max_count=maxc)
         fields_p = dict(zip(out_fields, fouts))
         if p == 0 and scatter_ids is not None:
             # Unlisted tiles keep clear/init depth and zero fields; dead

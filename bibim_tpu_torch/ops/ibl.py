@@ -105,7 +105,7 @@ def _to_quads(img: np.ndarray, scale: float, device) -> tuple:
 
 
 def make_ibl(env: np.ndarray | None = None, out_h: int = 16,
-             out_w: int = 32, device="cpu") -> IblMaps:
+             out_w: int = 32, device="cuda") -> IblMaps:
     """The table-path IBL products of an equirect HDR env (default: the
     procedural sky)."""
     if env is None:
@@ -208,7 +208,7 @@ def _fit_sph_poly_np(img: np.ndarray, degree: int, with_sg: bool,
 
 
 def sph_poly(coef, sg_axis, sg_amp, sg_sharp, degree: int,
-             device="cpu") -> SphPoly:
+             device="cuda") -> SphPoly:
     """SphPoly with float32 tensors on ``device``."""
     def t(x):
         return torch.as_tensor(np.array(x, np.float32), device=device)
@@ -218,7 +218,7 @@ def sph_poly(coef, sg_axis, sg_amp, sg_sharp, degree: int,
 
 
 def _fit_sph_poly(img: np.ndarray, degree: int, with_sg: bool,
-                  device="cpu") -> SphPoly:
+                  device="cuda") -> SphPoly:
     return sph_poly(*_fit_sph_poly_np(img, degree, with_sg), degree,
                     device=device)
 
@@ -238,7 +238,7 @@ def sph_poly_error(poly: SphPoly, img: np.ndarray) -> float:
     return float(err.max() / max(float(img.max()), 1e-9))
 
 
-def make_ibl_sh(env: np.ndarray | None = None, device="cpu") -> IblSH:
+def make_ibl_sh(env: np.ndarray | None = None, device="cuda") -> IblSH:
     """The analytic IBL products (production path); the convolved maps
     exist only as fit targets."""
     if env is None:

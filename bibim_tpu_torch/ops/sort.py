@@ -6,9 +6,16 @@ order, which is the (tile, triangle) lexicographic order. The early-z
 order (:func:`sort_pairs_z`) packs (tile, inverted depth bucket, triangle)
 the same way.
 
-:func:`sort_keys` is the kernel wrapper: CUDA tensors go to the bitonic
-sort in ``csrc/sort.cu`` (every size, int32 or int64 keys), CPU tensors to
-the plain version :func:`sort_keys_plain` (``torch.sort``).
+:func:`sort_keys` is the kernel wrapper: CUDA tensors go to the LSD radix
+sort in ``csrc/sort.cu`` (8-bit digits of the keys' order-preserving
+unsigned form, every size, int32 or int64 keys; up to 96 k keys in the
+shared memory of one thread-block cluster, one launch; else a memset, then
+histograms and one stable one-sweep scatter per digit in one cooperative
+launch), CPU tensors to the plain version :func:`sort_keys_plain`
+(``torch.sort``).
+:func:`digit_plan` says which digits a set of keys makes the kernel
+scatter by: it skips, on the device, every digit that is the same for all
+keys.
 """
 
 from __future__ import annotations
@@ -36,32 +43,76 @@ def sort_keys_plain(keys: torch.Tensor) -> torch.Tensor:
     return torch.sort(keys).values
 
 
-def sort_keys(keys: torch.Tensor) -> torch.Tensor:
-    """Ascending sort of a (P,) int32 or int64 key tensor (K3)."""
-    if keys.ndim != 1 or keys.dtype not in (torch.int32, torch.int64):
+def radix_digits(keys: torch.Tensor) -> torch.Tensor:
+    """(D, P) int64: the 8-bit digits of each key's order-preserving
+    unsigned form (its sign bit flipped), least significant first — the
+    digits K3's passes scatter by (D = 4 for int32, 8 for int64)."""
+    k = keys.to(torch.int64)
+    d = torch.stack([(k >> (8 * i)) & 0xFF
+                     for i in range(keys.element_size())])
+    d[-1] ^= 0x80
+    return d
+
+
+def digit_plan(keys: torch.Tensor) -> tuple:
+    """The digits an LSD radix sort of ``keys`` must run, least significant
+    first: those on which some keys differ. A stable pass on a digit that
+    every key shares is the identity, so K3 skips it (it decides that on
+    the device, from its histograms)."""
+    if keys.numel() == 0:
+        return ()
+    d = radix_digits(keys)
+    return tuple(i for i in range(d.shape[0])
+                 if bool((d[i] != d[i, :1]).any()))
+
+
+def sort_keys(keys: torch.Tensor, route: int | None = None) -> torch.Tensor:
+    """Ascending sort of a (P,) int32 or int64 key tensor (K3). On the card
+    it makes 1 device launch on the one-cluster route, else 2 (a memset of
+    its scratch and one cooperative kernel); both counts go to
+    ``sort_keys.device_launches``. ``route`` overrides the kernel's pick
+    (0: many blocks, c: one cluster of c blocks; a measurement knob, any
+    route gives the same result)."""
+    if keys.ndim != 1 or keys.dtype not in _KEY_FNS:
         raise ValueError(f"sort_keys takes (P,) int32/int64 keys, got "
                          f"{tuple(keys.shape)} {keys.dtype}")
-    if keys.device.type == "cpu":
+    dev = keys.device
+    if dev.type == "cpu":
         return sort_keys_plain(keys)
-    if keys.device.type != "cuda":
-        raise RuntimeError(f"sort_keys: unsupported device {keys.device}")
+    if dev.type != "cuda":
+        raise RuntimeError(f"sort_keys: unsupported device {dev}")
     p = keys.shape[0]
+    if p >= 1 << 30:
+        raise ValueError(f"sort_keys: {p} keys exceed 2^30")
     if p <= 1:
         return keys.clone()
-    n = max(_build.SORT_BLOCK_ELEMS, 1 << (p - 1).bit_length())
-    pad = torch.iinfo(keys.dtype).max
-    buf = torch.full((n,), pad, dtype=keys.dtype, device=keys.device)
-    buf[:p] = keys
+    if not keys.is_contiguous():
+        keys = keys.contiguous()
     lib = _build.library()
-    fn = lib.bb_sort_i32 if keys.dtype == torch.int32 else lib.bb_sort_i64
-    err = fn(ctypes.c_void_p(buf.data_ptr()), ctypes.c_int(n),
-             _build.stream_ptr(keys.device))
+    size = keys.element_size()
+    route = -1 if route is None else route
+    nbytes = lib.bb_sort_work_bytes(p, size, route)
+    if nbytes < 0:
+        raise RuntimeError(f"sort_keys: route {route} cannot sort {p} keys "
+                           "on this device")
+    out = torch.empty_like(keys)
+    tmp = 0
+    if nbytes:  # the many-block route's second key buffer and scratch
+        work = torch.empty((nbytes // 4,), dtype=torch.int32, device=dev)
+        tmp = work.data_ptr()
+    launches = ctypes.c_int(0)
+    err = getattr(lib, _KEY_FNS[keys.dtype])(
+        keys.data_ptr(), out.data_ptr(), tmp, p, tmp + p * size if tmp else 0,
+        route, ctypes.byref(launches), _build.stream_ptr(dev))
     _build.check(err, "sort")
     sort_keys.launches += 1
-    return buf[:p]
+    sort_keys.device_launches += launches.value
+    return out
 
 
+_KEY_FNS = {torch.int32: "bb_sort_i32", torch.int64: "bb_sort_i64"}
 sort_keys.launches = 0
+sort_keys.device_launches = 0
 
 
 def sort_pairs(flat_tile: torch.Tensor, tri_of_pair: torch.Tensor, nt: int,

@@ -87,7 +87,7 @@ def _ceil4(n: int) -> int:
 
 
 def build_quad_tables(maps: dict, block_threshold: int | None = None,
-                      device="cpu") -> tuple:
+                      device="cuda") -> tuple:
     """Group slot → (H, W[, ≥1]) uint8 maps by resolution into tables;
     groups above ``block_threshold`` texels (and B-divisible) become
     :class:`BlockTable`. Runs on the host once per material bind."""
@@ -480,7 +480,7 @@ def _level_texs(slot_mips: dict, present: tuple, cpad: int) -> list:
     return texs
 
 
-def build_mip_quad_tables(mip_maps: dict, device="cpu") -> tuple:
+def build_mip_quad_tables(mip_maps: dict, device="cuda") -> tuple:
     """``mip_maps``: slot → list of (H_l, W_l[, ≥1]) uint8 levels (level 0
     first). Slots group by level-0 resolution; multi-level groups build
     paired rows (the last level's parent block is zeros)."""
@@ -604,7 +604,7 @@ def _build_mip_block_group(texs: list, present: tuple,
         last_parent=(len(heights) < len(texs),))
 
 
-def build_mip_block_tables(mip_maps: dict, device="cpu") -> tuple:
+def build_mip_block_tables(mip_maps: dict, device="cuda") -> tuple:
     """Like :func:`build_mip_quad_tables` but as single-material
     MipBlockMulti groups; groups with a base below 4×4, not 4-divisible,
     or a single level keep the quad layout."""

@@ -774,14 +774,14 @@ BLOCK_TABLE_THRESHOLD = 1 << 20
 
 def material_quads_from_set(material_set, index: int,
                             block_threshold: int | None
-                            = BLOCK_TABLE_THRESHOLD, device="cpu") -> tuple:
+                            = BLOCK_TABLE_THRESHOLD, device="cuda") -> tuple:
     """Bind one material as grouped quad/block tables."""
     return tq.build_quad_tables(tq.pack_material_maps(material_set, index),
                                 block_threshold=block_threshold,
                                 device=device)
 
 
-def make_overlay_resources(device="cpu", with_gizmo: bool = True
+def make_overlay_resources(device="cuda", with_gizmo: bool = True
                            ) -> OverlayResources:
     """Light-sphere mesh (r=0.1, 16×16) and, with ``with_gizmo``, the gizmo
     mesh from the resource root's gizmo.obj."""

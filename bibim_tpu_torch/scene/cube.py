@@ -32,7 +32,7 @@ def cube_model(tx: float, ty: float, tz: float,
 @dataclass
 class CubeScene:
     angle: float = 25.0
-    device: str = "cpu"
+    device: str = "cuda"
     _cube_a: DrawBatch | None = field(default=None, repr=False)
     _cube_b: DrawBatch | None = field(default=None, repr=False)
     _lights: object = field(default=None, repr=False)
@@ -67,7 +67,7 @@ def seeded_albedos(seed: int = 0, sizes=(1024, 2048)) -> tuple:
                  for n in sizes)
 
 
-def cube_material_tables(albedos, layout: str = "block", device="cpu"):
+def cube_material_tables(albedos, layout: str = "block", device="cuda"):
     """The cube binding from two (H, W, ≥3) u8 albedos: each albedo's mip
     pyramid (:func:`~bibim_tpu_torch.ops.texture_quad.build_mip_pyramid`)
     and the 4×4 neutral maps per material, merged across the materials —
@@ -103,7 +103,7 @@ def cube_material_tables(albedos, layout: str = "block", device="cpu"):
     return merge(tuple(mats))
 
 
-def cube_scene_materials(layout: str = "block", device="cpu"):
+def cube_scene_materials(layout: str = "block", device="cuda"):
     """:func:`cube_material_tables` of uv_debug.png and texture.jpg from
     the resource root (``config.toml``)."""
     from bibim_tpu_torch.assets.image import load_image_rgba8

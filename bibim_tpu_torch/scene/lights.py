@@ -38,7 +38,7 @@ class Lights(NamedTuple):
         return int(self.pos.shape[0])
 
 
-def make_lights(entries: list[dict], device="cpu") -> Lights:
+def make_lights(entries: list[dict], device="cuda") -> Lights:
     """Lights from dicts keyed like the Light struct; missing fields are 0."""
     n = len(entries)
 

@@ -59,7 +59,7 @@ def _planes_cat(a: np.ndarray, nk: int, device) -> tuple:
 
 
 def batch_from_mesh(mesh: Mesh, model: np.ndarray | None = None,
-                    device="cpu") -> DrawBatch:
+                    device="cuda") -> DrawBatch:
     """DrawBatch from a Mesh with (I,4,4) or (4,4) instance matrices.
 
     The mesh is de-indexed on the host (one vertex per triangle corner), so

@@ -23,7 +23,7 @@ from bibim_tpu_torch.scene.meshgen import Mesh, generate_plane_mesh
 from bibim_tpu_torch.scene.scene import DrawBatch, SceneData, batch_from_mesh
 
 
-def shaderball_lights(device="cpu"):
+def shaderball_lights(device="cuda"):
     d2r = np.pi / 180.0
     return make_lights([
         dict(type=LightType.DIRECTIONAL, dir=(-1, -1, 0),
@@ -62,7 +62,7 @@ def _plane_model() -> np.ndarray:
     return plane_model
 
 
-def ground_plane_batch(device="cpu") -> DrawBatch:
+def ground_plane_batch(device="cuda") -> DrawBatch:
     """translate(0,-10,0) · scale(100) unit plane."""
     return batch_from_mesh(generate_plane_mesh(), _plane_model(),
                            device=device)
@@ -87,7 +87,7 @@ class ShaderBallScene:
     num_instances: int = 1
     selected_material_index: int = 1
     angle: float = -90.0
-    device: str = "cpu"
+    device: str = "cuda"
     ball_mesh: Mesh | None = field(default=None, repr=False)
     # The ball (batch 0) is the shadow caster the light frustum's XY fits
     # (RenderSettings.shadow_fit_batches); the plane still rasterizes into

@@ -14,7 +14,7 @@ from bibim_tpu_torch.scene.scene import SceneData, batch_from_mesh
 
 @dataclass
 class TriangleScene:
-    device: str = "cpu"
+    device: str = "cuda"
     _data: SceneData | None = field(default=None, repr=False)
 
     def __post_init__(self):

@@ -225,7 +225,11 @@ def build_inputs(dev, width=WIDTH, height=HEIGHT, caps=CAPS, **extra):
     scene = SceneData(batches=(ball, ground_plane_batch(dev)),
                       lights=shaderball_lights(dev))
     mats = standin_materials(dev)
-    overlay = make_overlay_resources(dev, with_gizmo=False)
+    # No device argument: the port's entry points build on the card.
+    overlay = make_overlay_resources(with_gizmo=False)
+    if overlay.sphere_positions.device.type != "cuda":
+        raise AssertionError("make_overlay_resources() built on "
+                             f"{overlay.sphere_positions.device}")
     proj = m3.perspective(60.0, width / height, 0.1, 1000.0, device=dev)
     fp = FrameParams(
         enable_tone_mapping=torch.tensor(1, dtype=torch.int32, device=dev),
@@ -571,34 +575,159 @@ def check_raster(call, name: str = "raster", calls=()) -> dict:
                **bound(raster_bytes(name, args, out, share), ops))
     if skipped is not None:
         res["skipped_chunk_share"] = skipped
+    if name == "raster":
+        res.update(k1_launch(args, kw))
     return res
+
+
+def k1_launch(args, kw) -> dict:
+    """One K1 call as its launch sees it: slots, the window lengths
+    (``counts``, read on the host after the frame), the overflow entries
+    every slot scans first, the cluster size the wrapper picks, and the
+    kernel's device time at every cluster size (:func:`graph_ms`)."""
+    from bibim_tpu_torch.ops import fused
+
+    counts = args[6].cpu()
+    k = int(args[4].shape[0])
+    live = counts[counts > 0]
+    return dict(
+        slots=k, window_max=int(counts.max()) if k else 0,
+        window_mean=float(counts.float().mean()) if k else 0.0,
+        live_slots=int(live.numel()),
+        live_window_mean=float(live.float().mean()) if live.numel() else 0.0,
+        overflow=int(args[2][0]),
+        cluster=fused.raster_cluster(k, kw.get("max_count")),
+        kernel_ms_by_cluster={c: graph_ms(lambda: fused.raster_tiles(
+            *args, **kw, cluster=c)) for c in fused.CLUSTER_SIZES})
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds of one ``fn`` call: ``fn`` captured once in a
+    CUDA graph and replayed ``reps`` times between two CUDA events, so no
+    host work (checks, allocation, ctypes) falls inside the timed span."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # allocations of the first call stay out of the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def check_sorts(calls: list) -> dict:
     """K3 on every captured sort (bit-equal to torch.sort); the largest
-    is timed, beside one torch.sort of the same keys (the library call)."""
+    is timed, beside one torch.sort of the same keys (the library call),
+    and on every route that can sort it (``route``: the one it takes)."""
     import math
 
     import torch
 
-    from bibim_tpu_torch.ops.sort import sort_keys, sort_keys_plain
+    from bibim_tpu_torch import _build
+    from bibim_tpu_torch.ops.sort import digit_plan, sort_keys, sort_keys_plain
 
+    per_sort = {}
     for args, _, _ in calls:
         keys = args[0]
+        before = sort_keys.device_launches
         got, want = sort_keys(keys), sort_keys_plain(keys)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"K3 sort of {tuple(keys.shape)} "
                                  f"{keys.dtype} differs from torch.sort")
+        launched = sort_keys.device_launches - before
+        plan = len(digit_plan(keys))
+        if launched > 2 + plan:
+            raise AssertionError(f"K3 made {launched} device launches for "
+                                 f"keys with {plan} non-constant digits")
+        row = per_sort.setdefault((keys.numel(), str(keys.dtype)), dict(
+            keys=keys.numel(), dtype=str(keys.dtype), sorts=0,
+            device_launches=launched, nonconstant_digits=set()))
+        row["sorts"] += 1
+        row["nonconstant_digits"].add(plan)
     keys = max((c[0][0] for c in calls), key=lambda k: k.numel())
     n = keys.numel()
     return dict(max_abs_err=0.0, sorts=len(calls), shape=list(keys.shape),
                 dtype=str(keys.dtype),
                 dtypes=sorted({str(c[0][0].dtype) for c in calls}),
+                device_launches_per_sort=[
+                    dict(r, nonconstant_digits=sorted(r["nonconstant_digits"]))
+                    for r in sorted(per_sort.values(),
+                                    key=lambda r: -r["keys"])],
                 ms=cuda_ms(lambda: sort_keys(keys)),
                 plain_ms=cuda_ms(lambda: sort_keys_plain(keys)),
                 library_ms=cuda_ms(lambda: torch.sort(keys)),
+                host_ms=host_ms(lambda: sort_keys(keys)),
+                library_host_ms=host_ms(lambda: torch.sort(keys)),
+                route=_build.library().bb_sort_cluster(n,
+                                                       keys.element_size()),
+                ms_by_route={r: loop_ms(lambda: sort_keys(keys, route=r))
+                             for r in sort_routes(keys)},
+                library_loop_ms=loop_ms(lambda: torch.sort(keys)),
                 **bound(2 * tensor_bytes(keys), n * math.log2(max(n, 2))))
+
+
+def sort_routes(keys) -> list:
+    """K3's routes for these keys: many blocks (0), then every cluster
+    size whose shared memory holds them."""
+    from bibim_tpu_torch import _build
+
+    lib = _build.library()
+    n, size = keys.numel(), keys.element_size()
+    return [r for r in (0, 1, 2, 4, 8, 16)
+            if lib.bb_sort_work_bytes(n, size, r) >= 0]
+
+
+def loop_ms(fn, reps: int = 20) -> float:
+    """Milliseconds per ``fn`` call over ``reps`` calls issued back to
+    back between two CUDA events (after one warm-up): the device time
+    where that exceeds the call's host cost."""
+    import torch
+
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def host_ms(fn, reps: int = 50) -> float:
+    """Host milliseconds per ``fn`` call over ``reps`` calls issued back to
+    back (one synchronize at the end): the call's host cost where that
+    exceeds its device time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def k3_device_line(what: str) -> str:
+    """K3's launches on a main path: wrapper calls and the device launches
+    they made (its count since the path's counters were reset)."""
+    from bibim_tpu_torch.ops.sort import sort_keys
+
+    return (f"{what} K3 launches: {sort_keys.launches} sorts, "
+            f"{sort_keys.device_launches} device launches")
 
 
 def check_overlay(calls: list) -> dict:
@@ -875,6 +1004,7 @@ def run_config5(dev, smi: str, name: str):
     shadow = shadow_fields()
     for fn in counters:
         fn.launches = 0
+    sort_keys.device_launches = 0
     cover: list = []
     shadow_launches = [0]
 
@@ -907,6 +1037,7 @@ def run_config5(dev, smi: str, name: str):
                 "sample_block": tq.sample_table_block_kernel.launches,
                 "sample_small": tq.sample_rows_small.launches}
     print("config-5 main-path launches: " + json.dumps(launches))
+    print(k3_device_line("config-5 main path:"))
     for k, n in launches.items():
         if n <= 0 and k != "shade":
             raise AssertionError(f"kernel {k} was not launched by the "
@@ -1079,6 +1210,7 @@ def run_config2(dev, smi: str, name: str):
                 tq.sample_rows_small, tq.sample_mip_block_kernel)
     for fn in counters:
         fn.launches = 0
+    sort_keys.device_launches = 0
     cover: list = []
     shades: list = []
 
@@ -1106,6 +1238,7 @@ def run_config2(dev, smi: str, name: str):
                 "sample_small": tq.sample_rows_small.launches,
                 "sample_mip_block": tq.sample_mip_block_kernel.launches}
     print("config-2 main-path launches: " + json.dumps(launches))
+    print(k3_device_line("config-2 main path:"))
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {k} was not launched by the "
@@ -1266,9 +1399,13 @@ def run_config4(dev, smi: str, name: str):
     from bibim_tpu_torch.scene.shaderball import ShaderBallScene
 
     t0 = time.perf_counter()
-    scene = ShaderBallScene(num_instances=C4_INSTANCES, device=dev,
+    # No device argument: ShaderBallScene builds on the card.
+    scene = ShaderBallScene(num_instances=C4_INSTANCES,
                             ball_mesh=generate_uv_sphere_mesh(100.0, 100,
                                                               51))
+    built_on = scene.scene_data().batches[0].positions.device
+    if built_on.type != "cuda":
+        raise AssertionError(f"ShaderBallScene() built on {built_on}")
     mats = standin_materials(dev)
     proj_host = m3.perspective(60.0, WIDTH / HEIGHT, 0.1, 1000.0).numpy()
     proj = torch.as_tensor(proj_host, device=dev)
@@ -1378,6 +1515,18 @@ def run_config4(dev, smi: str, name: str):
             print(f"config-4 K9 early-z, {label}: {view[1] - view[0]} of "
                   f"{view[1]} window chunks skipped by the break over "
                   f"{n['raster_earlyz']} launches")
+    # K1 per launch of each default frame: does a pass's time follow its
+    # total work or its longest window?
+    k1 = iter(calls["raster"])
+    for (label, _, _, s), n in zip(frames, per_frame):
+        for p in range(n.get("raster", 0)):
+            a, k, _ = next(k1)
+            if s.early_z or s.fine_bins:
+                continue
+            row = k1_launch(a, k)
+            row["kernel_ms"] = row["kernel_ms_by_cluster"][row["cluster"]]
+            print(f"config-4 K1 launch, {label}, pass {p}: "
+                  + json.dumps(row))
     kres["raster_earlyz"]["all_calls_skipped_chunk_share"] = (
         1.0 - total[0] / total[1])
     print(f"config-4 K9 early-z: {total[1] - total[0]} of {total[1]} window "
@@ -1392,6 +1541,7 @@ def run_config4(dev, smi: str, name: str):
                 fused.raster_tiles_earlyz, fused.raster_tiles_fine)
     for fn in counters:
         fn.launches = 0
+    sort_keys.device_launches = 0
     cover: list = []
 
     def cov(kern):
@@ -1417,6 +1567,7 @@ def run_config4(dev, smi: str, name: str):
                 "raster_earlyz": fused.raster_tiles_earlyz.launches,
                 "raster_fine": fused.raster_tiles_fine.launches}
     print("config-4 main-path launches: " + json.dumps(launches))
+    print(k3_device_line("config-4 main path:"))
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {k} was not launched by the "
@@ -1560,6 +1711,7 @@ def main() -> int:
     for window in (frames[:len(YAWS)], frames[len(YAWS):]):
         for fn in counters.values():
             fn.launches = 0
+        sort_keys.device_launches = 0
         for _, vb, s in window:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1569,6 +1721,7 @@ def main() -> int:
             frame_ms.append((time.perf_counter() - t0) * 1e3)
             outs.append((out, cover[-1]))
         windows.append({k: fn.launches for k, fn in counters.items()})
+        print(k3_device_line(f"1080p main path ({len(window)} frames):"))
     launches = dict(windows[0], raster_gw=windows[1]["raster_gw"])
     print(f"main-path launches ({len(YAWS)} frames): "
           + json.dumps(windows[0]))

@@ -86,8 +86,10 @@ def inputs():
     fp = jfg.FrameParams(enable_tone_mapping=jnp.int32(1),
                          exposure=jnp.float32(1.0))
     jin = (JCubeScene().scene_data(), vb, fp, _jax_cube_tables(_albedos()))
-    port = (interop.scene_data(jin[0]), interop.view_block(vb),
-            interop.frame_params(fp), interop.material_tables(jin[3]))
+    port = (interop.scene_data(jin[0], device="cpu"),
+            interop.view_block(vb, device="cpu"),
+            interop.frame_params(fp, device="cpu"),
+            interop.material_tables(jin[3], device="cpu"))
     return jin, port
 
 
@@ -120,7 +122,7 @@ def test_cube_scene_and_tables_match_jax(inputs):
     """scene/cube.py: the port's CubeScene and cube_material_tables equal
     the JAX package's scene and binding."""
     jin, pin = inputs
-    scene = CubeScene().scene_data()
+    scene = CubeScene(device="cpu").scene_data()
     for got, want in zip(scene.batches, pin[0].batches):
         for f in ("positions", "uvs", "normals", "tangents", "indices",
                   "model", "inv_model"):
@@ -128,7 +130,7 @@ def test_cube_scene_and_tables_match_jax(inputs):
     for f in scene.lights._fields:
         assert torch.equal(getattr(scene.lights, f),
                            getattr(pin[0].lights, f)), f
-    tables = cube_material_tables(_albedos())
+    tables = cube_material_tables(_albedos(), device="cpu")
     assert [type(t).__name__ for t in tables] == ["MipBlockMulti",
                                                   "MipQuadMulti"]
     for got, want in zip(tables, pin[3]):
@@ -150,8 +152,8 @@ def test_cube_scene_materials_real_albedos(layout):
         if not root.common(name).is_file():
             pytest.skip(f"{name} not found (resource root "
                         f"{root.common_root})")
-    want = interop.material_tables(j_materials(layout=layout))
-    got = cube_scene_materials(layout)
+    want = interop.material_tables(j_materials(layout=layout), device="cpu")
+    got = cube_scene_materials(layout, device="cpu")
     assert [type(t) for t in got] == [type(t) for t in want]
     for g, w in zip(got, want):
         assert tuple(g[1:]) == tuple(w[1:])
@@ -231,7 +233,7 @@ def test_cube_ibl_frame_matches_jax(inputs):
     calls = {}
     out = render_frame(*pin, None, RenderSettings(
         **{**BASE, **PROD}, outputs="image+diag", enable_ibl=True),
-        ibl=interop.ibl(jibl.make_ibl_sh()), kernels=_spy(calls))
+        ibl=interop.ibl(jibl.make_ibl_sh(), device="cpu"), kernels=_spy(calls))
     check_bin_diag(out["bin_diag"])
     assert_image_bound(out["image"].numpy(), want)
     assert {"sample_mip_block", "sample_small", "shade_gbuffer"} <= set(calls)
@@ -241,7 +243,8 @@ def test_cube_ibl_frame_matches_jax(inputs):
 
 def test_mixed_bindings_raise(inputs):
     _, pin = inputs
-    quad = tq.build_quad_tables({"ao": np.zeros((4, 4, 1), np.uint8)})
+    quad = tq.build_quad_tables({"ao": np.zeros((4, 4, 1), np.uint8)},
+                                device="cpu")
     with pytest.raises(NotImplementedError):
         render_frame(*pin[:3], pin[3] + quad, None,
                      RenderSettings(outputs="image", **BASE))

@@ -152,9 +152,9 @@ def test_shaderball_golden():
     from bibim_tpu_torch.scene import FreeLookCamera
     from bibim_tpu_torch.scene.shaderball import ShaderBallScene
 
-    scene = ShaderBallScene()
+    scene = ShaderBallScene(device="cpu")
     mats = material_quads_from_set(create_pbr_material_set(),
-                                   scene.selected_material)
+                                   scene.selected_material, device="cpu")
     cam = FreeLookCamera()
     vb = ViewBlock(view=torch.as_tensor(cam.get_view_matrix()),
                    proj=m3.perspective(60.0, 192 / 96, 0.1, 1000.0),
@@ -163,7 +163,7 @@ def test_shaderball_golden():
     fp = FrameParams(torch.tensor(1, dtype=torch.int32),
                      torch.tensor(1.0, dtype=torch.float32))
     out = render_frame(
-        scene.scene_data(), vb, fp, mats, make_overlay_resources(),
+        scene.scene_data(), vb, fp, mats, make_overlay_resources(device="cpu"),
         # The reference's CPU fallback bins this frame with 2048
         # candidates per tile (golden_configs xla_cap); the port's windows
         # get the same room, the gizmo pass included.
@@ -199,9 +199,9 @@ def test_shaderball_shadows_ibl_golden():
     from bibim_tpu_torch.scene import FreeLookCamera
     from bibim_tpu_torch.scene.shaderball import ShaderBallScene
 
-    scene = ShaderBallScene()
+    scene = ShaderBallScene(device="cpu")
     mats = material_quads_from_set(create_pbr_material_set(),
-                                   scene.selected_material)
+                                   scene.selected_material, device="cpu")
     cam = FreeLookCamera()
     vb = ViewBlock(view=torch.as_tensor(cam.get_view_matrix()),
                    proj=m3.perspective(60.0, 192 / 96, 0.1, 1000.0),
@@ -210,7 +210,7 @@ def test_shaderball_shadows_ibl_golden():
     fp = FrameParams(torch.tensor(1, dtype=torch.int32),
                      torch.tensor(1.0, dtype=torch.float32))
     out = render_frame(
-        scene.scene_data(), vb, fp, mats, make_overlay_resources(),
+        scene.scene_data(), vb, fp, mats, make_overlay_resources(device="cpu"),
         # Candidate room as the reference's CPU fallback bins it
         # (golden_configs xla_cap, shadow_candidates).
         RenderSettings(width=192, height=96, max_candidates=2048,
@@ -219,7 +219,7 @@ def test_shaderball_shadows_ibl_golden():
                        shadow_candidates=4096,
                        shadow_fit_batches=scene.shadow_fit_batches,
                        outputs="image+diag"),
-        ibl=make_ibl_sh())
+        ibl=make_ibl_sh(device="cpu"))
     check_bin_diag(out["bin_diag"])
     want = np.asarray(Image.open(
         os.path.join(GOLDEN_DIR, "shaderball_shadows_ibl_192x96.png")))

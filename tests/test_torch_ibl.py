@@ -18,8 +18,8 @@ from tests import torch_port_cases as cases
 @pytest.fixture(scope="module")
 def probes():
     cases.cap_threads()
-    return (jibl.make_ibl_sh(), ibl.make_ibl_sh(), jibl.make_ibl(),
-            ibl.make_ibl())
+    return (jibl.make_ibl_sh(), ibl.make_ibl_sh(device="cpu"),
+            jibl.make_ibl(), ibl.make_ibl(device="cpu"))
 
 
 def test_bind_time_products_equal():
@@ -47,8 +47,8 @@ def test_make_ibl_tables_equal(probes):
     _, _, jmaps, pmaps = probes
     assert pmaps.hdr_scale == jmaps.hdr_scale
     for name in ("irradiance", "spec_gloss", "spec_rough"):
-        for p, j in zip(getattr(pmaps, name),
-                        interop.material_tables(getattr(jmaps, name))):
+        for p, j in zip(getattr(pmaps, name), interop.material_tables(
+                getattr(jmaps, name), device="cpu")):
             assert (p.height, p.width, p.present) == (j.height, j.width,
                                                       j.present)
             assert torch.equal(p.quads, j.quads)
@@ -56,17 +56,17 @@ def test_make_ibl_tables_equal(probes):
 
 def test_interop_ibl(probes):
     jsh, psh, jmaps, pmaps = probes
-    conv = interop.ibl(jsh)
+    conv = interop.ibl(jsh, device="cpu")
     for name in ("irradiance", "spec_gloss", "spec_rough"):
         for f in ("coef", "sg_axis", "sg_amp", "sg_sharp"):
             assert torch.equal(getattr(getattr(conv, name), f),
                                getattr(getattr(psh, name), f))
-    conv = interop.ibl(jmaps)
+    conv = interop.ibl(jmaps, device="cpu")
     assert isinstance(conv, ibl.IblMaps)
     assert conv.hdr_scale == pmaps.hdr_scale
     assert torch.equal(conv.spec_gloss[0].quads, pmaps.spec_gloss[0].quads)
     with pytest.raises(NotImplementedError):
-        interop.ibl(object())
+        interop.ibl(object(), device="cpu")
 
 
 def _shading(seed, shape=(4, 1024)):

@@ -230,7 +230,7 @@ def test_culling_matches_jax():
     the JAX package's on the same host matrices."""
     jb = _jax_ball_batch()
     host = interop.batch_host_instances(jb)
-    pbatch = interop.draw_batch(jb)
+    pbatch = interop.draw_batch(jb, device="cpu")
     proj = np.asarray(jm3.perspective(60.0, 16 / 9, 0.1, 1000.0))
     buckets = []
     for cam in _bench_views():
@@ -262,7 +262,7 @@ def test_shaderball_scene_culls_like_jax():
         instanced_camera,
     )
 
-    scene = ShaderBallScene(num_instances=64,
+    scene = ShaderBallScene(num_instances=64, device="cpu",
                             ball_mesh=generate_uv_sphere_mesh(100.0, 20, 11))
     cam = instanced_camera()
     proj = np.asarray(jm3.perspective(60.0, 16 / 9, 0.1, 1000.0))
@@ -278,7 +278,7 @@ def test_shaderball_scene_culls_like_jax():
                  batch_from_mesh(generate_plane_mesh(), plane)),
         lights=shaderball_lights())
     want = interop.scene_data(jcull.cull_scene_instances(
-        jscene, cam.get_view_matrix(), proj))
+        jscene, cam.get_view_matrix(), proj), device="cpu")
     for g, w in zip(got.batches, want.batches):
         np.testing.assert_array_equal(g.model.numpy(), w.model.numpy())
         np.testing.assert_array_equal(g.positions.numpy(),
@@ -297,7 +297,8 @@ def inst():
     scene, view, proj = cases.instanced_scene()
     vb = jfg.ViewBlock(view=view, proj=proj, view_pos=jnp.zeros(3),
                        enable_normal_map=jnp.int32(0))
-    return scene, vb, interop.scene_data(scene), interop.view_block(vb)
+    return (scene, vb, interop.scene_data(scene, device="cpu"),
+            interop.view_block(vb, device="cpu"))
 
 
 _BASE = dict(width=cases.W, height=cases.H, show_lights=False,
@@ -442,8 +443,9 @@ def frame_in(inst):
         jscene, jvb, fp, mats, None,
         jfg.RenderSettings(**dict(_BASE, max_candidates=512,
                                   xla_cap=2048)))["image"])
-    return ((pscene, interop.view_block(jvb), interop.frame_params(fp),
-             interop.material_tables(mats)), want)
+    return ((pscene, interop.view_block(jvb, device="cpu"),
+             interop.frame_params(fp, device="cpu"),
+             interop.material_tables(mats, device="cpu")), want)
 
 
 # Caps that force 3 depth-chained passes on compacted grids.

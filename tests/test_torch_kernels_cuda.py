@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from bibim_tpu_torch import _build
 from bibim_tpu_torch import math3d as m3
 from bibim_tpu_torch.ops import fused, sort
 from bibim_tpu_torch.ops import texture_quad as tq
@@ -114,6 +115,194 @@ def test_sort_kernel_matches_torch_sort(dev, dtype):
         torch.cuda.synchronize()
         assert torch.equal(got, sort.sort_keys_plain(keys)), n
         assert sort.sort_keys.launches == before + (n > 1)
+
+
+def _route_edge(itemsize: int, one_launch) -> int:
+    """The most keys K3 sorts on a route: ``one_launch(cluster size)``
+    says whether a key count is on it."""
+    lib = _build.library()
+    lo, hi = 2, 1 << 22
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if one_launch(lib.bb_sort_cluster(mid, itemsize)) \
+            else (lo, mid)
+    return lo
+
+
+def _sort_keys_of(kind: str, n: int, dtype, gen):
+    if kind == "random":
+        hi = 1 << 30 if dtype == torch.int32 else 1 << 62
+        return torch.randint(-hi, hi, (n,), generator=gen, dtype=dtype)
+    if kind == "constant_digits":  # only digits 0 and 1 vary
+        return torch.randint(0, 1 << 16, (n,), generator=gen,
+                             dtype=dtype) + (5 << 24)
+    if kind == "pairs":  # (tile, tri) keys with a sentinel tail, nt = 2025
+        tile = torch.randint(0, 2026, (n,), generator=gen, dtype=dtype)
+        tile[: n // 3] = 2025
+        tri = torch.randint(0, 1 << 14, (n,), generator=gen, dtype=dtype)
+        shift = 14 if dtype == torch.int32 else 49
+        return (tile << shift) | tri
+    return torch.full((n,), -77, dtype=dtype)  # all equal
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "constant_digits", "pairs",
+                                  "all_equal"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_sort_kernel_sizes_and_launches(dev, dtype, kind):
+    """K3 bit-equal to torch.sort at every route's edge (one block, one
+    cluster of up to 16 blocks, many blocks) and at the paths' sizes, with
+    at most 2 + (non-constant digits) device launches per sort: 1 on the
+    one-cluster route, 2 on the many-block one."""
+    gen = torch.Generator().manual_seed(5)
+    size = torch.empty((), dtype=dtype).element_size()
+    one = _route_edge(size, lambda c: c == 1)
+    cluster = _route_edge(size, lambda c: c > 0)
+    assert cluster >= 8 * one  # clusters of 8 and more launch
+    for n in (0, 1, 2, one, one + 1, 85_540, 320_064, cluster, cluster + 1,
+              1_327_108):
+        keys = _sort_keys_of(kind, n, dtype, gen).to(dev)
+        before = sort.sort_keys.device_launches
+        got = sort.sort_keys(keys)
+        torch.cuda.synchronize()
+        assert torch.equal(got, torch.sort(keys).values), n
+        launched = sort.sort_keys.device_launches - before
+        plan = sort.digit_plan(keys.cpu())
+        assert launched == (0 if n <= 1 else 1 if n <= cluster else 2), n
+        assert launched <= 2 + len(plan), (n, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_sort_kernel_every_route(dev, dtype):
+    """Every route K3 can take for a key count (many blocks, one cluster
+    of 1-16 blocks) sorts bit-equal to torch.sort; a route that cannot
+    hold the keys raises."""
+    lib = _build.library()
+    gen = torch.Generator().manual_seed(9)
+    size = torch.empty((), dtype=dtype).element_size()
+    for n in (2, 4096, 32_769, 85_540):
+        keys = _sort_keys_of("pairs", n, dtype, gen).to(dev)
+        want = torch.sort(keys).values
+        routes = [r for r in (0, 1, 2, 4, 8, 16)
+                  if lib.bb_sort_work_bytes(n, size, r) >= 0]
+        assert 0 in routes and len(routes) > 1, (n, routes)
+        for r in routes:
+            got = sort.sort_keys(keys, route=r)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (n, r)
+    with pytest.raises(RuntimeError):
+        sort.sort_keys(keys, route=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8])
+def test_raster_kernel_cluster_split_bit_equal(dev, frame, cluster):
+    """K1 with a slot's candidates split across 1-8 blocks of a cluster
+    equals its plain version on windows past the split threshold full of
+    ties: every triangle four times (the last copy must win), then the
+    same slots continuing their own keys (every winner ties the initial
+    key), and with empty parts (short windows)."""
+    rec, setup = _setup(frame)
+    sorted_tri, starts, counts, big_ids, n_big, diag, ty, tx = \
+        fused.bin_pairs(setup, W, H, 8, 128, span_cap=16, overflow_cap=32,
+                        max_candidates=512)
+    t, n = rec.shape[0], 4
+    copies = lambda x: torch.stack([x + j * t for j in range(n)],
+                                   1).reshape(-1)  # noqa: E731
+    nb = int(n_big[0])
+    big = torch.cat([copies(big_ids[:nb]), torch.full(
+        (n * 32 - n * nb,), -1, dtype=torch.int32, device=dev)])
+    ids = torch.arange(ty * tx, dtype=torch.int32, device=dev)
+    # Copy j keeps the coverage and depth channels and renumbers _ID to
+    # id + j·T, so the plane idf tells which copy won.
+    recs = [rec.clone() for _ in range(n)]
+    for j, r in enumerate(recs):
+        live = r[:, fused._ID] > 0
+        r[live, fused._ID] += j * t
+    args = (torch.cat(recs), big,
+            torch.tensor([n * nb], dtype=torch.int32, device=dev),
+            copies(sorted_tri), ids, (n * starts).contiguous(),
+            (n * counts).contiguous())
+    assert int(args[6].max()) >= 2 * fused.CLUSTER_MIN_PART
+    # At 8 blocks, parts of at least 64 candidates: slots split several
+    # ways leaving parts empty, and slots that rank 0 scans alone.
+    total = args[6] + n * nb
+    part = torch.clamp((total + 7) // 8, min=fused.CLUSTER_MIN_PART)
+    parts = (total + part - 1) // part
+    assert bool(((parts > 1) & (parts < 8)).any())
+    assert bool((parts <= 1).any())
+    init = torch.zeros((ty * tx, 1024), dtype=torch.int32, device=dev)
+    if cluster is None:
+        assert fused.raster_cluster(ids.shape[0], n * 512) == 8
+    for _ in range(2):
+        before = fused.raster_tiles.launches
+        zk, f = fused.raster_tiles(*args, init, tx, 8, 128,
+                                   max_count=n * 512, cluster=cluster)
+        zk_p, f_p = fused.raster_tiles_plain(*args, init, tx, 8, 128)
+        torch.cuda.synchronize()
+        assert fused.raster_tiles.launches == before + 1
+        idf = fused._OUT_FIELDS.index("idf")
+        assert torch.equal(zk, zk_p) and torch.equal(f[idf], f_p[idf])
+        assert float((f - f_p).abs().max()) <= 1e-3
+        hit = f_p[idf] >= 0.5
+        assert float(hit.float().mean()) > 0.2
+        assert bool((f_p[idf][hit] > (n - 1) * t).all())  # last copies
+        init = zk_p
+
+
+@pytest.mark.cuda
+def test_raster_kernel_instanced_passes_bit_equal(dev):
+    """Every K1 call of a multi-pass instanced frame (config 4's default
+    raster mode at a small size) equals its plain version at every
+    cluster size, and the frame equals the all-plain render."""
+    from bibim_tpu_torch.scene.shaderball import (
+        ShaderBallScene,
+        instanced_camera,
+    )
+
+    scene = ShaderBallScene(num_instances=64, device=dev,
+                            ball_mesh=generate_uv_sphere_mesh(100.0, 24, 13))
+    cam = instanced_camera()
+    vb = ViewBlock(view=torch.as_tensor(cam.get_view_matrix(), device=dev),
+                   proj=m3.perspective(60.0, W / H, 0.1, 1000.0, device=dev),
+                   view_pos=torch.as_tensor(cam.pos, device=dev),
+                   enable_normal_map=torch.tensor(0, device=dev))
+    fp = FrameParams(torch.tensor(1, device=dev),
+                     torch.tensor(1.0, device=dev))
+    mats = tq.build_quad_tables(
+        {s: np.full((16, 16, 1), 128, np.uint8) for s in tq.SLOTS},
+        device=dev)
+    s = RenderSettings(width=W, height=H, outputs="image+diag",
+                       show_gizmo=False, show_lights=False, pair_sampling=0,
+                       max_candidates=128, raster_passes=8,
+                       dense_tile_cap=128,
+                       live_tile_cap=128, raster_tile_cap=128,
+                       span_mid_cap=4096)
+    calls = []
+
+    def capture(*a, **k):
+        calls.append((a, k))
+        return fused.raster_tiles(*a, **k)
+
+    out = render_frame(scene.scene_data(), vb, fp, mats, None, s,
+                       kernels=KERNELS._replace(raster=capture))
+    ref = render_frame(scene.scene_data(), vb, fp, mats, None, s,
+                       kernels=PLAIN)
+    torch.cuda.synchronize()
+    for k in range(4):
+        assert int(out["bin_diag"][k]) == 0
+    assert torch.equal(out["image"], ref["image"])
+    assert len(calls) == 8
+    idf = fused._OUT_FIELDS.index("idf")
+    for a, k in calls:
+        want = fused.raster_tiles_plain(*a, **k)
+        for c in fused.CLUSTER_SIZES:
+            zk, f = fused.raster_tiles(*a, **k, cluster=c)
+            torch.cuda.synchronize()
+            assert torch.equal(zk, want[0]) and torch.equal(f[idf],
+                                                            want[1][idf])
+            assert float((f - want[1]).abs().max()) <= 1e-3
 
 
 @pytest.mark.cuda

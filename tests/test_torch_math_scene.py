@@ -56,8 +56,8 @@ def test_batch_from_mesh_bit_equal():
     mesh = meshgen.generate_uv_sphere_mesh(1.0, 12, 8)
     model = np.asarray(jm3.translate([0.5, -1.0, 4.0]))
     want = interop.draw_batch(j_batch_from_mesh(
-        jmeshgen.generate_uv_sphere_mesh(1.0, 12, 8), model))
-    got = batch_from_mesh(mesh, model)
+        jmeshgen.generate_uv_sphere_mesh(1.0, 12, 8), model), device="cpu")
+    got = batch_from_mesh(mesh, model, device="cpu")
     for f in ("positions", "uvs", "normals", "tangents", "colors", "indices",
               "model", "inv_model"):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
@@ -69,8 +69,8 @@ def test_batch_from_mesh_bit_equal():
 
 
 def test_lights_and_instances_bit_equal():
-    want = interop.lights(jshaderball.shaderball_lights())
-    got = shaderball.shaderball_lights()
+    want = interop.lights(jshaderball.shaderball_lights(), device="cpu")
+    got = shaderball.shaderball_lights(device="cpu")
     for a, b in zip(got, want):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a.numpy(), b.numpy())
@@ -125,8 +125,9 @@ def test_matrix_constructors():
 def test_assemble_scene_planar_matches_jax():
     scene, view, proj = cases.jax_scene()
     want = j_assemble(scene.batches, view, proj)
-    got = assemble_scene_planar(interop.scene_data(scene).batches,
-                                cases.t(view), cases.t(proj))
+    got = assemble_scene_planar(
+        interop.scene_data(scene, device="cpu").batches, cases.t(view),
+        cases.t(proj))
     for f in ("uv", "color", "mat"):
         for a, b in zip(_leaves(getattr(got, f)), _leaves(getattr(want, f))):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
@@ -163,8 +164,9 @@ def test_port_runs_without_jax():
                        enable_normal_map=torch.tensor(1))
         fp = FrameParams(torch.tensor(1), torch.tensor(1.0))
         out = render_frame(
-            TriangleScene().scene_data(), vb, fp, tq.build_quad_tables(maps),
-            make_overlay_resources(with_gizmo=False),
+            TriangleScene(device="cpu").scene_data(), vb, fp,
+            tq.build_quad_tables(maps, device="cpu"),
+            make_overlay_resources("cpu", with_gizmo=False),
             RenderSettings(width=128, height=64, show_gizmo=False,
                            outputs="image+diag"))
         check_bin_diag(out["bin_diag"])
@@ -179,3 +181,61 @@ def test_port_runs_without_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", \
         proc.stdout + proc.stderr
+
+
+_DEVICE_ENTRY_POINTS = [
+    "scene.shaderball.ShaderBallScene", "scene.shaderball.shaderball_lights",
+    "scene.shaderball.ground_plane_batch", "scene.triangle.TriangleScene",
+    "scene.cube.CubeScene", "scene.cube.cube_material_tables",
+    "scene.cube.cube_scene_materials", "scene.lights.make_lights",
+    "scene.scene.batch_from_mesh",
+    "pipeline.framegraph.material_quads_from_set",
+    "pipeline.framegraph.make_overlay_resources",
+    "ops.texture_quad.build_quad_tables",
+    "ops.texture_quad.build_mip_quad_tables",
+    "ops.texture_quad.build_mip_block_tables", "ops.ibl.make_ibl",
+    "ops.ibl.sph_poly", "ops.ibl.make_ibl_sh", "interop.tensor",
+    "interop.draw_batch", "interop.lights", "interop.scene_data",
+    "interop.material_tables", "interop.ibl", "interop.overlay_resources",
+    "interop.view_block", "interop.frame_params",
+]
+
+
+def _device_defaults() -> dict:
+    """'module.name' → the default of its ``device`` parameter, for every
+    function and class defined in the port."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import bibim_tpu_torch
+
+    found = {}
+    for info in pkgutil.walk_packages(bibim_tpu_torch.__path__,
+                                      "bibim_tpu_torch."):
+        mod = importlib.import_module(info.name)
+        for name, obj in vars(mod).items():
+            if getattr(obj, "__module__", None) != mod.__name__ or not (
+                    inspect.isfunction(obj) or inspect.isclass(obj)):
+                continue
+            try:
+                param = inspect.signature(obj).parameters.get("device")
+            except (TypeError, ValueError):
+                continue
+            if param is not None and param.default is not param.empty:
+                found[mod.__name__[len("bibim_tpu_torch."):] + "." + name] \
+                    = param.default
+    return found
+
+
+@pytest.mark.parametrize("entry", _DEVICE_ENTRY_POINTS)
+def test_entry_point_defaults_to_cuda(entry):
+    """The port's entry points build on the card unless the caller asks
+    for the CPU (the CPU tests pass device="cpu")."""
+    assert _device_defaults()[entry] == "cuda"
+
+
+def test_no_device_default_is_cpu():
+    defaults = _device_defaults()
+    assert not [k for k, v in defaults.items() if v == "cpu"]
+    assert set(_DEVICE_ENTRY_POINTS) <= set(defaults)

@@ -84,7 +84,7 @@ def merged():
     cases.cap_threads()
     j = jtq.merge_mip_block_materials(tuple(
         jtq.build_mip_block_tables(m) for m in _materials()))
-    return j, interop.material_tables(j)
+    return j, interop.material_tables(j, device="cpu")
 
 
 def _t(x):
@@ -120,10 +120,10 @@ def test_tables_byte_equal(layout):
                       tq.merge_mip_quad_materials)}[layout]
     jb, pb, jm, pm = build
     j_each = [jb(m) for m in _materials(j_mip_pyramid)]
-    p_each = [pb(m) for m in _materials()]
+    p_each = [pb(m, device="cpu") for m in _materials()]
     for jt, pt in list(zip(j_each, p_each)) + [(jm(tuple(j_each)),
                                                 pm(tuple(p_each)))]:
-        want = interop.material_tables(jt)
+        want = interop.material_tables(jt, device="cpu")
         assert [type(t).__name__ for t in pt] == [type(t).__name__
                                                   for t in want]
         for g, w in zip(pt, want):
@@ -133,7 +133,7 @@ def test_tables_byte_equal(layout):
         return
     rng = np.random.default_rng(3)
     albs = [rng.integers(0, 256, (n, n, 4), dtype=np.uint8) for n in (32, 16)]
-    got = cube_material_tables(albs)
+    got = cube_material_tables(albs, device="cpu")
     assert [type(t).__name__ for t in got] == ["MipBlockMulti",
                                                "MipQuadMulti"]
     assert got[0].heights == ((32, 16, 8, 4), (16, 8, 4))
@@ -234,8 +234,8 @@ def test_block_layout_matches_quad_oracle():
     img = rng.integers(0, 256, (32, 32, 1), dtype=np.uint8)
     mips = [m for m in tq.build_mip_pyramid(img) if m.shape[0] >= 4]
     u, v = _uv(5, base=32.0)
-    (quad,) = tq.build_mip_quad_tables({"ao": mips})
-    (block,) = tq.build_mip_block_tables({"ao": mips})
+    (quad,) = tq.build_mip_quad_tables({"ao": mips}, device="cpu")
+    (block,) = tq.build_mip_block_tables({"ao": mips}, device="cpu")
     want = tq.sample_mip_table(quad, _t(u), _t(v), TH, TW)
     got = tq.sample_mip_block(block, None, _t(u), _t(v), TH, TW)
     assert torch.equal(want["ao"], got["ao"])
@@ -257,12 +257,16 @@ def test_multi_material_routing(layout, kernels):
     """tests/test_texture_quad.py:168-184 and :243-265: per-pixel material
     ids select each material's constant pyramid."""
     if layout == "block":
-        m0 = tq.build_mip_block_tables({"ao": _const(40, (16, 8, 4))})
-        m1 = tq.build_mip_block_tables({"ao": _const(200, (32, 16, 8, 4))})
+        m0 = tq.build_mip_block_tables({"ao": _const(40, (16, 8, 4))},
+                                       device="cpu")
+        m1 = tq.build_mip_block_tables({"ao": _const(200, (32, 16, 8, 4))},
+                                       device="cpu")
         merged = tq.merge_mip_block_materials((m0, m1))
     else:
-        m0 = tq.build_mip_quad_tables({"ao": _const(40, (16, 8))})
-        m1 = tq.build_mip_quad_tables({"ao": _const(200, (32, 16))})
+        m0 = tq.build_mip_quad_tables({"ao": _const(40, (16, 8))},
+                                      device="cpu")
+        m1 = tq.build_mip_quad_tables({"ao": _const(200, (32, 16))},
+                                      device="cpu")
         merged = tq.merge_mip_quad_materials((m0, m1))
         assert merged[0].paired
     u, v = _uv(6, nt=4)
@@ -318,7 +322,7 @@ def test_sample_material_mips_multi_routes(merged):
     assert seen == ["k8", ("k7", 16, 31)]
     seen.clear()
     quad = tq.merge_mip_quad_materials(tuple(
-        tq.build_mip_quad_tables(m) for m in _materials()))
+        tq.build_mip_quad_tables(m, device="cpu") for m in _materials()))
     assert any(t.paired for t in quad)
     tq.sample_material_mips_multi(quad, _t(mat), _t(u), _t(v), TH, TW,
                                   Spy())
@@ -334,7 +338,7 @@ def test_deepest_level(max_levels):
     there. The port against the JAX package."""
     m = _alb(11, 32, max_levels)
     (jt,) = jtq.build_mip_block_tables(m)
-    (pt,) = interop.material_tables((jt,))
+    (pt,) = interop.material_tables((jt,), device="cpu")
     assert pt.last_parent == (max_levels is None,)
     u, v = _uv(12, e_lo=5.0, e_hi=9.0, base=32.0)
     mat = np.zeros(u.shape, np.int32)
@@ -403,7 +407,7 @@ def test_shade_mip_groups_matches_pallas_interpret(merged, uv, nm):
     got = shade_sampled(
         p, _t(px["u"]), _t(px["v"]), tuple(map(_t, px["world"])),
         tuple(map(_t, px["normal"])), tuple(map(_t, px["tangent"])),
-        _t(px["valid"]), interop.lights(lights), _t(vp),
+        _t(px["valid"]), interop.lights(lights, device="cpu"), _t(vp),
         torch.tensor(nm, dtype=torch.int32), mat_id=_t(mat), tile_h=TH,
         tile_w=TW)
     cases.assert_shade_close([np.asarray(w) for w in want],
@@ -412,7 +416,7 @@ def test_shade_mip_groups_matches_pallas_interpret(merged, uv, nm):
     other = shade_sampled(
         p, _t(px["u"]), _t(px["v"]), tuple(map(_t, px["world"])),
         tuple(map(_t, px["normal"])), tuple(map(_t, px["tangent"])),
-        _t(px["valid"]), interop.lights(lights), _t(vp),
+        _t(px["valid"]), interop.lights(lights, device="cpu"), _t(vp),
         torch.tensor(nm, dtype=torch.int32), mat_id=_t(1 - mat), tile_h=TH,
         tile_w=TW)
     assert not torch.equal(got[0], other[0])
@@ -452,7 +456,8 @@ def test_shade_mip_groups_reference_chain(merged):
     got = shade_sampled(
         p, _t(px["u"]), _t(px["v"]), tuple(map(_t, px["world"])),
         tuple(map(_t, px["normal"])), tuple(map(_t, px["tangent"])),
-        _t(px["valid"]), interop.lights(lights), _t(np.asarray(vp)),
+        _t(px["valid"]), interop.lights(lights, device="cpu"),
+        _t(np.asarray(vp)),
         torch.tensor(0, dtype=torch.int32), mat_id=_t(mat), tile_h=TH,
         tile_w=TW)
     cases.assert_shade_close(want, [g.numpy() for g in got])
@@ -471,8 +476,9 @@ def test_mip_wrappers_validate_inputs(merged):
         tq.sample_mip_block_kernel(p[0], None, u.reshape(4, -1),
                                    u.reshape(4, -1))
     quad = tq.merge_mip_quad_materials(tuple(
-        tq.build_mip_quad_tables(m) for m in _materials()))
+        tq.build_mip_quad_tables(m, device="cpu") for m in _materials()))
     z3 = (u, u, u)
     with pytest.raises(NotImplementedError):  # multi-level quad group
         shade_sampled(quad, u, u, z3, z3, z3, u > 0, interop.lights(
-            make_lights([])), torch.zeros(3), torch.tensor(0), mat_id=mat)
+            make_lights([]), device="cpu"), torch.zeros(3), torch.tensor(0),
+            mat_id=mat)

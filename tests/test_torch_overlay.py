@@ -83,7 +83,8 @@ def test_light_spheres_over_scene_depth(overlay_geometry):
     jvp = jnp.matmul(proj, view)
     jsoup = jfg._light_sphere_planar_soup(jlights, jov, jvp)
     soup = fg._light_sphere_planar_soup(
-        interop.lights(jlights), interop.overlay_resources(jov),
+        interop.lights(jlights, device="cpu"),
+        interop.overlay_resources(jov, device="cpu"),
         cases.t(jvp))
     for a, b in zip(torch.cat([torch.stack(c) for c in soup.clip]),
                     np.concatenate([np.stack(c) for c in jsoup.clip])):

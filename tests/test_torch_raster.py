@@ -167,7 +167,7 @@ def test_port_assembly_rasters_like_jax(jax_pass, pallas_out):
     """The port's own vertex stage + setup + records: same triangle ids as
     the JAX kernel on every pixel."""
     scene, view, proj, *_ = jax_pass
-    ps = interop.scene_data(scene)
+    ps = interop.scene_data(scene, device="cpu")
     soup = assemble_scene_planar(ps.batches, cases.t(view), cases.t(proj))
     setup = triangle_setup_planar(soup.clip, cases.W, cases.H)
     rec = fused.build_record_table_planar(setup, soup)

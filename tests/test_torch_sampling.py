@@ -33,7 +33,7 @@ def tables():
     maps["ao"] = np.random.default_rng(4).integers(0, 256, (48, 48, 1),
                                                    dtype=np.uint8)
     jt = jtq.build_quad_tables(maps, block_threshold=3000)
-    return jt, interop.material_tables(jt)
+    return jt, interop.material_tables(jt, device="cpu")
 
 
 def _by_kind(tabs, kind, rows=None):

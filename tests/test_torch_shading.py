@@ -110,10 +110,12 @@ def test_shade_matches_pallas_interpret(jtables, seed, vp, nm, deferred):
         lights, jnp.asarray(vp), jnp.int32(nm), gbuffer_mode=deferred,
         quantize=deferred, interpret=True)
     got = shade_sampled(
-        interop.material_tables(jtables), cases.t(px["u"]), cases.t(px["v"]),
+        interop.material_tables(jtables, device="cpu"), cases.t(px["u"]),
+        cases.t(px["v"]),
         tuple(map(cases.t, px["world"])), tuple(map(cases.t, px["normal"])),
         tuple(map(cases.t, px["tangent"])), cases.t(px["valid"]),
-        interop.lights(lights), torch.tensor(vp, dtype=torch.float32),
+        interop.lights(lights, device="cpu"),
+        torch.tensor(vp, dtype=torch.float32),
         torch.tensor(nm, dtype=torch.int32), gbuffer_mode=deferred,
         quantize=deferred)
     (_assert_close if deferred else _assert_close_rel)(
@@ -125,8 +127,8 @@ def test_tables_bit_equal():
     maps["roughness"] = np.random.default_rng(2).integers(
         0, 256, (256, 256, 1), dtype=np.uint8)  # a ≥ 2^16-texel group
     want = jtq.build_quad_tables(maps, block_threshold=1024)
-    got = tq.build_quad_tables(maps, block_threshold=1024)
-    conv = interop.material_tables(want)
+    got = tq.build_quad_tables(maps, block_threshold=1024, device="cpu")
+    conv = interop.material_tables(want, device="cpu")
     assert [type(t).__name__ for t in got] == [type(t).__name__
                                                 for t in want]
     for g, c in zip(got, conv):
@@ -141,7 +143,7 @@ def test_samplers_match_jax(jtables):
     px = _px(3)
     u, v = jnp.asarray(px["u"]), jnp.asarray(px["v"])
     want = jtq.sample_material(jtables, u, v, use_pallas=False)
-    got = tq.sample_material(interop.material_tables(jtables),
+    got = tq.sample_material(interop.material_tables(jtables, device="cpu"),
                              cases.t(px["u"]), cases.t(px["v"]))
     assert set(got) == set(want)
     for s in got:
@@ -168,7 +170,7 @@ def test_shade_pbr_planar_matches_jax():
                            tuple(map(cases.t, px["normal"])),
                            tuple(map(cases.t, alb)), cases.t(met),
                            cases.t(rough), cases.t(ao),
-                           interop.lights(lights), cases.t(vp))
+                           interop.lights(lights, device="cpu"), cases.t(vp))
     _assert_close_rel([np.asarray(w) for w in want],
                       [g.numpy() for g in got])
 
@@ -273,7 +275,8 @@ def test_gbuffer_shade_matches_pallas_interpret(opts):
         tuple(map(cases.t, g["world"])), tuple(map(cases.t, g["normal"])),
         tuple(map(cases.t, g["albedo"])), cases.t(g["metallic"]),
         cases.t(g["roughness"]), cases.t(g["ao"]), cases.t(g["valid"]),
-        interop.lights(lights), cases.t(vp), torch.tensor(opts["tm"]),
+        interop.lights(lights, device="cpu"), cases.t(vp),
+        torch.tensor(opts["tm"]),
         torch.tensor(opts["expo"], dtype=torch.float32), **pkw)
     assert got[0].shape == (opts.get("nt", NT), NPX)
     close = _assert_close if jkw["quantize"] or jkw["tonemap"] \
@@ -289,7 +292,8 @@ def test_gbuffer_shade_matches_pallas_interpret(opts):
             tuple(map(cases.t, g["normal"])),
             tuple(map(cases.t, g["albedo"])), cases.t(g["metallic"]),
             cases.t(g["roughness"]), cases.t(g["ao"]), cases.t(g["valid"]),
-            interop.lights(lights), cases.t(vp), torch.tensor(opts["tm"]),
+            interop.lights(lights, device="cpu"), cases.t(vp),
+            torch.tensor(opts["tm"]),
             torch.tensor(opts["expo"], dtype=torch.float32))),
             **{k: v for k, v in pkw.items() if k != "ambient"})[0].numpy())
 
@@ -300,7 +304,8 @@ def test_gbuffer_shade_miss_pixels_are_black():
         tuple(map(cases.t, g["world"])), tuple(map(cases.t, g["normal"])),
         tuple(map(cases.t, g["albedo"])), cases.t(g["metallic"]),
         cases.t(g["roughness"]), cases.t(g["ao"]),
-        torch.zeros((NT, NPX), dtype=torch.bool), interop.lights(_lights()),
+        torch.zeros((NT, NPX), dtype=torch.bool),
+        interop.lights(_lights(), device="cpu"),
         torch.zeros(3), torch.tensor(1), torch.tensor(1.0),
         vis_plane=cases.t(g["vis"]), vis_light=0,
         ambient=tuple(map(cases.t, g["ambient"])))
@@ -328,11 +333,12 @@ def test_shade_with_visibility_matches_pallas_interpret(jtables, vis_light):
         tuple(map(jnp.asarray, px["tangent"])), jnp.asarray(px["valid"]),
         lights, jnp.asarray(vp), jnp.int32(1),
         vis_plane=jnp.asarray(vis), vis_light=vis_light, interpret=True)
-    args = (interop.material_tables(jtables), cases.t(px["u"]),
+    args = (interop.material_tables(jtables, device="cpu"), cases.t(px["u"]),
             cases.t(px["v"]), tuple(map(cases.t, px["world"])),
             tuple(map(cases.t, px["normal"])),
             tuple(map(cases.t, px["tangent"])), cases.t(px["valid"]),
-            interop.lights(lights), torch.tensor(vp, dtype=torch.float32),
+            interop.lights(lights, device="cpu"),
+            torch.tensor(vp, dtype=torch.float32),
             torch.tensor(1, dtype=torch.int32))
     got = shade_sampled(*args, vis_plane=cases.t(vis), vis_light=vis_light)
     _assert_close([np.asarray(w) for w in want], [g.numpy() for g in got])
@@ -357,7 +363,8 @@ def test_shade_pbr_planar_visibility_and_ambient_match_jax():
                            tuple(map(cases.t, g["normal"])),
                            tuple(map(cases.t, g["albedo"])),
                            cases.t(g["metallic"]), cases.t(g["roughness"]),
-                           cases.t(g["ao"]), interop.lights(lights),
+                           cases.t(g["ao"]),
+                           interop.lights(lights, device="cpu"),
                            cases.t(vp), light_vis={2: cases.t(g["vis"])},
                            ambient=tuple(map(cases.t, g["ambient"])))
     _assert_close_rel([np.asarray(w) for w in want],
@@ -372,5 +379,6 @@ def test_pack_lights_visibility_flag():
     lights = _lights()
     for vis_light in (-1, 0, 2):
         want = np.asarray(_pack_lights(lights, lights.num_lights, vis_light))
-        got = pack_lights(interop.lights(lights), vis_light).numpy()
+        got = pack_lights(interop.lights(lights, device="cpu"),
+                          vis_light).numpy()
         np.testing.assert_array_equal(got, want)

@@ -130,7 +130,7 @@ def test_shadow_factor_compact_matches_jax(cap):
 def scene():
     cases.cap_threads()
     jscene, view, proj = cases.jax_scene()
-    return jscene, view, proj, interop.scene_data(jscene)
+    return jscene, view, proj, interop.scene_data(jscene, device="cpu")
 
 
 @pytest.mark.parametrize("fit", [None, (0,), (1,)])

@@ -167,9 +167,11 @@ def frame_inputs():
                        enable_normal_map=jnp.int32(1))
     fp = jfg.FrameParams(enable_tone_mapping=jnp.int32(1),
                          exposure=jnp.float32(1.0))
-    port = (interop.scene_data(scene), interop.view_block(vb),
-            interop.frame_params(fp), interop.material_tables(mats),
-            interop.overlay_resources(overlay))
+    port = (interop.scene_data(scene, device="cpu"),
+            interop.view_block(vb, device="cpu"),
+            interop.frame_params(fp, device="cpu"),
+            interop.material_tables(mats, device="cpu"),
+            interop.overlay_resources(overlay, device="cpu"))
     return (scene, vb, fp, mats, overlay), port
 
 
@@ -197,7 +199,7 @@ def check_stretch_frame(inputs, kw: dict, jibl=None) -> None:
     want_img = np.asarray(jfg.render_frame(
         *jin, jfg.RenderSettings(outputs="image", **FRAME_BASE, **kw),
         ibl=jibl)["image"])
-    pibl = interop.ibl(jibl) if jibl is not None else None
+    pibl = interop.ibl(jibl, device="cpu") if jibl is not None else None
     full = port_frame(inputs, ibl=pibl, outputs="full", **kw)
     assert_image_bound(full["image"].numpy(), want_img)
     prod = port_frame(inputs, ibl=pibl, outputs="image+diag",

@@ -17,7 +17,8 @@ early-z (K9) and fine bins (K11). Per frame:
   (every CUDA-side event: kernels, memcpy, memset; one stream, so they do
   not overlap) and the busy share = device time / wall time; device
   events and ``cudaLaunchKernel`` calls per frame; each port kernel's
-  (``bb::*``) device time per launch, kernel only; the top device ops;
+  (``bb::*``) device time per launch, kernel only, and K1's split into
+  each frame's pass 0 and its later (dense) passes; the top device ops;
 - the peak device memory of those 4 renders (``max_memory_allocated``
   after a reset).
 
@@ -47,8 +48,8 @@ import chip_smoke as cs  # noqa: E402
 
 # csrc kernel name → the TPU kernel it ports.
 KERNEL_OF = {
-    "raster_kernel": "K1", "shade_kernel": "K2", "local_sort": "K3",
-    "global_step": "K3", "local_merge": "K3", "overlay_kernel": "K4",
+    "raster_kernel": "K1", "shade_kernel": "K2", "sort_cluster": "K3",
+    "sort_onesweep": "K3", "overlay_kernel": "K4",
     "gbuffer_shade_kernel": "K5", "sample_block_kernel": "K6",
     "sample_small_kernel": "K7", "mip_block_kernel": "K8",
     "raster_earlyz_kernel": "K9", "raster_gw_kernel": "K10",
@@ -216,6 +217,19 @@ def profile(label, frame, trace_dir):
             k[0] += e.self_device_time_total / 1e3
             k[1] += e.count
     top = sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:12]
+    # K1 launches in time order: a frame's first is its pass 0, the rest
+    # its dense passes (their cluster split differs).
+    k1 = sorted((e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and "raster_kernel" in e.name),
+                key=lambda e: e.time_range.start)
+    k1_split = {}
+    if k1 and len(k1) % n == 0 and len(k1) > n:
+        per = len(k1) // n
+        k1_ms = [e.time_range.elapsed_us() / 1e3 for e in k1]
+        k1_split = {"k1_pass0_ms": statistics.mean(k1_ms[::per]),
+                    "k1_later_passes_ms": statistics.mean(
+                        m for i, m in enumerate(k1_ms) if i % per)}
     print(json.dumps({
         "frame": label,
         "host_ms_no_profiler": ms,
@@ -231,6 +245,7 @@ def profile(label, frame, trace_dir):
                              "launches_per_frame": v[1] / n,
                              "ms_per_launch": v[0] / v[1]}
                          for k, v in sorted(kern.items())},
+        **k1_split,
         "top_device_ops": [{"name": e.key[:90], "count": e.count,
                             "ms_per_frame":
                             e.self_device_time_total / 1e3 / n}
