@@ -71,6 +71,7 @@ class Groups(ctypes.Structure):
 
 _lib = None
 build_seconds = None  # wall time of the build this process ran, if any
+build_log = ""  # nvcc's output of the last verbose build (ptxas usage)
 
 
 def _nvcc() -> str:
@@ -112,8 +113,9 @@ def _run(procs: list) -> str:
 def build(verbose: bool = False) -> Path:
     """Compile the kernel library if the hashed build is missing; returns
     its path. One nvcc per source, all started together, then one link.
-    ``verbose`` prints ptxas register/shared-memory usage."""
-    global build_seconds
+    ``verbose`` prints ptxas register/shared-memory usage and keeps it in
+    :data:`build_log`."""
+    global build_seconds, build_log
     digest = _digest()
     out = BUILD_DIR / f"libbibim_kernels_{digest}.so"
     if out.is_file() and not verbose:
@@ -146,6 +148,7 @@ def build(verbose: bool = False) -> Path:
             f.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     if verbose:
+        build_log = log
         print(log)
     os.replace(tmp, out)
     return out
@@ -181,10 +184,11 @@ def _declare(lib) -> None:
         "bb_overlay": [p, p, p, i, p, i, p, p, p, p, p, p, i, i, i, i, i, i,
                        p],
         # groups, u, v, world×3, normal×3, tangent×3, valid, vis (or
-        # NULL), lights, n_lights, view_pos, nm_enable, gbuffer_mode,
-        # quantize, n, out r/g/b, stream
+        # NULL), lights, n_lights, view_pos, nm_enable, quantize, exposure
+        # and tonemap enable (or NULL), quantize_hdr, tonemap, generic, n,
+        # out r/g/b, stream
         "bb_shade": [ctypes.POINTER(Groups)] + [p] * 14
-                    + [i, p, p, i, i, i, p, p, p, p],
+                    + [i, p, p, i, p, p, i, i, i, i, p, p, p, p],
         # world×3, normal×3, albedo×3, metallic, roughness, ao, valid,
         # vis (or NULL), ambient×3 (or NULL), lights, n_lights, view_pos,
         # exposure, tonemap enable, quantize, tonemap, n, out r/g/b, stream
@@ -213,6 +217,9 @@ def _declare(lib) -> None:
     lib.bb_sort_work_bytes.restype = ctypes.c_longlong
     lib.bb_sort_cluster.argtypes = [i, i]
     lib.bb_sort_cluster.restype = ctypes.c_int
+    # groups -> the K2 instantiation bb_shade runs (0: the generic one)
+    lib.bb_shade_layout.argtypes = [ctypes.POINTER(Groups)]
+    lib.bb_shade_layout.restype = ctypes.c_int
 
 
 def library():

@@ -139,140 +139,262 @@ __device__ __forceinline__ int load_mip_geom(const int* gi, const float* gf,
   return gi[i];
 }
 
-// The 41-tap trilinear blend on its 8 live taps. Row layout: 5x5 child taps
-// then 4x4 parent taps, tap-major, channel stride cs. Child taps add in the
+// Tap offsets and weights of the 41-tap trilinear blend at one pixel. Row
+// layout: 5x5 child taps then 4x4 parent taps, tap-major, channel stride cs.
+struct MipTaps {
+  int c00, c01, c10, c11, p00, p01, p10, p11;
+  float w00, w01, w10, w11, v00, v01, v10, v11, frac, omfr;
+  bool x0, x1, y0, y1;
+};
+
+__device__ __forceinline__ MipTaps mip_taps(int cs, const MipGeom& g) {
+  MipTaps t;
+  const float omtx = 1.f - g.tx, omty = 1.f - g.ty;
+  t.w00 = omtx * omty;
+  t.w01 = g.tx * omty;
+  t.w10 = omtx * g.ty;
+  t.w11 = g.tx * g.ty;
+  t.c00 = (g.ly * 5 + g.lx) * cs;
+  t.c01 = t.c00 + cs;
+  t.c10 = t.c00 + 5 * cs;
+  t.c11 = t.c10 + cs;
+  const float omtx2 = 1.f - g.tx2, omty2 = 1.f - g.ty2;
+  t.v00 = omtx2 * omty2;
+  t.v01 = g.tx2 * omty2;
+  t.v10 = omtx2 * g.ty2;
+  t.v11 = g.tx2 * g.ty2;
+  t.x0 = g.pxi < 4;
+  t.x1 = g.pxi + 1 < 4;
+  t.y0 = g.pyi < 4;
+  t.y1 = g.pyi + 1 < 4;
+  t.p00 = (25 + g.pyi * 4 + g.pxi) * cs;
+  t.p01 = t.p00 + cs;
+  t.p10 = t.p00 + 4 * cs;
+  t.p11 = t.p10 + cs;
+  t.frac = g.frac;
+  t.omfr = 1.f - g.frac;
+  return t;
+}
+
+// Channel k of the blend on its 8 live taps. Child taps add in the
 // w00/w01/w10/w11 (row-major) order of the 25-tap sum, whose 21 dead taps
 // add exact zeros; parent taps likewise (a tap outside the stored 4x4
 // window is not in the sum); then own*(1-frac) + par*frac.
+__device__ __forceinline__ float mip_channel(const uint8_t* row,
+                                             const MipTaps& t, int k) {
+  float own = tap(row, t.c00 + k) * t.w00;
+  own = own + tap(row, t.c01 + k) * t.w01;
+  own = own + tap(row, t.c10 + k) * t.w10;
+  own = own + tap(row, t.c11 + k) * t.w11;
+  float par = (t.x0 && t.y0) ? tap(row, t.p00 + k) * t.v00 : 0.f;
+  par = par + ((t.x1 && t.y0) ? tap(row, t.p01 + k) * t.v01 : 0.f);
+  par = par + ((t.x0 && t.y1) ? tap(row, t.p10 + k) * t.v10 : 0.f);
+  par = par + ((t.x1 && t.y1) ? tap(row, t.p11 + k) * t.v11 : 0.f);
+  return own * t.omfr + par * t.frac;
+}
+
+// The 41-tap trilinear blend of n_out channels (K8).
 __device__ inline void mip_block_blend(const uint8_t* row, int cs,
                                        const MipGeom& g, int n_out,
                                        float* out) {
-  const float omtx = 1.f - g.tx, omty = 1.f - g.ty;
-  const float w00 = omtx * omty, w01 = g.tx * omty;
-  const float w10 = omtx * g.ty, w11 = g.tx * g.ty;
-  const int c00 = (g.ly * 5 + g.lx) * cs, c01 = c00 + cs;
-  const int c10 = c00 + 5 * cs, c11 = c10 + cs;
-  const float omtx2 = 1.f - g.tx2, omty2 = 1.f - g.ty2;
-  const float v00 = omtx2 * omty2, v01 = g.tx2 * omty2;
-  const float v10 = omtx2 * g.ty2, v11 = g.tx2 * g.ty2;
-  const bool x0 = g.pxi < 4, x1 = g.pxi + 1 < 4;
-  const bool y0 = g.pyi < 4, y1 = g.pyi + 1 < 4;
-  const int p00 = (25 + g.pyi * 4 + g.pxi) * cs, p01 = p00 + cs;
-  const int p10 = p00 + 4 * cs, p11 = p10 + cs;
-  const float omfr = 1.f - g.frac;
-  for (int k = 0; k < n_out; ++k) {
-    float own = tap(row, c00 + k) * w00;
-    own = own + tap(row, c01 + k) * w01;
-    own = own + tap(row, c10 + k) * w10;
-    own = own + tap(row, c11 + k) * w11;
-    float par = (x0 && y0) ? tap(row, p00 + k) * v00 : 0.f;
-    par = par + ((x1 && y0) ? tap(row, p01 + k) * v01 : 0.f);
-    par = par + ((x0 && y1) ? tap(row, p10 + k) * v10 : 0.f);
-    par = par + ((x1 && y1) ? tap(row, p11 + k) * v11 : 0.f);
-    out[k] = own * omfr + par * g.frac;
-  }
+  const MipTaps t = mip_taps(cs, g);
+  for (int k = 0; k < n_out; ++k) out[k] = mip_channel(row, t, k);
 }
 
-// Samples of one size group at pixel i (of n) into the slot array.
-__device__ inline void sample_group(const ShadeGroups& g, int gi, int i,
-                                    int n, float u, float v, float* slots) {
-  const int np = g.n_present[gi], cpad = g.cpad[gi];
-  if (g.kind[gi] == 2) {
-    MipGeom geom;
-    const int r = load_mip_geom(g.gi[gi], g.gf[gi], i, n, &geom);
-    float acc[N_SLOTS];
-    mip_block_blend(g.tab[gi] + (size_t)r * g.row_bytes[gi], cpad, geom, np,
-                    acc);
-    for (int k = 0; k < np; ++k) slots[g.slot[gi][k]] = acc[k];
-    return;
+// ---------------------------------------------------------------------------
+// The GGX light loop of K2 and K5 (bibim_tpu/ops/shading_pallas.py
+// _ggx_light_sum, brdf.frag operation order), split in two: what depends
+// only on a light is computed by the block into a shared-memory tile of
+// LIGHT_TILE lights (prepare_light / stage_lights), the per-pixel loop
+// reads it (ggx_lights). Both halves are the reference's expressions on the
+// same inputs, so the sum is bit for bit what one fused loop gives. A
+// light list that fits the tile is staged once per block, and the kernels
+// then run a pixel loop with no barrier in it; a longer one passes through
+// the tile in order, once per pixel step (for_light_tiles), so any number
+// of lights adds into lo in the reference's order.
+// ---------------------------------------------------------------------------
+
+constexpr int LIGHT_TILE = 64;  // 4 KB of prepared lights a block
+
+enum LightKind : int { LIGHT_POINT = 0, LIGHT_SPOT = 1, LIGHT_DIR = 2 };
+
+struct alignas(16) PreparedLight {
+  float pos[3];
+  float dn[3];      // dir / max(|dir|, 1e-20)
+  float outer;      // outer cutoff
+  float eps_div;    // inner - outer, or 1 where that is 0
+  float intensity;
+  float color[3];
+  int kind;         // LightKind (a type other than 1 or 2 lights as a point)
+  int vis;          // the visibility flag (column 13 > 0.5)
+};
+static_assert(sizeof(PreparedLight) == 64, "PreparedLight is 4 x 16 bytes");
+
+// One packed row (scene/lights.py pack_lights) → its invariants.
+__device__ __forceinline__ void prepare_light(const float* L,
+                                              PreparedLight* p) {
+  const float dlen =
+      clamp_min(sqrtf(L[4] * L[4] + L[5] * L[5] + L[6] * L[6]), 1e-20f);
+  for (int c = 0; c < 3; ++c) {
+    p->pos[c] = L[c];
+    p->dn[c] = L[4 + c] / dlen;
+    p->color[c] = L[8 + c];
   }
-  if (g.kind[gi] == 3) {
-    // A row outside the table samples 0 (the reference's one-hot select).
-    const int r = g.gi[gi][i];
-    const bool in = r >= 0 && r < g.rows[gi];
-    const uint8_t* row = g.tab[gi] + (size_t)(in ? r : 0) * g.row_bytes[gi];
-    const float tx = g.gf[gi][i], ty = g.gf[gi][n + i];
-    for (int k = 0; k < np; ++k)
-      slots[g.slot[gi][k]] = in ? blend_quad(row, k, cpad, tx, ty) : 0.f;
-    return;
-  }
-  const int h = g.h[gi], w = g.w[gi];
-  int x0i, y0i;
-  float tx, ty;
-  footprint(u, v, h, w, &x0i, &y0i, &tx, &ty);
-  if (g.kind[gi] == 0) {
-    const int nbx = w / 4;
-    const uint8_t* row =
-        g.tab[gi] + (size_t)((y0i / 4) * nbx + (x0i / 4)) * g.row_bytes[gi];
-    float acc[N_SLOTS];
-    blend_block(row, x0i % 4, y0i % 4, tx, ty, cpad, np, acc);
-    for (int k = 0; k < np; ++k) slots[g.slot[gi][k]] = acc[k];
+  const float eps = L[11] - L[12];
+  p->outer = L[12];
+  p->eps_div = eps == 0.f ? 1.f : eps;
+  p->intensity = L[7];
+  p->kind = L[3] == 2.f ? LIGHT_DIR : (L[3] == 1.f ? LIGHT_SPOT : LIGHT_POINT);
+  p->vis = L[13] > 0.5f;
+}
+
+// The block's first warp prepares lights [0, n) of ``lp`` (n <= LIGHT_TILE)
+// into the tile, then the block synchronises.
+__device__ __forceinline__ void stage_lights(const float* __restrict__ lp,
+                                             int n, PreparedLight* tile) {
+  if (threadIdx.x < 32)
+    for (int li = threadIdx.x; li < n; li += 32)
+      prepare_light(lp + li * LIGHT_ROW, tile + li);
+  __syncthreads();
+}
+
+// f(tile, count) for the lights in order, one tile at a time. RESIDENT: the
+// list fits the tile and was staged at kernel entry. Otherwise it is
+// restaged tile by tile: every thread of the block calls this with the
+// same n_lights, as it synchronises.
+template <bool RESIDENT, class F>
+__device__ __forceinline__ void for_light_tiles(const float* lp,
+                                                int n_lights,
+                                                PreparedLight* tile, F&& f) {
+  if constexpr (RESIDENT) {
+    f(tile, n_lights);
   } else {
-    const uint8_t* row =
-        g.tab[gi] + (size_t)(y0i * w + x0i) * g.row_bytes[gi];
-    for (int k = 0; k < np; ++k)
-      slots[g.slot[gi][k]] = blend_quad(row, k, cpad, tx, ty);
-  }
-}
-
-// The brdf.frag light loop (reference operation order) added into lo[3].
-// With has_vis, the radiance of the light whose row has the visibility
-// flag (column 13) is multiplied by vis.
-__device__ inline void ggx_light_sum(const float* lp, int n_lights,
-                                     bool has_vis, float vis,
-                                     const float* world, const float* n3,
-                                     const float* v3, const float* alb,
-                                     const float* f0, float met, float rough,
-                                     float* lo) {
-  for (int li = 0; li < n_lights; ++li) {
-    const float* L = lp + li * LIGHT_ROW;
-    float to_l[3] = {L[0] - world[0], L[1] - world[1], L[2] - world[2]};
-    const float d2 = clamp_min(dot3(to_l, to_l), 1e-20f);
-    const float inv_d = 1.f / sqrtf(d2);
-    const float l_point[3] = {to_l[0] * inv_d, to_l[1] * inv_d,
-                              to_l[2] * inv_d};
-    const float att_point = 1.f / d2;
-    const float dlen =
-        clamp_min(sqrtf(L[4] * L[4] + L[5] * L[5] + L[6] * L[6]), 1e-20f);
-    const float dn[3] = {L[4] / dlen, L[5] / dlen, L[6] / dlen};
-    const float theta = -(l_point[0] * dn[0] + l_point[1] * dn[1] +
-                          l_point[2] * dn[2]);
-    const float eps = L[11] - L[12];
-    const float spot = clamp01((theta - L[12]) / (eps == 0.f ? 1.f : eps));
-    const bool is_spot = L[3] == 1.f;
-    const bool is_dir = L[3] == 2.f;
-    float l_vec[3];
-    for (int c = 0; c < 3; ++c) l_vec[c] = is_dir ? -dn[c] : l_point[c];
-    const float att = is_dir ? 1.f : att_point * (is_spot ? spot : 1.f);
-
-    float hv[3] = {l_vec[0] + v3[0], l_vec[1] + v3[1], l_vec[2] + v3[2]};
-    normalize3(hv);
-    const float a = rough * rough;
-    const float a2 = a * a;
-    const float ndh = clamp_min(dot3(n3, hv), 0.f);
-    const float denom = ndh * ndh * (a2 - 1.f) + 1.f;
-    const float d = a2 / (PI_F * denom * denom);
-    const float hdv = clamp_min(dot3(hv, v3), 0.f);
-    const float x = 1.f - hdv;
-    const float x2 = x * x;
-    const float fres = x * (x2 * x2);
-    const float r1 = rough + 1.f;
-    const float kk = (r1 * r1) / 8.f;
-    const float ndv = clamp_min(dot3(n3, v3), 0.f);
-    const float ndl = clamp_min(dot3(n3, l_vec), 0.f);
-    const float gv =
-        (ndv / (ndv * (1.f - kk) + kk)) * (ndl / (ndl * (1.f - kk) + kk));
-    const float spec_den = 1.f / clamp_min(4.f * ndv * ndl, 0.001f);
-    float radiance = att * L[7];
-    if (has_vis && L[13] > 0.5f) radiance = radiance * vis;
-    for (int c = 0; c < 3; ++c) {
-      const float f = f0[c] + (1.f - f0[c]) * fres;
-      const float specular = (d * f * gv) * spec_den;
-      const float kd = (1.f - f) * (1.f - met);
-      lo[c] = lo[c] + (kd * alb[c] / PI_F + specular) *
-                          (radiance * L[8 + c]) * ndl;
+    for (int l0 = 0; l0 < n_lights; l0 += LIGHT_TILE) {
+      const int count = min(LIGHT_TILE, n_lights - l0);
+      __syncthreads();  // every thread is done with the previous tile
+      stage_lights(lp + (size_t)l0 * LIGHT_ROW, count, tile);
+      f(tile, count);
     }
   }
+}
+
+// A covered pixel's inputs to the light loop: position, unit normal and
+// view vector, albedo, F0, metallic, roughness and the visibility of the
+// flagged light.
+struct Surface {
+  float world[3], n[3], v[3], alb[3], f0[3];
+  float met, rough, vis;
+};
+
+// The terms of the light loop that do not depend on the light.
+struct GgxTerms {
+  float a2, a2m1, kk, omkk, gv_v, ndv4, om_met, om_f0[3];
+};
+
+__device__ __forceinline__ GgxTerms ggx_terms(const Surface& s) {
+  GgxTerms t;
+  const float a = s.rough * s.rough;
+  t.a2 = a * a;
+  t.a2m1 = t.a2 - 1.f;
+  const float r1 = s.rough + 1.f;
+  t.kk = (r1 * r1) / 8.f;
+  t.omkk = 1.f - t.kk;
+  const float ndv = clamp_min(dot3(s.n, s.v), 0.f);
+  t.gv_v = ndv / (ndv * t.omkk + t.kk);
+  t.ndv4 = 4.f * ndv;
+  t.om_met = 1.f - s.met;
+  for (int c = 0; c < 3; ++c) t.om_f0[c] = 1.f - s.f0[c];
+  return t;
+}
+
+// One light's term at one pixel, added into lo[3]. With has_vis, the
+// radiance of the light with the visibility flag is multiplied by s.vis.
+// A directional light skips the point-light terms and a point light the
+// spot term, whose results the reference selects away.
+__device__ __forceinline__ void ggx_light(const PreparedLight& L,
+                                          bool has_vis, const Surface& s,
+                                          const GgxTerms& t, float* lo) {
+  const float *world = s.world, *n3 = s.n, *v3 = s.v;
+  float l_vec[3], att;
+  if (L.kind == LIGHT_DIR) {
+    for (int c = 0; c < 3; ++c) l_vec[c] = -L.dn[c];
+    att = 1.f;
+  } else {
+    const float to_l[3] = {L.pos[0] - world[0], L.pos[1] - world[1],
+                           L.pos[2] - world[2]};
+    const float d2 = clamp_min(dot3(to_l, to_l), 1e-20f);
+    const float inv_d = 1.f / sqrtf(d2);
+    for (int c = 0; c < 3; ++c) l_vec[c] = to_l[c] * inv_d;
+    att = 1.f / d2;
+    if (L.kind == LIGHT_SPOT) {
+      const float theta = -(l_vec[0] * L.dn[0] + l_vec[1] * L.dn[1] +
+                            l_vec[2] * L.dn[2]);
+      att = att * clamp01((theta - L.outer) / L.eps_div);
+    }
+  }
+  float hv[3] = {l_vec[0] + v3[0], l_vec[1] + v3[1], l_vec[2] + v3[2]};
+  normalize3(hv);
+  const float ndh = clamp_min(dot3(n3, hv), 0.f);
+  const float denom = ndh * ndh * t.a2m1 + 1.f;
+  const float d = t.a2 / (PI_F * denom * denom);
+  const float hdv = clamp_min(dot3(hv, v3), 0.f);
+  const float x = 1.f - hdv;
+  const float x2 = x * x;
+  const float fres = x * (x2 * x2);
+  const float ndl = clamp_min(dot3(n3, l_vec), 0.f);
+  const float gv = t.gv_v * (ndl / (ndl * t.omkk + t.kk));
+  const float spec_den = 1.f / clamp_min(t.ndv4 * ndl, 0.001f);
+  float radiance = att * L.intensity;
+  if (has_vis && L.vis) radiance = radiance * s.vis;
+  for (int c = 0; c < 3; ++c) {
+    const float f = s.f0[c] + t.om_f0[c] * fres;
+    const float specular = (d * f * gv) * spec_den;
+    const float kd = (1.f - f) * t.om_met;
+    lo[c] = lo[c] + (kd * s.alb[c] / PI_F + specular) *
+                        (radiance * L.color[c]) * ndl;
+  }
+}
+
+// The light loop at one pixel over n_lights prepared lights, added into
+// lo[3]; the light-independent terms once per call (once per tile where
+// the lights pass through the tile).
+__device__ __forceinline__ void ggx_lights(const PreparedLight* lights,
+                                           int n_lights, bool has_vis,
+                                           const Surface& s, float* lo) {
+  const GgxTerms t = ggx_terms(s);
+  for (int li = 0; li < n_lights; ++li)
+    ggx_light(lights[li], has_vis, s, t, lo);
+}
+
+// The frame's tail after a shading kernel, fused (options of K2 and K5):
+// the RGBA16F round trip of the HDR result, then the exposure tone map
+// 1 - exp(-hdr * exposure) (ops/tonemap.py tone_map).
+__device__ __forceinline__ float hdr_epilogue(float hdr, bool quantize,
+                                              bool tonemap, float exposure) {
+  if (quantize) hdr = q16(hdr);
+  return tonemap ? 1.f - expf(-hdr * exposure) : hdr;
+}
+
+// Blocks of a grid-stride launch: one resident wave of the kernel (its
+// occupancy at ``threads`` per block, looked up once per device into the
+// caller's ``wave``), and no more than the pixels need, so each block
+// prepares its lights once for many pixels.
+constexpr int MAX_DEVICES = 64;
+template <class K>
+inline int resident_grid(K kernel, int threads, int n,
+                         int (&wave)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& full = wave[dev % MAX_DEVICES];
+  if (full == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                  0);
+    full = (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+  }
+  const int need = (n + threads - 1) / threads;
+  return need < full ? need : full;
 }
 
 }  // namespace bb

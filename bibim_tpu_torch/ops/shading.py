@@ -7,12 +7,17 @@ material tables to masked HDR planes — bilinear samples of every size
 group (block tables and quad tables, rows read by index), tangent-space
 normal map, the deferred G-buffer miss mask and RGBA16F (fp16) round trip,
 the GGX light loop with the optional shadow visibility plane, and the
-0.03·albedo·ao ambient term. The fp16 round trip of the HDR result and the
-tone map stay outside, as torch ops, like the reference's.
+0.03·albedo·ao ambient term; optionally (``quantize_hdr``, ``tonemap``)
+also the frame's tail, the fp16 round trip of the HDR result and the tone
+map, so that it returns LDR planes.
 
 K5, G-buffer shade (replaces ``shade_tonemap_pallas``): the GGX light loop
 over G-buffer planes with the optional visibility plane and IBL ambient
 planes, fp16 round trip and exposure tone map.
+
+Both kernels write the miss value at a pixel whose ``valid`` is false and
+read nothing else there, so the input planes may hold anything at misses
+(the plain versions give the same output for any such values).
 
 :func:`shade_sampled` and :func:`shade_tonemap` are the kernel wrappers
 (csrc/shade.cu, csrc/gbuffer_shade.cu for CUDA tensors);
@@ -37,10 +42,24 @@ from bibim_tpu_torch.ops.shading_planar import (
 from bibim_tpu_torch.ops.tonemap import tone_map
 from bibim_tpu_torch.scene.lights import Lights, pack_lights
 
+# Row alignment the kernels' word loads need (16-byte quad-row vectors).
+_TABLE_ALIGN = 16
+
 
 def q16(x: torch.Tensor) -> torch.Tensor:
     """RGBA16F attachment round trip (round to nearest even)."""
     return x.to(torch.float16).to(torch.float32)
+
+
+def hdr_tail(hdr, quantize: bool, tonemap: bool, enable_tone_mapping,
+             exposure) -> tuple:
+    """The frame's tail after a shading kernel, as torch ops: the HDR fp16
+    round trip, then the exposure tone map (the kernels' epilogue)."""
+    if quantize:
+        hdr = tuple(q16(c) for c in hdr)
+    if tonemap:
+        hdr = tuple(tone_map(c, enable_tone_mapping, exposure) for c in hdr)
+    return tuple(hdr)
 
 
 def _light_vis(vis_plane, vis_light: int) -> dict | None:
@@ -77,10 +96,13 @@ def _sample_groups_plain(tables, u, v, mat_id, tile_h, tile_w) -> dict:
 
 def shade_sampled_plain(tables, u, v, world, normal, tangent, valid,
                         lights: Lights, view_pos, enable_normal_map,
-                        gbuffer_mode: bool = True, quantize: bool = True,
-                        vis_plane=None, vis_light: int = -1, mat_id=None,
-                        tile_h: int = 8, tile_w: int = 128):
-    """Plain version of K2 → (r, g, b) masked HDR planes."""
+                        quantize: bool = True, vis_plane=None,
+                        vis_light: int = -1, mat_id=None,
+                        tile_h: int = 8, tile_w: int = 128,
+                        quantize_hdr: bool = False, tonemap: bool = False,
+                        enable_tone_mapping=None, exposure=None):
+    """Plain version of K2 → (r, g, b) masked HDR planes (LDR after
+    :func:`hdr_tail` with ``quantize_hdr`` / ``tonemap``)."""
     if not sampled_groups_supported(tables):
         raise NotImplementedError("shade_sampled: material groups "
                                   f"{[type(t).__name__ for t in tables]}")
@@ -93,12 +115,9 @@ def shade_sampled_plain(tables, u, v, world, normal, tangent, valid,
                            (slots["nrm_x"], slots["nrm_y"], slots["nrm_z"]),
                            enable_normal_map)
 
-    def mq(x):
-        if gbuffer_mode:
-            x = torch.where(valid, x, zero)
-        if quantize:
-            x = q16(x)
-        return x
+    def mq(x):  # the deferred G-buffer: cleared at misses, fp16
+        x = torch.where(valid, x, zero)
+        return q16(x) if quantize else x
 
     world_q = tuple(mq(c) for c in world)
     nrm_q = tuple(mq(c) for c in nrm)
@@ -111,7 +130,8 @@ def shade_sampled_plain(tables, u, v, world, normal, tangent, valid,
     lo = ggx_light_sum(lights, world_q, n3, v3, alb_q, f0, met_q, rough_q,
                        _light_vis(vis_plane, vis_light))
     hdr = tuple(0.03 * alb_q[c] * ao_q + lo[c] for c in range(3))
-    return tuple(torch.where(valid, c, zero) for c in hdr)
+    return hdr_tail(tuple(torch.where(valid, c, zero) for c in hdr),
+                    quantize_hdr, tonemap, enable_tone_mapping, exposure)
 
 
 def _groups(tables, u, v, mat_id, tile_h, tile_w) -> tuple:
@@ -125,6 +145,9 @@ def _groups(tables, u, v, mat_id, tile_h, tile_w) -> tuple:
         tab = t.blocks if isinstance(t, (tq.BlockTable, tq.MipBlockMulti)) \
             else t.quads
         tq._check_table("shade_sampled", tab, u.device)
+        if tab.data_ptr() % _TABLE_ALIGN:
+            raise ValueError("shade_sampled: tables must start on a "
+                             f"{_TABLE_ALIGN}-byte boundary")
         cpad = tq._ceil4(len(t.present))
         if isinstance(t, tq.BlockTable):
             if t.height % tq.BLOCK_B or t.width % tq.BLOCK_B:
@@ -154,6 +177,9 @@ def _groups(tables, u, v, mat_id, tile_h, tile_w) -> tuple:
         if g.kind[k] in (G.MIP_BLOCK, G.ROUTED_QUAD):
             g.gi[k], g.gf[k] = gi.data_ptr(), gf.data_ptr()
             keep += [gi, gf]
+        elif tab.shape[1] % _TABLE_ALIGN:
+            raise ValueError("shade_sampled: table rows must be a multiple "
+                             f"of {_TABLE_ALIGN} bytes")
         g.tab[k] = tab.data_ptr()
         g.rows[k], g.row_bytes[k] = tab.shape
         g.cpad[k] = cpad
@@ -172,25 +198,45 @@ def _check_planes(fn: str, names, planes, valid, shape, dev) -> None:
             raise ValueError(f"{fn}: plane {name} must be a contiguous "
                              f"float32 {tuple(shape)} tensor on {dev}")
     if valid.dtype != torch.bool or tuple(valid.shape) != tuple(shape) \
-            or valid.device != dev:
-        raise ValueError(f"{fn}: valid must be a bool plane")
+            or valid.device != dev or not valid.is_contiguous():
+        raise ValueError(f"{fn}: valid must be a contiguous bool plane")
 
 
 def _optional_ptr(t):
     return None if t is None else _build.ptr(t)
 
 
+def _tail_scalars(dev, tonemap: bool, enable_tone_mapping, exposure):
+    """(exposure float32, tone-map enable int32) device scalars for a
+    kernel's tone-map epilogue, or (None, None) without one."""
+    if not tonemap:
+        return None, None
+    if enable_tone_mapping is None or exposure is None:
+        raise ValueError("tonemap needs enable_tone_mapping and exposure")
+    return (exposure.to(device=dev, dtype=torch.float32).reshape(1)
+            .contiguous(),
+            enable_tone_mapping.to(device=dev, dtype=torch.int32).reshape(1)
+            .contiguous())
+
+
 def shade_sampled(tables, u, v, world, normal, tangent, valid,
                   lights: Lights, view_pos, enable_normal_map,
-                  gbuffer_mode: bool = True, quantize: bool = True,
-                  vis_plane=None, vis_light: int = -1, mat_id=None,
-                  tile_h: int = 8, tile_w: int = 128):
+                  quantize: bool = True, vis_plane=None, vis_light: int = -1,
+                  mat_id=None, tile_h: int = 8, tile_w: int = 128,
+                  quantize_hdr: bool = False, tonemap: bool = False,
+                  enable_tone_mapping=None, exposure=None,
+                  generic: bool = False):
     """K2 wrapper. ``tables``: a binding :func:`sampled_groups_supported`
     accepts; pixel args (NT, tile_h·tile_w) float32 planes, ``valid``
     bool; ``view_pos`` (3,) float32; ``enable_normal_map`` a 0-dim int
     tensor; ``vis_plane`` an optional [0, 1] plane scaling the radiance of
     light ``vis_light``; ``mat_id`` the int32 material-id plane that
-    routes merged mip groups (None: material 0). Returns (r, g, b)."""
+    routes merged mip groups (None: material 0); ``quantize_hdr`` /
+    ``tonemap`` (with the 0-dim ``enable_tone_mapping`` and ``exposure``)
+    run :func:`hdr_tail` in the kernel; ``generic`` runs the kernel's
+    generic instantiation in place of the one compiled for the binding's
+    group layout, if there is one (tests and measurement; same output).
+    Returns (r, g, b)."""
     dev = u.device
     shape = u.shape
     planes = [u, v, *world, *normal, *tangent]
@@ -210,9 +256,10 @@ def shade_sampled(tables, u, v, world, normal, tangent, valid,
     if dev.type == "cpu":
         return shade_sampled_plain(tables, u, v, world, normal, tangent,
                                    valid, lights, view_pos,
-                                   enable_normal_map, gbuffer_mode, quantize,
+                                   enable_normal_map, quantize,
                                    vis_plane, vis_light, mat_id, tile_h,
-                                   tile_w)
+                                   tile_w, quantize_hdr, tonemap,
+                                   enable_tone_mapping, exposure)
     if dev.type != "cuda":
         raise RuntimeError(f"shade_sampled: unsupported device {dev}")
     groups, keep = _groups(tables, u, v, mat_id, tile_h, tile_w)
@@ -220,15 +267,17 @@ def shade_sampled(tables, u, v, world, normal, tangent, valid,
     vp = view_pos.to(device=dev, dtype=torch.float32).reshape(3).contiguous()
     nm = enable_normal_map.to(device=dev, dtype=torch.int32).reshape(
         1).contiguous()
-    valid_u8 = valid.to(torch.uint8).contiguous()
+    expo, tm = _tail_scalars(dev, tonemap, enable_tone_mapping, exposure)
     out = torch.empty((3,) + tuple(shape), dtype=torch.float32, device=dev)
     p = _build.ptr
     n = u.numel()
+    # The kernel reads the bool plane's bytes as they are.
     err = _build.library().bb_shade(
-        ctypes.byref(groups), *(p(t) for t in planes[:11]), p(valid_u8),
+        ctypes.byref(groups), *(p(t) for t in planes[:11]), p(valid),
         _optional_ptr(vis_plane), p(lparams), lights.num_lights, p(vp),
-        p(nm), int(gbuffer_mode), int(quantize), n, p(out[0]), p(out[1]),
-        p(out[2]), _build.stream_ptr(dev))
+        p(nm), int(quantize), _optional_ptr(expo), _optional_ptr(tm),
+        int(quantize_hdr), int(tonemap), int(generic), n, p(out[0]),
+        p(out[1]), p(out[2]), _build.stream_ptr(dev))
     _build.check(err, "shade")
     shade_sampled.launches += 1
     return out[0], out[1], out[2]
@@ -250,12 +299,8 @@ def shade_tonemap_plain(world, normal, albedo, metallic, roughness, ao,
                            light_vis=_light_vis(vis_plane, vis_light),
                            ambient=ambient)
     zero = torch.zeros_like(metallic)
-    hdr = tuple(torch.where(valid, c, zero) for c in hdr)
-    if quantize:
-        hdr = tuple(q16(c) for c in hdr)
-    if tonemap:
-        hdr = tuple(tone_map(c, enable_tone_mapping, exposure) for c in hdr)
-    return hdr
+    return hdr_tail(tuple(torch.where(valid, c, zero) for c in hdr),
+                    quantize, tonemap, enable_tone_mapping, exposure)
 
 
 def shade_tonemap(world, normal, albedo, metallic, roughness, ao, valid,
@@ -294,12 +339,11 @@ def shade_tonemap(world, normal, albedo, metallic, roughness, ao, valid,
     vp = scalar(view_pos, torch.float32, 3)
     expo = scalar(exposure, torch.float32)
     tm = scalar(enable_tone_mapping, torch.int32)
-    valid_u8 = valid.to(torch.uint8).contiguous()
     amb = ambient if ambient is not None else (None, None, None)
     out = torch.empty((3,) + tuple(shape), dtype=torch.float32, device=dev)
     p = _build.ptr
     err = _build.library().bb_shade_gbuffer(
-        *(p(t) for t in planes[:12]), p(valid_u8), _optional_ptr(vis_plane),
+        *(p(t) for t in planes[:12]), p(valid), _optional_ptr(vis_plane),
         *(_optional_ptr(a) for a in amb), p(lparams), lights.num_lights,
         p(vp), p(expo), p(tm), int(quantize), int(tonemap),
         metallic.numel(), p(out[0]), p(out[1]), p(out[2]),

@@ -50,6 +50,7 @@ from bibim_tpu_torch.ops.geometry import PlanarSoup, assemble_scene_planar
 from bibim_tpu_torch.ops.ibl import ibl_ambient
 from bibim_tpu_torch.ops.raster import triangle_setup, triangle_setup_planar
 from bibim_tpu_torch.ops.shading import (
+    hdr_tail,
     q16,
     sampled_groups_supported,
     shade_sampled,
@@ -62,7 +63,7 @@ from bibim_tpu_torch.ops.shading_planar import (
     shade_flat_planar,
     shade_pbr_planar,
 )
-from bibim_tpu_torch.ops.tonemap import srgb_encode, to_u8, tone_map
+from bibim_tpu_torch.ops.tonemap import srgb_encode, to_u8
 from bibim_tpu_torch.scene.lights import Lights
 from bibim_tpu_torch.scene.meshgen import generate_uv_sphere_mesh
 from bibim_tpu_torch.scene.scene import SceneData
@@ -366,18 +367,14 @@ def _pbr_hdr(g_pos, g_nrm, g_alb, g_mrah, valid, lights, view_block,
 def _pbr_ldr_fused(g_pos, g_nrm, g_alb, g_mrah, valid, lights, view_block,
                    frame_params, settings: RenderSettings, kernels: Kernels,
                    light_vis=None, ambient=None):
-    """Deferred lighting through the G-buffer shade (K5), then the fp16
-    HDR round trip and tone map as torch ops → LDR planes."""
-    hdr3 = kernels.shade_gbuffer(
+    """Deferred lighting through the G-buffer shade (K5) with the fp16 HDR
+    round trip and tone map as its epilogue → LDR planes."""
+    return kernels.shade_gbuffer(
         g_pos, g_nrm, g_alb, g_mrah[0], g_mrah[1], g_mrah[2], valid, lights,
         view_block.view_pos, frame_params.enable_tone_mapping,
         frame_params.exposure, vis_plane=_vis_plane(light_vis, settings),
-        vis_light=settings.shadow_light, ambient=ambient, quantize=False,
-        tonemap=False)
-    if settings.quantize_fp16:
-        hdr3 = tuple(q16(c) for c in hdr3)
-    return tuple(tone_map(c, frame_params.enable_tone_mapping,
-                          frame_params.exposure) for c in hdr3)
+        vis_light=settings.shadow_light, ambient=ambient,
+        quantize=settings.quantize_fp16, tonemap=True)
 
 
 # The shadow raster reads only the depth plane (and idf, always emitted).
@@ -667,14 +664,17 @@ def render_frame(scene: SceneData, view_block: ViewBlock,
     production = settings.outputs != "full"
     if (production and not settings.enable_ibl and not viz
             and sampled_groups_supported(materials)):
-        hdr3 = kernels.shade(
+        # K2 with the frame's fp16 + tone-map tail as its epilogue.
+        ldr3 = kernels.shade(
             materials, px.uv[0], px.uv[1], px.world, px.normal, px.tangent,
             valid, scene.lights, view_block.view_pos,
-            view_block.enable_normal_map, gbuffer_mode=True,
-            quantize=settings.quantize_fp16,
+            view_block.enable_normal_map, quantize=settings.quantize_fp16,
             vis_plane=_vis_plane(light_vis, settings),
             vis_light=settings.shadow_light, mat_id=px.mat_id,
-            tile_h=settings.tile_h, tile_w=settings.tile_w)
+            tile_h=settings.tile_h, tile_w=settings.tile_w,
+            quantize_hdr=settings.quantize_fp16, tonemap=True,
+            enable_tone_mapping=frame_params.enable_tone_mapping,
+            exposure=frame_params.exposure)
     else:
         # The production frame samples through K6/K7/K8 and shades on K5;
         # "full" keeps the plain chain.
@@ -717,10 +717,9 @@ def render_frame(scene: SceneData, view_block: ViewBlock,
                 "matindex": img3((torch.where(valid, 1.0, 0.0), zero, zero)),
             }
     if ldr3 is None:
-        if settings.quantize_fp16:
-            hdr3 = tuple(q16(c) for c in hdr3)
-        ldr3 = tuple(tone_map(c, frame_params.enable_tone_mapping,
-                              frame_params.exposure) for c in hdr3)
+        ldr3 = hdr_tail(hdr3, settings.quantize_fp16, True,
+                        frame_params.enable_tone_mapping,
+                        frame_params.exposure)
 
     if compact_ids is not None:
         npx = ldr3[0].shape[1]

@@ -4,7 +4,10 @@
 Run from the repository root: ``python3 chip_smoke.py``. It
 
 1. builds the eleven CUDA kernels from ``bibim_tpu_torch/csrc`` (into
-   ``build/``, one nvcc per source in parallel) and prints the build time;
+   ``build/``, one nvcc per source in parallel) and prints the build time
+   and, per kernel instantiation, ptxas's registers, stack frame and spill
+   bytes (every K2 and K5 instantiation must have a 0-byte stack frame
+   and no spills);
 2. builds the frames from repository-only inputs: the ShaderBall scene's
    structure (100× ground plane at y=-10, the three ShaderBall lights, the
    default camera) with a ~10k-triangle UV sphere at the ball's instance
@@ -16,7 +19,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    K2 sampled shade (with and without a shadow visibility plane), K3 pair
    sort and K4 overlay against their plain PyTorch versions on the inputs
    the frame itself produces and times both (median of CUDA-event
-   timings); sizes ``group_pair_cap`` from the port's capacity probe and
+   timings; K2 and K5 also kernel-only by ``torch.profiler``, with and
+   without their fused fp16 + tone-map tail, which must equal the frame's
+   torch tail, ``torch.equal``, on every captured call of every path);
+   sizes ``group_pair_cap`` from the port's capacity probe and
    checks K10 (group window) on that frame; renders 4 frames at 4 camera
    yaws through ``render_frame`` with launch counters reset just before,
    then the group-window frame with the counters reset again (it must
@@ -43,10 +49,12 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    buckets), each culled on the host and autotuned three ways — default
    (multi-pass K1 with the merged slot order), ``early_z`` (K9 on every
    pass) and ``fine_bins`` (K11 on pass 0) — with the dense-pass slot
-   count picked by measurement; prints the probes, the derived settings
-   and the culled instance counts; checks K1, K3, K2, K9 (with its
+   count picked by the candidates' frame device time
+   (:func:`pick_dense_cap`); prints the probes, the derived settings and
+   the culled instance counts; checks K1, K3, K2, K9 (with its
    skipped-chunk share) and K11 against their plain versions on those
-   frames' inputs; renders the nine frames with the counters reset just
+   frames' inputs, and prints every default frame's K1 launches with
+   their bound; renders the nine frames with the counters reset just
    before; the default and early-z frames must equal the all-plain
    render of the default settings; a fine-bin frame may differ from them
    only at masked-key ties and where the default winner's bounding box
@@ -182,6 +190,42 @@ def nvidia_smi_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+def ptxas_usage(log: str) -> dict:
+    """Per kernel of the library (``bb::`` entry functions, demangled with
+    ``c++filt`` where the machine has it): registers, stack frame and
+    spill bytes from ``nvcc -Xptxas -v`` output."""
+    import re
+    import shutil
+
+    names = sorted(set(re.findall(r"Compiling entry function '(\w+)'", log)))
+    pretty = dict(zip(names, names))
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        for m, d in zip(names, out.stdout.splitlines()):
+            k = re.search(r"bb::(\w+(<[^>]*>)?)", d)
+            pretty[m] = k.group(1) if k else d
+    usage, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", line)
+        if m:
+            fn = m.group(1) if m.group(1) in pretty else None
+            continue
+        if fn is None:
+            continue
+        row = usage.setdefault(pretty[fn], {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            row.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            row["registers"] = int(m.group(1))
+    return usage
+
+
 def cuda_ms(fn, reps: int = 10) -> float:
     """Median milliseconds of ``fn`` by CUDA events (after one warm-up)."""
     import torch
@@ -197,6 +241,85 @@ def cuda_ms(fn, reps: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 3, match: str | None = None) -> float:
+    """Device milliseconds per ``fn`` call, after one warm-up: the summed
+    time of the device-side events (kernels, memcpy, memset) that ``reps``
+    calls put on the card under ``torch.profiler``; with ``match``, only
+    the kernels whose name contains it. Unlike CUDA events around a
+    host-bound call, it does not count the gaps the host leaves."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and (match is None or match in e.key))
+    if not us > 0:
+        raise AssertionError("torch.profiler recorded no device time"
+                             + (f" for {match}" if match else ""))
+    return us / 1e3 / reps
+
+
+def pick_dense_cap(cands, data, vb, fp, mats):
+    """:func:`pick_measured` over config-4 settings candidates by each
+    frame's device time (:func:`device_ms` over 3 renders)."""
+    from bibim_tpu_torch.pipeline import render_frame
+    from bibim_tpu_torch.pipeline.autotune import pick_measured
+
+    return pick_measured(cands, lambda sx: device_ms(
+        lambda: render_frame(data, vb, fp, mats, None, sx), reps=3))
+
+
+def check_tails(calls: dict, what: str) -> int:
+    """Every captured K2 / K5 call whose frame lets the kernel write the
+    LDR planes (the fused fp16 + tone-map tail) against the same kernel's
+    HDR output finished by the frame's torch tail (ops.shading.hdr_tail):
+    ``torch.equal``. Returns the number of calls held."""
+    import torch
+
+    from bibim_tpu_torch.ops.shading import (
+        hdr_tail,
+        shade_sampled,
+        shade_tonemap,
+    )
+
+    n = 0
+    for name, fn, tail in (("shade", shade_sampled,
+                            ("quantize_hdr", "tonemap")),
+                           ("shade_gbuffer", shade_tonemap,
+                            ("quantize", "tonemap"))):
+        for args, kw, _ in calls.get(name, []):
+            q, tm = (bool(kw.get(k, False)) for k in tail)
+            if not (q or tm):
+                continue
+            hdr = fn(*args, **dict(kw, **{k: False for k in tail}))
+            if name == "shade":
+                enable, expo = kw["enable_tone_mapping"], kw["exposure"]
+            else:
+                enable, expo = args[9], args[10]
+            want = hdr_tail(hdr, q, tm, enable, expo)
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+            for c in range(3):
+                if not torch.equal(got[c], want[c]):
+                    bad = got[c] != want[c]
+                    raise AssertionError(
+                        f"{what} {name}: the fused tail differs from the "
+                        f"torch tail at {int(bad.sum())} values (HDR "
+                        f"{hdr[c][bad][:3].tolist()}: fused "
+                        f"{got[c][bad][:3].tolist()}, torch "
+                        f"{want[c][bad][:3].tolist()})")
+            n += 1
+    return n
 
 
 def build_inputs(dev, width=WIDTH, height=HEIGHT, caps=CAPS, **extra):
@@ -564,20 +687,27 @@ def check_raster(call, name: str = "raster", calls=()) -> dict:
         share = scanned / max(present, 1)
         skipped = 1.0 - share
     out = kern(*args, **kw)
-    tile_h, tile_w = (args[-3], args[-2])
-    ops = (raster_tests(name, args, scanned_rows) * COVER_OPS
-           + args[4].shape[0] * tile_h * tile_w * RESOLVE_OPS)
     res = dict(max_abs_err=err, slots=int(args[4].shape[0]),
                checked_calls=1 + len(calls), planes=len(args[-1]),
                ms=cuda_ms(lambda: kern(*args, **kw)),
                plain_ms=cuda_ms(lambda: plain(*args, **kw)),
                library_ms=None, whole_tensor_bytes=tensor_bytes(args, out),
-               **bound(raster_bytes(name, args, out, share), ops))
+               **raster_bound(name, args, out, share, scanned_rows))
     if skipped is not None:
         res["skipped_chunk_share"] = skipped
     if name == "raster":
         res.update(k1_launch(args, kw))
     return res
+
+
+def raster_bound(name: str, args, out, share: float = 1.0,
+                 scanned_rows=None) -> dict:
+    """:func:`bound` of one raster-kernel call: :func:`raster_bytes`, and
+    its coverage tests and per-pixel resolves as operations."""
+    tile_h, tile_w = (args[-3], args[-2])
+    ops = (raster_tests(name, args, scanned_rows) * COVER_OPS
+           + args[4].shape[0] * tile_h * tile_w * RESOLVE_OPS)
+    return bound(raster_bytes(name, args, out, share), ops)
 
 
 def k1_launch(args, kw) -> dict:
@@ -792,6 +922,59 @@ def shade_bound(args, kw, out, tap_channels: int,
                 valid_pixels=nv, **bound(nbytes, ops))
 
 
+def shade_times(kern, plain, args, kw, hdr_kw) -> dict:
+    """A shading kernel's times on one call as the frame makes it: the
+    wrapper (:func:`cuda_ms`), the kernel alone and the kernel without
+    the fused tail (``hdr_kw``; :func:`device_ms` of the ``bb::`` kernel),
+    and the plain version. Where the time goes inside the kernel, on the
+    same inputs: with no lights (sampling, G-buffer and writes: the light
+    loop's share is the difference) and with every pixel a miss (the
+    coverage read and the writes). K2 also runs its generic instantiation
+    (``generic_kernel_ms``; its output must be the same bits) beside the
+    one compiled for the binding's group layout."""
+    import torch
+
+    name = ("bb::shade_kernel" if kern.__name__ == "shade_sampled"
+            else "bb::gbuffer_shade_kernel")
+    lights = args[7]
+    dark = args[:7] + (lights._replace(**{
+        f: getattr(lights, f)[:0] for f in lights._fields}),) + args[8:]
+    empty = args[:6] + (torch.zeros_like(args[6]),) + args[7:]
+
+    def kernel_ms(a, **extra):
+        return device_ms(lambda: kern(*a, **kw, **extra), 20, name)
+
+    res = dict(ms=cuda_ms(lambda: kern(*args, **kw)),
+               kernel_ms=kernel_ms(args),
+               hdr_kernel_ms=device_ms(lambda: kern(*args, **hdr_kw), 20,
+                                       name),
+               no_lights_kernel_ms=kernel_ms(dark),
+               all_miss_kernel_ms=kernel_ms(empty),
+               plain_ms=cuda_ms(lambda: plain(*args, **kw)))
+    if name == "bb::shade_kernel":
+        got, generic = kern(*args, **kw), kern(*args, **kw, generic=True)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, x) for g, x in zip(got, generic)):
+            raise AssertionError("K2's generic instantiation differs from "
+                                 "the one compiled for the binding")
+        res["generic_kernel_ms"] = kernel_ms(args, generic=True)
+        res["layout"] = k2_layout(args, kw)
+    return res
+
+
+def k2_layout(args, kw) -> int:
+    """The K2 instantiation a call runs (csrc/shade.cu shade_layout: 1
+    configs 3/4, 2 config 2, 0 generic)."""
+    import ctypes
+
+    from bibim_tpu_torch import _build
+    from bibim_tpu_torch.ops import shading
+
+    groups, _ = shading._groups(args[0], args[1], args[2], kw.get("mat_id"),
+                                kw.get("tile_h", 8), kw.get("tile_w", 128))
+    return _build.library().bb_shade_layout(ctypes.byref(groups))
+
+
 def check_kernels(calls: dict) -> dict:
     """K1-K4 vs their plain versions on the 1080p frames' own inputs."""
     import torch
@@ -802,26 +985,29 @@ def check_kernels(calls: dict) -> dict:
            # K1: the main raster pass of the first frame.
            "raster": check_raster(calls["raster"][0])}
 
-    # K2: the first frame's sampled shade, with its normal-map toggle
-    # (off, as on the headline frame) and with the normal map on; then
-    # with a seeded [0, 1] shadow visibility plane on light 0 (the
-    # shadows-without-IBL path).
+    # K2: the first frame's sampled shade, its HDR output (no tail) and as
+    # the frame calls it (the fused fp16 + tone-map tail), with its
+    # normal-map toggle (off, as on the headline frame) and with the
+    # normal map on; then the HDR output with a seeded [0, 1] shadow
+    # visibility plane on light 0 (the shadows-without-IBL path).
     args, kw, _ = calls["shade"][0]
+    hdr_kw = dict(kw, quantize_hdr=False, tonemap=False)
     errs = []
     for nm in (args[9], torch.ones_like(args[9])):
         a2 = args[:9] + (nm,) + args[10:]
-        got = shade_sampled(*a2, **kw)
-        want = shade_sampled_plain(*a2, **kw)
-        torch.cuda.synchronize()
-        errs.append(assert_shade_close(got, want, "K2"))
+        for kwx in (hdr_kw, kw):
+            got = shade_sampled(*a2, **kwx)
+            want = shade_sampled_plain(*a2, **kwx)
+            torch.cuda.synchronize()
+            errs.append(assert_shade_close(got, want, "K2"))
     gen = torch.Generator(device=args[1].device).manual_seed(SEED)
     vis = torch.rand(args[1].shape, generator=gen, device=args[1].device)
-    kw_vis = dict(kw, vis_plane=vis, vis_light=0)
+    kw_vis = dict(hdr_kw, vis_plane=vis, vis_light=0)
     got = shade_sampled(*args, **kw_vis)
     want = shade_sampled_plain(*args, **kw_vis)
     torch.cuda.synchronize()
     vis_err = assert_shade_close(got, want, "K2 with visibility")
-    if torch.equal(got[0], shade_sampled(*args, **kw)[0]):
+    if torch.equal(got[0], shade_sampled(*args, **hdr_kw)[0]):
         raise AssertionError("K2: the visibility plane changed nothing")
     out = shade_sampled(*args, **kw)
     # 25-tap block rows × 3 channels and 4-tap quads × 7 channels.
@@ -829,13 +1015,13 @@ def check_kernels(calls: dict) -> dict:
                         vis_max_abs_err=vis_err,
                         pixels=int(args[1].numel()), library_ms=None,
                         **shade_bound(args, kw, out, 25 * 3 + 4 * 7),
-                        ms=cuda_ms(lambda: shade_sampled(*args, **kw)),
-                        plain_ms=cuda_ms(
-                            lambda: shade_sampled_plain(*args, **kw)),
+                        **shade_times(shade_sampled, shade_sampled_plain,
+                                      args, kw, hdr_kw),
                         vis_ms=cuda_ms(lambda: shade_sampled(*args,
                                                              **kw_vis)),
                         vis_plain_ms=cuda_ms(
-                            lambda: shade_sampled_plain(*args, **kw_vis)))
+                            lambda: shade_sampled_plain(*args, **kw_vis)),
+                        tails_equal=check_tails(calls, "1080p"))
 
     res["overlay"] = check_overlay(calls["overlay"])
     return res
@@ -858,11 +1044,13 @@ def check_kernels_c5(calls: dict) -> dict:
         "sort": check_sorts(calls["sort"]),
         "overlay": check_overlay(calls["overlay"]),
     }
-    # K5 as the frame calls it (IBL ambient, shadow visibility, no
-    # quantize, no tonemap), and with fp16 + tone map on.
+    # K5 on the frame's inputs (IBL ambient, shadow visibility): its HDR
+    # output (no quantize, no tonemap), and with fp16 + tone map on, as
+    # the frame calls it.
     args, kw, _ = calls["shade_gbuffer"][0]
-    got = shade_tonemap(*args, **kw)
-    want = shade_tonemap_plain(*args, **kw)
+    hdr_kw = dict(kw, quantize=False, tonemap=False)
+    got = shade_tonemap(*args, **hdr_kw)
+    want = shade_tonemap_plain(*args, **hdr_kw)
     torch.cuda.synchronize()
     errs = [assert_shade_close(got, want, "K5", rel=True)]
     kw_tm = dict(kw, quantize=True, tonemap=True)
@@ -876,8 +1064,8 @@ def check_kernels_c5(calls: dict) -> dict:
                                        0, sampled=False),
         vis=kw.get("vis_plane") is not None,
         ambient=kw.get("ambient") is not None,
-        ms=cuda_ms(lambda: shade_tonemap(*args, **kw)),
-        plain_ms=cuda_ms(lambda: shade_tonemap_plain(*args, **kw)))
+        **shade_times(shade_tonemap, shade_tonemap_plain, args, kw, hdr_kw),
+        tails_equal=check_tails(calls, "config-5"))
 
     # K6 and K7: bit-equal to their plain versions.
     res["sample_block"] = check_sampler(
@@ -1158,8 +1346,9 @@ def check_kernels_c2(calls: dict) -> dict:
         pixels=int(args[1].numel()), library_ms=None,
         **shade_bound(args, kw, out, 8 * 3 + 4 * 7),
         groups=[type(t).__name__ for t in args[0]],
-        ms=cuda_ms(lambda: shade_sampled(*args, **kw)),
-        plain_ms=cuda_ms(lambda: shade_sampled_plain(*args, **kw)))
+        **shade_times(shade_sampled, shade_sampled_plain, args, kw,
+                      dict(kw, quantize_hdr=False, tonemap=False)),
+        tails_equal=check_tails(calls, "config-2"))
     for call in calls["sample_mip_block"][1:]:
         check_sampler(call, tq.sample_mip_block_kernel, tq.sample_mip_block,
                       "K8", 8)
@@ -1392,7 +1581,6 @@ def run_config4(dev, smi: str, name: str):
     from bibim_tpu_torch.pipeline.autotune import (
         autotune_settings,
         dense_cap_candidates,
-        pick_measured,
     )
     from bibim_tpu_torch.scene.culling import visible_instances
     from bibim_tpu_torch.scene.meshgen import generate_uv_sphere_mesh
@@ -1446,11 +1634,9 @@ def run_config4(dev, smi: str, name: str):
             cands = dense_cap_candidates(s, probe, margin=C4_MARGIN)
             picks = None
             if len(cands) > 1:
-                s, results = pick_measured(cands, lambda sx: cuda_ms(
-                    lambda: render_frame(data, vb, fp, mats, None, sx),
-                    reps=3))
-                picks = [{"dense_tile_cap": sx.dense_tile_cap, "ms": ms}
-                         for ms, sx in results]
+                s, results = pick_dense_cap(cands, data, vb, fp, mats)
+                picks = [{"dense_tile_cap": sx.dense_tile_cap,
+                          "device_ms": ms} for ms, sx in results]
             derived = {k: getattr(s, k) for k in (
                 "max_candidates", "raster_passes", "merged_coverage",
                 "dense_tile_cap", "raster_tile_cap", "live_tile_cap",
@@ -1497,8 +1683,9 @@ def run_config4(dev, smi: str, name: str):
     kres["shade"] = dict(
         max_abs_err=err, pixels=int(args[1].numel()), library_ms=None,
         **shade_bound(args, kw, got, 25 * 3 + 4 * 7),
-        ms=cuda_ms(lambda: shade_sampled(*args, **kw)),
-        plain_ms=cuda_ms(lambda: PLAIN.shade(*args, **kw)))
+        **shade_times(shade_sampled, PLAIN.shade, args, kw,
+                      dict(kw, quantize_hdr=False, tonemap=False)),
+        tails_equal=check_tails(calls, "config-4"))
     # K9's skipped-chunk share per view and over every captured call (all
     # passes).
     ez = iter(calls["raster_earlyz"])
@@ -1520,11 +1707,12 @@ def run_config4(dev, smi: str, name: str):
     k1 = iter(calls["raster"])
     for (label, _, _, s), n in zip(frames, per_frame):
         for p in range(n.get("raster", 0)):
-            a, k, _ = next(k1)
+            a, k, o = next(k1)
             if s.early_z or s.fine_bins:
                 continue
             row = k1_launch(a, k)
             row["kernel_ms"] = row["kernel_ms_by_cluster"][row["cluster"]]
+            row.update(raster_bound("raster", a, o))
             print(f"config-4 K1 launch, {label}, pass {p}: "
                   + json.dumps(row))
     kres["raster_earlyz"]["all_calls_skipped_chunk_share"] = (
@@ -1648,6 +1836,16 @@ def main() -> int:
     _build.library()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds or 0.0:.1f} s)")
+    usage = ptxas_usage(_build.build_log)
+    print("ptxas usage: " + json.dumps(usage))
+    shading = {k: v for k, v in usage.items()
+               if k.startswith(("shade_kernel", "gbuffer_shade_kernel"))}
+    if len(shading) < 4 or any(v.get("stack", 1) or v.get("spill_stores", 1)
+                               or v.get("spill_loads", 1)
+                               for v in shading.values()):
+        raise AssertionError("K2 / K5 instantiations must have a 0-byte "
+                             "stack frame and no spills: "
+                             + json.dumps(shading))
 
     scene, mats, overlay, proj, fp, settings = build_inputs(dev)
     t = sum(int(b.positions.shape[0]) // 3 * int(b.model.shape[0])

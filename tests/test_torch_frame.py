@@ -39,7 +39,20 @@ def _port(inputs, **kw):
     return cases.port_frame(inputs, **kw)
 
 
-def test_full_frame_matches_jax(inputs, jax_full):
+_PRODUCTION = dict(outputs="image+diag", max_candidates=64, raster_passes=3,
+                   live_tile_cap=31, raster_tile_cap=32, dense_tile_cap=16,
+                   span_mid_cap=512)
+
+
+@pytest.fixture(scope="module")
+def without_fma():
+    """The JAX frame rendered without FMAs, and the port's full and
+    production renders of the same inputs (cases.frames_without_fma)."""
+    return cases.frames_without_fma(
+        "frame", {}, [dict(outputs="full"), _PRODUCTION])
+
+
+def test_full_frame_matches_jax(inputs, jax_full, without_fma):
     out = _port(inputs, outputs="full")
     np.testing.assert_array_equal(out["tri_id"].numpy(), jax_full["tri_id"])
     hit = jax_full["tri_id"] >= 0
@@ -48,22 +61,30 @@ def test_full_frame_matches_jax(inputs, jax_full):
     # FMA-fused planes; the port keeps the kernel's zn * rcp(wn).
     np.testing.assert_allclose(out["depth"].numpy(), jax_full["depth"],
                                rtol=0, atol=1e-5)
-    assert_image_bound(out["image"].numpy(), jax_full["image"])
+    # 0.1038 % of pixels differ by one LSB (measured): XLA:CPU's FMA
+    # differences carried across RGBA16F rounding boundaries
+    # (tests/torch_port_cases.py NO_FMA_XLA_FLAGS); the cause is held
+    # below against the JAX frame without FMAs.
+    assert_image_bound(out["image"].numpy(), jax_full["image"], 1.29e-3)
     for k in range(4):
         assert int(out["bin_diag"][k]) == 0
     for name in ("position", "normal", "albedo", "mrah", "matindex"):
         np.testing.assert_allclose(out["gbuffer"][name].numpy(),
                                    jax_full["gbuffer"][name], atol=2e-3)
+    ref, (full, _) = without_fma
+    cases.assert_rounding_crossings(full, ref)
 
 
-def test_production_frame_matches_jax(inputs, jax_full):
+def test_production_frame_matches_jax(inputs, jax_full, without_fma):
     """The kernel path (sampled shade, live-tile and pass-0 compaction,
     window passes, span-class binning) renders the reference image."""
-    out = _port(inputs, outputs="image+diag", max_candidates=64,
-                raster_passes=3, live_tile_cap=31, raster_tile_cap=32,
-                dense_tile_cap=16, span_mid_cap=512)
+    out = _port(inputs, **_PRODUCTION)
     check_bin_diag(out["bin_diag"])
-    assert_image_bound(out["image"].numpy(), jax_full["image"])
+    # 0.1068 % of pixels differ by one LSB (measured), for the cause named
+    # in test_full_frame_matches_jax, held the same way.
+    assert_image_bound(out["image"].numpy(), jax_full["image"], 1.33e-3)
+    ref, (_, prod) = without_fma
+    cases.assert_rounding_crossings(prod, ref, hdr_steps=4)
     plain = _port(inputs, outputs="image")
     assert_image_bound(out["image"].numpy(), plain["image"].numpy())
 
@@ -172,7 +193,10 @@ def test_shaderball_golden():
     check_bin_diag(out["bin_diag"])
     want = np.asarray(Image.open(
         os.path.join(GOLDEN_DIR, "shaderball_pbr_192x96.png")))
-    assert_image_bound(out["image"].numpy(), want)
+    # The real assets are not in the repository, so this frame's fraction
+    # has not been measured beside the others: it keeps the 0.25 % it was
+    # held to before the golden 0.1 % became the default (ROADMAP queue 3).
+    assert_image_bound(out["image"].numpy(), want, 2.5e-3)
 
 
 def test_shaderball_shadows_ibl_golden():
@@ -223,4 +247,7 @@ def test_shaderball_shadows_ibl_golden():
     check_bin_diag(out["bin_diag"])
     want = np.asarray(Image.open(
         os.path.join(GOLDEN_DIR, "shaderball_shadows_ibl_192x96.png")))
-    assert_image_bound(out["image"].numpy(), want)
+    # The real assets are not in the repository, so this frame's fraction
+    # has not been measured beside the others: it keeps the 0.25 % it was
+    # held to before the golden 0.1 % became the default (ROADMAP queue 3).
+    assert_image_bound(out["image"].numpy(), want, 2.5e-3)

@@ -143,5 +143,10 @@ def test_ibl_frame_matches_jax(probes):
     equirect tables through K7, K5) against the JAX package's
     render_frame."""
     _, _, jmaps, _ = probes
+    # 0.1129 % of pixels differ by one LSB in both renders (measured): the
+    # FMA differences of XLA:CPU carried across RGBA16F rounding
+    # boundaries (tests/torch_port_cases.py NO_FMA_XLA_FLAGS); held by
+    # the check against the JAX frame without FMAs.
     cases.check_stretch_frame(cases.frame_inputs(), dict(enable_ibl=True),
-                              jmaps)
+                              jmaps, ibl="maps",
+                              frac_max=(1.41e-3, 1.41e-3))

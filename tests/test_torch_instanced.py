@@ -33,11 +33,15 @@ REPO = Path(__file__).resolve().parents[1]
 
 def _port_sources():
     files = sorted((REPO / "bibim_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py", REPO / "tools" / "torch_profile.py"]
+    tools = [REPO / "tools" / f for f in ("torch_profile.py",
+                                          "sass_counts.py",
+                                          "shade_variants.py")]
+    return files + [REPO / "chip_smoke.py"] + tools
 
 
 def test_port_imports_no_jax_package():
-    """No import in the port, chip_smoke.py or tools/torch_profile.py names
+    """No import in the port, chip_smoke.py or its GPU tools
+    (tools/torch_profile.py, sass_counts.py, shade_variants.py) names
     bibim_tpu (or jax); the package imports without either."""
     bad = []
     for path in _port_sources():
@@ -468,5 +472,12 @@ def test_instanced_frame_variants_match_jax(frame_in):
         images.append(out["image"].numpy())
     for img in images[1:]:
         np.testing.assert_array_equal(img, images[0])
-    cases.assert_image_bound(images[0], want)
+    # 0.2380 % of pixels differ, by up to 2 LSB (measured): XLA:CPU's FMA
+    # differences carried across RGBA16F rounding boundaries and through
+    # the u8 taps of the 2-4 px triangles (tests/torch_port_cases.py
+    # NO_FMA_XLA_FLAGS); held against the JAX frame without FMAs.
+    cases.assert_image_bound(images[0], want, 2.97e-3)
     assert (images[0] != 0).any(axis=-1).mean() > 0.3
+    ref, (port,) = cases.frames_without_fma(
+        "instanced", dict(max_candidates=512, xla_cap=2048), [_MULTI])
+    cases.assert_rounding_crossings(port, ref, hdr_steps=4)

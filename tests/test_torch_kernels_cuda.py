@@ -38,6 +38,7 @@ from bibim_tpu_torch.pipeline.framegraph import (
 from bibim_tpu_torch.ops.geometry import assemble_scene_planar
 from bibim_tpu_torch.ops.raster import triangle_setup, triangle_setup_planar
 from bibim_tpu_torch.scene.camera import FreeLookCamera
+from bibim_tpu_torch.scene.lights import Lights
 from bibim_tpu_torch.scene.meshgen import generate_uv_sphere_mesh
 from bibim_tpu_torch.scene.scene import SceneData, batch_from_mesh
 from bibim_tpu_torch.scene.shaderball import (
@@ -365,15 +366,12 @@ def test_shade_kernel_matches_plain(dev, frame, deferred, with_vis):
         args = (mats, u, v, world, normal, tangent, valid, lights,
                 torch.tensor([0.0, 1.0, -3.0], device=dev),
                 torch.tensor(nm, device=dev))
-        got = shade_sampled(*args, gbuffer_mode=deferred, quantize=deferred,
-                            **vis)
-        want = shade_sampled_plain(*args, gbuffer_mode=deferred,
-                                   quantize=deferred, **vis)
+        got = shade_sampled(*args, quantize=deferred, **vis)
+        want = shade_sampled_plain(*args, quantize=deferred, **vis)
         torch.cuda.synchronize()
         _assert_close_rel(got, want)
         if with_vis:
-            plain = shade_sampled(*args, gbuffer_mode=deferred,
-                                  quantize=deferred)
+            plain = shade_sampled(*args, quantize=deferred)
             assert not torch.equal(got[0], plain[0])
 
 
@@ -532,7 +530,7 @@ def test_shade_kernel_mip_groups_bit_equal(dev, deferred):
                 shaderball_lights(dev),
                 torch.tensor([0.0, 1.0, -3.0], device=dev),
                 torch.tensor(nm, device=dev))
-        kw = dict(gbuffer_mode=deferred, quantize=deferred, mat_id=mat)
+        kw = dict(quantize=deferred, mat_id=mat)
         got = shade_sampled(*args, **kw)
         want = shade_sampled_plain(*args, **kw)
         torch.cuda.synchronize()
@@ -774,3 +772,220 @@ def test_variant_frames_vs_plain(dev, frame, extra):
     for k in range(4):
         assert int(out["bin_diag"][k]) == 0
     assert torch.equal(out["image"], ref["image"])
+
+
+# ---------------------------------------------------------------------------
+# K2 and K5 after their redesign: the group layouts K2 is compiled for, the
+# light counts around the kernels' 64-light shared-memory tile
+# (csrc/shading.cuh LIGHT_TILE), valid-first reads and the fused tail.
+# ---------------------------------------------------------------------------
+
+def _odd_lights(dev, n=4):
+    """``n`` lights cycling through a spot light, a spot light whose cone
+    has no width, an unknown type (lit as a point) and a directional light
+    with a zero direction."""
+    gen = torch.Generator().manual_seed(n)
+
+    def r(*shape):
+        return torch.rand(shape, generator=gen)
+
+    kinds = torch.tensor([1, 1, 3, 2], dtype=torch.int32).repeat(n)[:n]
+    d = r(n, 3) * 2 - 1
+    d[3::4] = 0.0
+    inner = 0.8 + 0.2 * r(n)
+    outer = inner - 0.1 * r(n)
+    outer[1::4] = inner[1::4]
+    lights = Lights(pos=r(n, 3) * 6 - 3, type=kinds, dir=d,
+                    intensity=1 + 4 * r(n), color=r(n, 3),
+                    inner_cutoff=inner, outer_cutoff=outer)
+    return Lights(*(t.to(dev) for t in lights))
+
+
+def _garbage(valid, x):
+    """``x`` with NaN / +inf / -inf at the miss pixels."""
+    g = torch.tensor([float("nan"), float("inf"), float("-inf")],
+                     device=x.device)
+    idx = torch.arange(x.numel(), device=x.device).reshape(x.shape) % 3
+    return torch.where(valid, x, g[idx])
+
+
+def _k2_binding(dev, binding):
+    """(tables, u, v, mat_id, shape, the instantiation K2 must pick:
+    csrc/shade.cu shade_layout)."""
+    from bibim_tpu_torch.scene.cube import cube_material_tables, seeded_albedos
+
+    rng = np.random.default_rng(11)
+    if binding in ("mip_routed", "generic_mip"):
+        mats = (cube_material_tables(seeded_albedos(3, (64, 128)),
+                                     device=dev)
+                if binding == "mip_routed" else _cube_tables(dev, None))
+        u, v, mat = _smooth_uv(dev, 9, nt=10)
+        return mats, u, v, mat, u.shape, 2 if binding == "mip_routed" else 0
+    maps = {s: rng.integers(0, 256, (64, 64, 1), dtype=np.uint8)
+            for s in ("metallic", "roughness", "ao")}
+    maps.update({s: rng.integers(0, 256, (16, 16, 1), dtype=np.uint8)
+                 for s in ("alb_r", "alb_g", "alb_b", "nrm_x", "nrm_y",
+                           "nrm_z", "height")})
+    if binding == "generic_quads":
+        del maps["height"]
+    mats = tq.build_quad_tables(maps, block_threshold=1024, device=dev)
+    shape = (7, 999)  # n not a multiple of the block size
+    gen = torch.Generator().manual_seed(12)
+    u, v = (-2 + 5 * torch.rand(shape, generator=gen) for _ in range(2))
+    return mats, u.to(dev), v.to(dev), None, shape, \
+        1 if binding == "block_quad" else 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binding", ["block_quad", "mip_routed",
+                                     "generic_quads", "generic_mip"])
+def test_shade_kernel_layouts(dev, binding):
+    """K2 on each group layout it is compiled for (configs 3/4: block +
+    quad; config 2: mip block + routed quad) and on the generic
+    instantiation: the kernel's layout pick; the kernel against its plain
+    version (bit-equal on the mip bindings, whose plain sampling is the
+    kernel's order) and against the generic instantiation (bit-equal);
+    NaN / inf at the misses changes nothing; the fused fp16 + tone-map
+    tail equals the torch tail."""
+    import ctypes
+
+    from bibim_tpu_torch.ops import shading
+
+    mats, u, v, mat, shape, layout = _k2_binding(dev, binding)
+    p = _planes(dev, 13, shape)
+    world = (p(-5, 5), p(-5, 5), p(-5, 5))
+    normal = (p(-1, 1), p(-1, 1), p(-1, 1))
+    tangent = (p(-1, 1), p(-1, 1), p(-1, 1))
+    valid = p(0, 1) > 0.3
+    groups, _ = shading._groups(mats, u, v, mat, 8, 128)
+    assert _build.library().bb_shade_layout(ctypes.byref(groups)) == layout
+    tail = dict(quantize_hdr=True, tonemap=True,
+                enable_tone_mapping=torch.tensor(1, device=dev),
+                exposure=torch.tensor(1.3, device=dev))
+    for nm in (0, 1):
+        args = (mats, u, v, world, normal, tangent, valid,
+                shaderball_lights(dev),
+                torch.tensor([0.0, 1.0, -3.0], device=dev),
+                torch.tensor(nm, device=dev))
+        for kw in (dict(mat_id=mat), dict(tail, mat_id=mat)):
+            got = shade_sampled(*args, **kw)
+            want = shade_sampled_plain(*args, **kw)
+            generic = shade_sampled(*args, generic=True, **kw)
+            # A mip group's LOD takes the 2×2 quad's uv derivatives, so
+            # a covered pixel reads its neighbours' uv (as the reference
+            # does): there only the per-pixel planes get garbage.
+            uv = (u, v) if mat is not None else (_garbage(valid, u),
+                                                 _garbage(valid, v))
+            dirty = shade_sampled(
+                mats, *uv,
+                *(tuple(_garbage(valid, c) for c in x)
+                  for x in (world, normal, tangent)),
+                *args[6:], **kw)
+            torch.cuda.synchronize()
+            if mat is not None:
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w)
+            else:
+                _assert_close_rel(got, want)
+            for g, d, x in zip(got, dirty, generic):
+                assert torch.equal(g, d)
+                assert torch.equal(g, x)
+                assert bool((g[~valid] == 0).all())
+        hdr = shade_sampled(*args, mat_id=mat)
+        fused = shade_sampled(*args, mat_id=mat, **tail)
+        want = shading.hdr_tail(hdr, True, True, tail["enable_tone_mapping"],
+                                tail["exposure"])
+        torch.cuda.synchronize()
+        for f, w in zip(fused, want):
+            assert torch.equal(f, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lights", ["none", "one", "shaderball", "odd",
+                                    "one_tile", "tiles"])
+@pytest.mark.parametrize("extra", ["plain", "vis_ambient"])
+def test_gbuffer_shade_kernel_lights(dev, lights, extra):
+    """K5 with 0, 1 and 3 (directional and point) lights, spot lights and
+    the other kinds, a full light tile (64) and 200 lights restaged tile
+    by tile; with and without the visibility and ambient planes; n not a
+    multiple of the block size: against its plain version, NaN / inf at
+    the misses changing nothing, the fused fp16 + tone-map tail equal to
+    the torch tail."""
+    from bibim_tpu_torch.ops import shading
+
+    shape = (5, 1001)
+    p = _planes(dev, 17, shape)
+    ls = shaderball_lights(dev)
+    ls = {"none": ls._replace(**{f: getattr(ls, f)[:0]
+                                 for f in ls._fields}),
+          "one": ls._replace(**{f: getattr(ls, f)[1:2]
+                                for f in ls._fields}),
+          "shaderball": ls, "odd": _odd_lights(dev),
+          "one_tile": _odd_lights(dev, 64),
+          "tiles": _odd_lights(dev, 200)}[lights]
+    world = (p(-5, 5), p(-5, 5), p(-5, 5))
+    normal = (p(-1, 1), p(-1, 1), p(-1, 1))
+    albedo = (p(0, 1), p(0, 1), p(0, 1))
+    mra = (p(0, 1), p(0.05, 1), p(0, 1))
+    valid = p(0, 1) > 0.3
+    tm, expo = torch.tensor(1, device=dev), torch.tensor(1.3, device=dev)
+    opts = {}
+    if extra == "vis_ambient":
+        opts = dict(vis_plane=p(0, 1), vis_light=0,
+                    ambient=(p(0, 0.2), p(0, 0.2), p(0, 0.2)))
+
+    def run(fn, clean=True, **kw):
+        planes = [*world, *normal, *albedo, *mra]
+        o = dict(opts)
+        if not clean:
+            planes = [_garbage(valid, x) for x in planes]
+            if "vis_plane" in o:
+                o["vis_plane"] = _garbage(valid, o["vis_plane"])
+                o["ambient"] = tuple(_garbage(valid, a)
+                                     for a in o["ambient"])
+        return fn(tuple(planes[0:3]), tuple(planes[3:6]),
+                  tuple(planes[6:9]), *planes[9:12], valid, ls,
+                  torch.tensor([0.0, 1.0, -3.0], device=dev), tm, expo,
+                  **o, **kw)
+
+    for q in (False, True):
+        got = run(shade_tonemap, quantize=q, tonemap=q)
+        want = run(shade_tonemap_plain, quantize=q, tonemap=q)
+        dirty = run(shade_tonemap, clean=False, quantize=q, tonemap=q)
+        torch.cuda.synchronize()
+        _assert_close_rel(got, want)
+        for g, d in zip(got, dirty):
+            assert torch.equal(g, d)
+            assert bool((g[~valid] == 0).all())
+    hdr = run(shade_tonemap, quantize=False, tonemap=False)
+    fused = run(shade_tonemap, quantize=True, tonemap=True)
+    want = shading.hdr_tail(hdr, True, True, tm, expo)
+    torch.cuda.synchronize()
+    for f, w in zip(fused, want):
+        assert torch.equal(f, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_lights", [64, 65, 200])
+def test_shade_kernel_light_tiles(dev, n_lights):
+    """K2 with a full light tile, one light past it and 200 lights (the
+    lights restaged tile by tile, the sum in the lights' order) on the
+    configs-3/4 layout and the generic instantiation: against its plain
+    version and bit-equal between the two instantiations."""
+    mats, u, v, mat, shape, _ = _k2_binding(dev, "block_quad")
+    p = _planes(dev, 19, shape)
+    valid = p(0, 1) > 0.3
+    args = (mats, u, v, (p(-5, 5), p(-5, 5), p(-5, 5)),
+            (p(-1, 1), p(-1, 1), p(-1, 1)), (p(-1, 1), p(-1, 1), p(-1, 1)),
+            valid, _odd_lights(dev, n_lights),
+            torch.tensor([0.0, 1.0, -3.0], device=dev),
+            torch.tensor(1, device=dev))
+    kw = dict(vis_plane=p(0, 1), vis_light=n_lights - 1)
+    got = shade_sampled(*args, **kw)
+    want = shade_sampled_plain(*args, **kw)
+    generic = shade_sampled(*args, generic=True, **kw)
+    torch.cuda.synchronize()
+    _assert_close_rel(got, want)
+    for g, x in zip(got, generic):
+        assert torch.equal(g, x)
+        assert bool((g[~valid] == 0).all())

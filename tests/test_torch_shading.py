@@ -116,8 +116,7 @@ def test_shade_matches_pallas_interpret(jtables, seed, vp, nm, deferred):
         tuple(map(cases.t, px["tangent"])), cases.t(px["valid"]),
         interop.lights(lights, device="cpu"),
         torch.tensor(vp, dtype=torch.float32),
-        torch.tensor(nm, dtype=torch.int32), gbuffer_mode=deferred,
-        quantize=deferred)
+        torch.tensor(nm, dtype=torch.int32), quantize=deferred)
     (_assert_close if deferred else _assert_close_rel)(
         [np.asarray(w) for w in want], [g.numpy() for g in got])
 

@@ -184,7 +184,12 @@ def test_shadow_pass_matches_jax(scene):
 def test_shadows_frame_matches_jax():
     """A deferred frame with shadows (K2 with the visibility plane on the
     production path) against the JAX package's render_frame."""
-    cases.check_stretch_frame(cases.frame_inputs(), cases.SHADOWS)
+    # Production render: 0.1007 % of pixels differ by one LSB (measured;
+    # the full render 0.0977 %): XLA:CPU's FMA differences across RGBA16F
+    # rounding boundaries (tests/torch_port_cases.py NO_FMA_XLA_FLAGS),
+    # held by the check against the JAX frame without FMAs.
+    cases.check_stretch_frame(cases.frame_inputs(), cases.SHADOWS,
+                              frac_max=(1e-3, 1.25e-3))
 
 
 def test_shaderball_shadow_fit_batches():

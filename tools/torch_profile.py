@@ -141,12 +141,11 @@ def instanced_scene(dev):
 def instanced_settings(dev, c4, view, **extra):
     """(frame data, view block, settings) of config 4 at ``view``: culled
     on the host, autotuned for ``extra`` (the dense-pass slot count picked
-    by measurement, as chip_smoke.py picks it)."""
-    from bibim_tpu_torch.pipeline import RenderSettings, render_frame
+    by device time, chip_smoke.py pick_dense_cap)."""
+    from bibim_tpu_torch.pipeline import RenderSettings
     from bibim_tpu_torch.pipeline.autotune import (
         autotune_settings,
         dense_cap_candidates,
-        pick_measured,
     )
 
     scene, mats, proj_host, proj, fp = c4
@@ -157,8 +156,7 @@ def instanced_settings(dev, c4, view, **extra):
     s, probe = autotune_settings(data, vb, base, margin=cs.C4_MARGIN)
     cands = dense_cap_candidates(s, probe, margin=cs.C4_MARGIN)
     if len(cands) > 1:
-        s, _ = pick_measured(cands, lambda sx: cs.cuda_ms(
-            lambda: render_frame(data, vb, fp, mats, None, sx), reps=3))
+        s, _ = cs.pick_dense_cap(cands, data, vb, fp, mats)
     print(json.dumps({"config4_settings": {"view": view[0], **{
         k: getattr(s, k) for k in ("max_candidates", "raster_passes",
                                    "merged_coverage", "dense_tile_cap",
