@@ -164,10 +164,10 @@ def _declare(lib) -> None:
                       ctypes.c_uint, i, p, p, p],
         # rec, big_ids, n_big, big_len, pair_tri, pair_len, ids, starts,
         # counts, init_zkey, init_okey, n_slots, tiles_x, tile_h, tile_w,
-        # rec_stride, field mask, zsh, zkey out, okey out, fields out,
-        # stats (or NULL), stream
+        # rec_stride, field mask, zsh, cluster size, zkey out, okey out,
+        # fields out, stats (or NULL), stream
         "bb_raster_earlyz": [p, p, p, i, p, i, p, p, p, p, p, i, i, i, i, i,
-                             ctypes.c_uint, i, p, p, p, p, p],
+                             ctypes.c_uint, i, i, p, p, p, p, p],
         # rec, big_ids, n_big, big_len, pair_tri, pair_len, ids, win,
         # lb_al, cnt_k, init_zkey, n_slots, group, tiles_x, tile_h, tile_w,
         # rec_stride, field mask, zkey out, fields out, stream
@@ -175,9 +175,9 @@ def _declare(lib) -> None:
                          ctypes.c_uint, p, p, p],
         # rec, big_ids, n_big, big_len, pair_tri, pair_len, ids, starts,
         # lb_al, cntk, init_zkey, n_slots, nsub, tiles_x, tile_h, tile_w,
-        # rec_stride, field mask, zkey out, fields out, stream
+        # rec_stride, field mask, parts, zkey out, fields out, stream
         "bb_raster_fine": [p, p, p, i, p, i, p, p, p, p, p, i, i, i, i, i, i,
-                           ctypes.c_uint, p, p, p],
+                           ctypes.c_uint, i, p, p, p],
         # rec, big_ids, n_big, big_len, pair_tri, pair_len, ids, starts,
         # counts, n_live, zkey, ldr in/out, n_slots, nt, tiles_x, tile_h,
         # tile_w, rec_stride, stream

@@ -1,7 +1,10 @@
 // Device code shared by the raster kernels (K1 raster.cu, K9
 // raster_earlyz.cu, K10 raster_gw.cu, K11 raster_fine.cu) and the overlay
 // composite (K4, overlay.cu): the candidate coverage/depth test, the
-// per-tile candidate scan and the winner's attribute resolve.
+// cp.async staging of candidate records (K1, K9, K11), the packed
+// (key, index) maximum and the cluster split of a slot's candidates (K1,
+// K9; K11 packs too), the per-tile candidate scan (K4, K10) and the
+// winner's attribute resolve.
 //
 // Semantics (the reference kernel's, bibim_tpu/ops/fused.py _chunk_test):
 // homogeneous edge functions E_e = A_e*px + B_e*py + C_e, coverage when all
@@ -25,19 +28,52 @@ constexpr int CH_ID = 15, CH_U = 16, CH_V = 19, CH_N = 22, CH_T = 31;
 constexpr int CH_W = 40, CH_COL = 49, CH_MAT = 58, CH_ZUB = 59;
 constexpr int COV_CH = 15;    // coverage coefficients per candidate
 constexpr int STAGE = 128;    // candidates staged per shared-memory round
+constexpr int STAGE_CH = 16;  // floats cp.async stages per candidate
+                              // (4 x 16 bytes: coverage and _ID)
 constexpr int THREADS = 256;  // threads per tile block
 constexpr int MAX_PPT = 8;    // pixels per thread: tiles up to 2048 px
 constexpr int LOW3 = ~7;
+// The fewest candidates a cluster block of K1 / K9 scans (the last part
+// may hold fewer): a slot with at most MIN_PART is scanned by rank 0 alone.
+constexpr int MIN_PART = 64;
 
 __device__ __forceinline__ float plane_eval(float a, float b, float c,
                                             float px, float py) {
   return a * px + b * py + c;
 }
 
-// Masked depth key of one candidate at one pixel, and whether the candidate
-// covers the pixel inside the depth range (a key of a miss is negative).
-__device__ __forceinline__ int cover_test(const float* co, float px,
-                                          float py, bool* covers) {
+// The same test in two steps, for K9 and K11, which skip the depth planes
+// when no lane of a warp passes a candidate's edges (K1 keeps its own
+// copy: through these two it ran 4-6 % slower on an H100, PERF.md).
+// edges_in: whether a candidate passes its three edge functions at a
+// pixel.
+__device__ __forceinline__ bool edges_in(const float* co, float px,
+                                         float py) {
+  return plane_eval(co[0], co[3], co[6], px, py) >= 0.f &&
+         plane_eval(co[1], co[4], co[7], px, py) >= 0.f &&
+         plane_eval(co[2], co[5], co[8], px, py) >= 0.f;
+}
+
+// Masked depth key at a pixel whose edge functions passed (edges_in): the
+// depth range test, z = zn * rcp(wn) and the key (negative for a miss).
+__device__ __forceinline__ int depth_key(const float* co, float px, float py,
+                                         bool* covers) {
+  const float zn = plane_eval(co[9], co[10], co[11], px, py);
+  const float wn = plane_eval(co[12], co[13], co[14], px, py);
+  const bool ok = wn > 0.f && zn >= 0.f && zn <= wn;
+  const float z = zn * __frcp_rn(wn == 0.f ? 1.f : wn);
+  *covers = ok;
+  return __float_as_int(ok ? z : -1.f) & LOW3;
+}
+
+// The key of a candidate that misses a pixel.
+constexpr int MISS_KEY = (int)0xBF800000u & LOW3;  // bits(-1.0f) & ~7
+
+// Masked depth key of one candidate at one pixel (MISS_KEY for a miss),
+// all five planes without a branch: K4's and K10's test of every candidate
+// at every pixel (K4 took 17-24 % longer with the edges tested first).
+__device__ __forceinline__ int cover_key(const float* co, float px,
+                                         float py) {
   const float e0 = plane_eval(co[0], co[3], co[6], px, py);
   const float e1 = plane_eval(co[1], co[4], co[7], px, py);
   const float e2 = plane_eval(co[2], co[5], co[8], px, py);
@@ -46,14 +82,105 @@ __device__ __forceinline__ int cover_test(const float* co, float px,
   const bool ok = e0 >= 0.f && e1 >= 0.f && e2 >= 0.f && wn > 0.f &&
                   zn >= 0.f && zn <= wn;
   const float z = zn * __frcp_rn(wn == 0.f ? 1.f : wn);
-  *covers = ok;
   return __float_as_int(ok ? z : -1.f) & LOW3;
 }
 
-__device__ __forceinline__ int cover_key(const float* co, float px,
-                                         float py) {
-  bool ok;
-  return cover_test(co, px, py, &ok);
+// 16 (or 4) bytes from global to shared memory, asynchronously; zeros
+// when !copy (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool copy) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(copy ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool copy) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(src), "r"(copy ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Stages record row `tri`'s first STAGE_CH floats (zeros for tri < 0)
+// into dst, 16 bytes per copy: copies [q0, q0 + nq) of the four.
+__device__ __forceinline__ void stage_row(float* dst, const float* rec,
+                                          int rec_stride, int tri, int q0,
+                                          int nq) {
+  const bool ok = tri >= 0;
+  const float* src = rec + (ok ? (size_t)tri * rec_stride : 0);
+  for (int q = q0; q < q0 + nq; ++q) cp_async16(dst + 4 * q, src + 4 * q, ok);
+}
+
+// The 15 coverage coefficients and _ID of a staged candidate.
+struct Staged {
+  float co[STAGE_CH];
+};
+
+__device__ __forceinline__ Staged load_staged(const float* row) {
+  const float4* q = reinterpret_cast<const float4*>(row);
+  const float4 q0 = q[0], q1 = q[1], q2 = q[2], q3 = q[3];
+  return Staged{{q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x, q2.y,
+                 q2.z, q2.w, q3.x, q3.y, q3.z, q3.w}};
+}
+
+// (key, index) as one unsigned word whose max is their lexicographic max;
+// index -1 (the initial key) packs as 0.
+__device__ __forceinline__ unsigned long long pack_best(int key, int idx) {
+  return ((unsigned long long)((unsigned)key ^ 0x80000000u) << 32) |
+         (unsigned)(idx + 1);
+}
+
+__device__ __forceinline__ int best_key(unsigned long long v) {
+  return (int)((unsigned)(v >> 32) ^ 0x80000000u);
+}
+
+__device__ __forceinline__ int best_idx(unsigned long long v) {
+  return (int)(unsigned)(v & 0xffffffffu) - 1;
+}
+
+// Part [lo, hi) of a slot's `total` candidates that cluster rank `rank` of
+// `csize` scans, and the number of parts in use (the same in every block
+// of the cluster): parts of at least MIN_PART candidates.
+__device__ __forceinline__ int cluster_part(int total, int csize, int rank,
+                                            int* lo, int* hi) {
+  const int part = max((total + csize - 1) / csize, MIN_PART);
+  *lo = min(total, rank * part);
+  *hi = min(total, *lo + part);
+  return (total + part - 1) / part;
+}
+
+// Launches `kernel` on `grid` blocks of `block` threads in clusters of
+// csize blocks (csize 1: a plain launch); returns the CUDA error code.
+template <typename... P, typename... A>
+int launch_clustered(void (*kernel)(P...), int grid, int block, int csize,
+                     cudaStream_t st, A... args) {
+  if (csize == 1) {
+    kernel<<<grid, block, 0, st>>>(args...);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(block);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 // Triangle id of candidate c of a scan that takes the overflow list's nb

@@ -41,34 +41,6 @@ namespace cg = cooperative_groups;
 
 namespace bb {
 
-constexpr int STAGE_CH = 16;  // floats staged per candidate (4 x 16 bytes)
-// The fewest candidates a cluster block scans (the last part may hold
-// fewer): a slot with at most MIN_PART is scanned by rank 0 alone.
-constexpr int MIN_PART = 64;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool copy) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(copy ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// (key, index) as one unsigned word whose max is their lexicographic max;
-// index -1 (the initial key) packs as 0.
-__device__ __forceinline__ unsigned long long pack_best(int key, int idx) {
-  return ((unsigned long long)((unsigned)key ^ 0x80000000u) << 32) |
-         (unsigned)(idx + 1);
-}
-
 struct RasterArgs {
   const float* rec;
   int rec_stride;
@@ -97,12 +69,11 @@ raster_kernel(const RasterArgs a, int csize) {
   const int nb = min(*a.n_big, a.big_len);
   const int start = a.starts[s];
   const int total = nb + a.counts[s];
-  const int part = max((total + csize - 1) / csize, MIN_PART);
-  // Parts in use: the same in every block of the cluster. With one, rank 0
-  // scans the whole sequence and no block meets another: the others leave.
-  const int parts = (total + part - 1) / part;
+  int lo, hi;
+  // With one part in use, rank 0 scans the whole sequence and no block
+  // meets another: the others leave.
+  const int parts = cluster_part(total, csize, rank, &lo, &hi);
   if (parts <= 1 && rank != 0) return;
-  const int lo = min(total, rank * part), hi = min(total, lo + part);
   const int npx = a.tile_h * a.tile_w;
   const int tid = a.ids[s];
   const int row = tid / a.tiles_x, col = tid - row * a.tiles_x;
@@ -220,8 +191,8 @@ raster_kernel(const RasterArgs a, int csize) {
         for (int k = 0; k < PPT; ++k) {
           const unsigned long long v = other[threadIdx.x + k * THREADS];
           if (v > pack_best(bkey[k], bidx[k])) {
-            bkey[k] = (int)((unsigned)(v >> 32) ^ 0x80000000u);
-            bidx[k] = (int)(unsigned)(v & 0xffffffffu) - 1;
+            bkey[k] = best_key(v);
+            bidx[k] = best_idx(v);
           }
         }
       }
@@ -240,29 +211,6 @@ raster_kernel(const RasterArgs a, int csize) {
                   a.fields);
     }
   }
-}
-
-template <int PPT>
-int launch_raster(const RasterArgs& a, int csize, cudaStream_t st) {
-  const dim3 grid(a.n_slots * csize), block(THREADS);
-  if (csize == 1) {
-    raster_kernel<PPT><<<grid, block, 0, st>>>(a, 1);
-    return (int)cudaGetLastError();
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = csize;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, raster_kernel<PPT>, a, csize);
-  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace bb
@@ -285,8 +233,13 @@ extern "C" int bb_raster(const float* rec, const int* big_ids,
                          init_zkey, n_slots,  tiles_x, tile_h,  tile_w,
                          mask,   zkey,       fields};
   const cudaStream_t st = (cudaStream_t)stream;
-  if (npx <= bb::THREADS) return bb::launch_raster<1>(a, csize, st);
-  if (npx <= 2 * bb::THREADS) return bb::launch_raster<2>(a, csize, st);
-  if (npx <= 4 * bb::THREADS) return bb::launch_raster<4>(a, csize, st);
-  return bb::launch_raster<8>(a, csize, st);
+  const int grid = n_slots * csize;
+  auto go = [&](auto kernel) {
+    return bb::launch_clustered(kernel, grid, bb::THREADS, csize, st, a,
+                                csize);
+  };
+  if (npx <= bb::THREADS) return go(bb::raster_kernel<1>);
+  if (npx <= 2 * bb::THREADS) return go(bb::raster_kernel<2>);
+  if (npx <= 4 * bb::THREADS) return go(bb::raster_kernel<4>);
+  return go(bb::raster_kernel<8>);
 }

@@ -561,10 +561,11 @@ def _field_mask(out_fields) -> int:
     return mask
 
 
-# K1 splits a slot's window over the blocks of a thread-block cluster
-# (csrc/raster.cu) when its launch leaves SMs idle: each part keeps at
-# least CLUSTER_MIN_PART window candidates (the kernel's MIN_PART: a
-# shorter sequence is scanned by one block), and the launch stays within
+# K1 and K9 split a slot's window over the blocks of a thread-block cluster
+# (csrc/raster.cu, csrc/raster_earlyz.cu) when a launch leaves SMs idle:
+# each part keeps at least CLUSTER_MIN_PART window candidates (the
+# kernels' MIN_PART: a shorter sequence is scanned by one block), and the
+# launch stays within
 # CLUSTER_MAX_BLOCKS blocks — five waves of the 4 blocks (64 registers ×
 # 256 threads) each of an H100's 132 SMs holds.
 CLUSTER_SIZES = (1, 2, 4, 8)
@@ -573,7 +574,7 @@ CLUSTER_MAX_BLOCKS = 5 * 4 * 132
 
 
 def raster_cluster(k: int, max_count: int | None) -> int:
-    """K1's cluster size for ``k`` slots whose windows hold at most
+    """K1's and K9's cluster size for ``k`` slots whose windows hold at most
     ``max_count`` candidates, from these static numbers alone (no device
     read): the largest size that keeps every part at least
     CLUSTER_MIN_PART candidates long and the launch within
@@ -639,13 +640,15 @@ raster_tiles.launches = 0
 def raster_tiles_earlyz_plain(rec, big_ids, n_big, pair_tri, ids, starts,
                               counts, init_zkey, init_okey, zsh: int,
                               tiles_x: int, tile_h: int, tile_w: int,
-                              out_fields: tuple = _OUT_FIELDS):
+                              out_fields: tuple = _OUT_FIELDS,
+                              max_count: int | None = None):
     """Plain version of K9: :func:`raster_tiles_plain` with the winner the
     lexicographic argmax of (depth key, draw order) (``_scan_plain_ord``),
     continuing the keys ``init_zkey`` and the draw orders ``init_okey``
     ((K, NPX) float32, -1 = none). ``zsh`` is the kernel's bucket shift;
-    the plain version scans every candidate. Returns (zkey, okey,
-    fields)."""
+    the plain version scans every candidate. ``max_count``, the static
+    cap on ``counts``, only sizes the kernel's launch
+    (:func:`raster_cluster`). Returns (zkey, okey, fields)."""
     px, py = _pixel_centres(ids, tiles_x, tile_h, tile_w)
     best_key, best_ord, best = _scan_plain_ord(
         rec, big_ids, n_big, pair_tri, starts, counts, init_zkey, init_okey,
@@ -656,12 +659,18 @@ def raster_tiles_earlyz_plain(rec, big_ids, n_big, pair_tri, ids, starts,
 def raster_tiles_earlyz(rec, big_ids, n_big, pair_tri, ids, starts, counts,
                         init_zkey, init_okey, zsh: int, tiles_x: int,
                         tile_h: int, tile_w: int,
-                        out_fields: tuple = _OUT_FIELDS, stats=None):
+                        out_fields: tuple = _OUT_FIELDS,
+                        max_count: int | None = None,
+                        cluster: int | None = None, stats=None):
     """K9 wrapper (csrc/raster_earlyz.cu); same contract as
     :func:`raster_tiles_earlyz_plain`, which it runs only for CPU tensors.
     The windows must be in :func:`bin_pairs`' ``zorder`` order for the
-    kernel's break to be sound. ``stats``: an optional (2,) int64 CUDA
-    tensor the kernel adds (8-row window chunks scanned, present) to."""
+    kernel's break to be sound. A slot's candidates are split over a
+    cluster of :func:`raster_cluster` blocks, as K1's; ``cluster``
+    overrides the size (a measurement knob; any size gives the same
+    result). ``stats``: an optional (2,) int64 CUDA tensor the kernel adds
+    (8-row chunks of window rows scanned, summed over a slot's parts;
+    8-row window chunks present) to."""
     k = _check_common(rec, big_ids, n_big, pair_tri, ids, starts, counts)
     npx = tile_h * tile_w
     _check("init_zkey", init_zkey, torch.int32, rec.device, (k, npx))
@@ -676,6 +685,13 @@ def raster_tiles_earlyz(rec, big_ids, n_big, pair_tri, ids, starts, counts,
     if npx > _build.MAX_TILE_PIXELS:
         raise ValueError(f"raster_tiles_earlyz: tiles of {npx} px exceed "
                          f"{_build.MAX_TILE_PIXELS}")
+    if cluster is None:
+        cluster = raster_cluster(k, max_count)
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"raster_tiles_earlyz: cluster {cluster} not in "
+                         f"{CLUSTER_SIZES}")
+    if rec.data_ptr() % 16:
+        raise ValueError("raster_tiles_earlyz: rec must be 16-byte aligned")
     if stats is not None:
         _check("stats", stats, torch.int64, rec.device, (2,))
     mask = _field_mask(out_fields)
@@ -690,7 +706,7 @@ def raster_tiles_earlyz(rec, big_ids, n_big, pair_tri, ids, starts, counts,
         p(rec), p(big_ids), p(n_big), big_ids.shape[0], p(pair_tri),
         pair_tri.shape[0], p(ids), p(starts), p(counts), p(init_zkey),
         p(init_okey), k, tiles_x, tile_h, tile_w, REC_CH,
-        ctypes.c_uint(mask), int(zsh), p(zkey), p(okey), p(fields),
+        ctypes.c_uint(mask), int(zsh), cluster, p(zkey), p(okey), p(fields),
         p(stats) if stats is not None else None,
         _build.stream_ptr(rec.device))
     _build.check(err, "raster_earlyz")
@@ -800,11 +816,22 @@ def raster_tiles_fine_plain(rec, big_ids, n_big, pair_tri, ids, starts,
             _resolve_plain(rec, best, px, py, out_fields))
 
 
+# K11 spreads each subtile's window over `parts` of the block's warps
+# (csrc/raster_fine.cu): round j of subtile g goes to warp
+# (g + j mod parts) mod nsub. All eight measured fastest on config 4's
+# fine-bin frames on an H100 (PERF.md).
+FINE_PARTS = (1, 2, 4, 8)
+FINE_PARTS_DEFAULT = 8
+
+
 def raster_tiles_fine(rec, big_ids, n_big, pair_tri, ids, starts, lb_al,
                       cntk, init_zkey, tiles_x: int, tile_h: int, tile_w: int,
-                      out_fields: tuple = _OUT_FIELDS):
+                      out_fields: tuple = _OUT_FIELDS,
+                      parts: int | None = None):
     """K11 wrapper (csrc/raster_fine.cu); same contract as
-    :func:`raster_tiles_fine_plain`, which it runs only for CPU tensors."""
+    :func:`raster_tiles_fine_plain`, which it runs only for CPU tensors.
+    ``parts`` overrides the number of warps a subtile's window is spread
+    over (a measurement knob; any number gives the same result)."""
     k = _check_common(rec, big_ids, n_big, pair_tri, ids, starts, starts)
     npx = tile_h * tile_w
     nsub = lb_al.shape[1] if lb_al.ndim == 2 else 0
@@ -821,11 +848,18 @@ def raster_tiles_fine(rec, big_ids, n_big, pair_tri, ids, starts, lb_al,
     if rec.device.type != "cuda":
         raise RuntimeError(f"raster_tiles_fine: unsupported device "
                            f"{rec.device}")
+    if parts is None:
+        parts = FINE_PARTS_DEFAULT
+    if parts not in FINE_PARTS:
+        raise ValueError(f"raster_tiles_fine: parts {parts} not in "
+                         f"{FINE_PARTS}")
     spx = tile_h * (tile_w // nsub)
     if nsub > NSUB_FINE or spx % 32 or spx // 32 > _build.MAX_TILE_PIXELS \
             // 256:
         raise ValueError(f"raster_tiles_fine: subtiles of {spx} px in "
                          f"{nsub} warps exceed the kernel's block")
+    if rec.data_ptr() % 16:
+        raise ValueError("raster_tiles_fine: rec must be 16-byte aligned")
     mask = _field_mask(out_fields)
     zkey = torch.empty((k, npx), dtype=torch.int32, device=rec.device)
     fields = torch.empty((len(out_fields), k, npx), dtype=torch.float32,
@@ -837,7 +871,7 @@ def raster_tiles_fine(rec, big_ids, n_big, pair_tri, ids, starts, lb_al,
         p(rec), p(big_ids), p(n_big), big_ids.shape[0], p(pair_tri),
         pair_tri.shape[0], p(ids), p(starts), p(lb_al), p(cntk),
         p(init_zkey), k, nsub, tiles_x, tile_h, tile_w, REC_CH,
-        ctypes.c_uint(mask), p(zkey), p(fields),
+        ctypes.c_uint(mask), parts, p(zkey), p(fields),
         _build.stream_ptr(rec.device))
     _build.check(err, "raster_fine")
     raster_tiles_fine.launches += 1
@@ -1178,7 +1212,7 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
                 rec_table, big_ids, nb_p, sorted_tri, ids,
                 starts_p.contiguous(), counts_p.contiguous(), zk_in,
                 okey[ids.long()].contiguous(), zsh, tiles_x, tile_h, tile_w,
-                out_fields)
+                out_fields, max_count=maxc)
         else:
             zk_new, fouts = raster(
                 rec_table, big_ids, nb_p, sorted_tri, ids,

@@ -6,8 +6,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 1. builds the eleven CUDA kernels from ``bibim_tpu_torch/csrc`` (into
    ``build/``, one nvcc per source in parallel) and prints the build time
    and, per kernel instantiation, ptxas's registers, stack frame and spill
-   bytes (every K2 and K5 instantiation must have a 0-byte stack frame
-   and no spills);
+   bytes (every K2, K5, K9 and K11 instantiation must have a 0-byte
+   stack frame and no spills);
 2. builds the frames from repository-only inputs: the ShaderBall scene's
    structure (100× ground plane at y=-10, the three ShaderBall lights, the
    default camera) with a ~10k-triangle UV sphere at the ball's instance
@@ -54,11 +54,16 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    the culled instance counts; checks K1, K3, K2, K9 (with its
    skipped-chunk share) and K11 against their plain versions on those
    frames' inputs, and prints every default frame's K1 launches with
-   their bound; renders the nine frames with the counters reset just
-   before; the default and early-z frames must equal the all-plain
-   render of the default settings; a fine-bin frame may differ from them
-   only at masked-key ties and where the default winner's bounding box
-   misses the pixel (``c4_fine_vs_default``);
+   their bound, and every K9 launch (each pass of each early-z frame) and
+   K11 launch (pass 0 of each fine-bin frame): slots, window lengths
+   (K11: also its subtile windows), overflow entries, K9's skipped-chunk
+   share, the kernel ms at every split (K9's cluster sizes, K11's warps a
+   subtile), the bound, and K1's kernel ms on the same windows; renders
+   the nine frames with the counters reset just before; the default and
+   early-z frames must equal the all-plain render of the default
+   settings; a fine-bin frame may differ from them only at masked-key
+   ties and where the default winner's bounding box misses the pixel
+   (``c4_fine_vs_default``);
 7. checks, on every frame, zero capacity drops (shadow pass included),
    coverage, that the image is not background, and the frame against the
    all-plain render of the same frame at the golden-image bound;
@@ -717,18 +722,100 @@ def k1_launch(args, kw) -> dict:
     kernel's device time at every cluster size (:func:`graph_ms`)."""
     from bibim_tpu_torch.ops import fused
 
-    counts = args[6].cpu()
-    k = int(args[4].shape[0])
-    live = counts[counts > 0]
     return dict(
-        slots=k, window_max=int(counts.max()) if k else 0,
-        window_mean=float(counts.float().mean()) if k else 0.0,
-        live_slots=int(live.numel()),
-        live_window_mean=float(live.float().mean()) if live.numel() else 0.0,
-        overflow=int(args[2][0]),
-        cluster=fused.raster_cluster(k, kw.get("max_count")),
+        window_stats(args[6]), overflow=int(args[2][0]),
+        cluster=fused.raster_cluster(int(args[4].shape[0]),
+                                     kw.get("max_count")),
         kernel_ms_by_cluster={c: graph_ms(lambda: fused.raster_tiles(
             *args, **kw, cluster=c)) for c in fused.CLUSTER_SIZES})
+
+
+def window_stats(counts) -> dict:
+    """Slots, live slots (a window of at least one candidate) and the
+    window lengths of one raster call (``counts`` read on the host)."""
+    counts = counts.reshape(-1).cpu().float()
+    live = counts[counts > 0]
+    return dict(
+        slots=int(counts.numel()),
+        live_slots=int(live.numel()),
+        window_max=int(counts.max()) if counts.numel() else 0,
+        window_mean=float(counts.mean()) if counts.numel() else 0.0,
+        live_window_mean=float(live.mean()) if live.numel() else 0.0)
+
+
+def k1_reference_ms(args8, tiles, out_fields, max_count) -> dict:
+    """K1's kernel ms on another kernel's candidate windows (``args8``:
+    rec, big_ids, n_big, pair_tri, ids, starts, counts, init_zkey), at
+    the cluster size its wrapper picks for ``max_count`` and at every
+    size; a timing reference only, its output is not compared."""
+    from bibim_tpu_torch.ops import fused
+
+    by = {c: graph_ms(lambda: fused.raster_tiles(
+        *args8, *tiles, out_fields, cluster=c))
+        for c in fused.CLUSTER_SIZES}
+    pick = fused.raster_cluster(int(args8[4].shape[0]), max_count)
+    return dict(k1_cluster=pick, k1_kernel_ms=by[pick],
+                k1_kernel_ms_by_cluster=by)
+
+
+def k9_launch(args, kw, out) -> dict:
+    """One K9 call as its launch sees it (:func:`window_stats`, the
+    overflow entries, the share of window chunks its break skips), its
+    kernel ms (:func:`graph_ms`) at the split the wrapper picks and at
+    every split, its bound, and K1's kernel ms on the same ``ids,
+    starts, counts, init_zkey`` (:func:`k1_reference_ms`)."""
+    import torch
+
+    from bibim_tpu_torch.ops import fused
+
+    stats = torch.zeros(2, dtype=torch.int64, device=args[0].device)
+    fused.raster_tiles_earlyz(*args, **kw, stats=stats)
+    scanned, present = stats.tolist()
+    share = scanned / max(present, 1)
+    row = dict(window_stats(args[6]), overflow=int(args[2][0]),
+               skipped_chunk_share=1.0 - share)
+    by = {c: graph_ms(lambda: fused.raster_tiles_earlyz(
+        *args, **kw, cluster=c)) for c in fused.CLUSTER_SIZES}
+    row["cluster"] = fused.raster_cluster(int(args[4].shape[0]),
+                                          kw.get("max_count"))
+    row["kernel_ms"] = by[row["cluster"]]
+    row["kernel_ms_by_cluster"] = by
+    row.update(raster_bound("raster_earlyz", args, out, share, 8 * scanned))
+    row.update(k1_reference_ms(args[:8], args[10:13], args[13],
+                               kw.get("max_count")))
+    return row
+
+
+def k11_launch(args, kw, out, max_count: int) -> dict:
+    """One K11 call: :func:`window_stats` of its coarse windows (each
+    slot's fine windows end where the coarse one does), the overflow
+    entries, the subtile window lengths ``cntk`` (max, mean, 99th
+    percentile), its kernel ms at the warp split the wrapper picks and at
+    every split, its bound, and K1's kernel ms on the coarse windows of
+    the same slots (:func:`k1_reference_ms`; ``max_count``: the frame's
+    per-pass window cap)."""
+    import torch
+
+    from bibim_tpu_torch.ops import fused
+
+    lb_al, cntk = args[6], args[7]
+    coarse = torch.where(cntk > 0, lb_al + cntk,
+                         torch.zeros_like(cntk)).amax(dim=1).to(torch.int32)
+    ck = cntk.reshape(-1).float()
+    row = dict(window_stats(coarse), overflow=int(args[2][0]),
+               subtile_window_max=int(ck.max()),
+               subtile_window_mean=float(ck.mean()),
+               subtile_window_p99=float(torch.quantile(ck.cpu(), 0.99)))
+    by = {p: graph_ms(lambda: fused.raster_tiles_fine(
+        *args, **kw, parts=p)) for p in fused.FINE_PARTS}
+    row["parts"] = fused.FINE_PARTS_DEFAULT
+    row["kernel_ms"] = by[row["parts"]]
+    row["kernel_ms_by_parts"] = by
+    row.update(raster_bound("raster_fine", args, out))
+    row.update(k1_reference_ms(
+        (*args[:6], coarse.contiguous(), args[8]), args[9:12], args[12],
+        max_count))
+    return row
 
 
 def graph_ms(fn, reps: int = 20) -> float:
@@ -1560,24 +1647,18 @@ def c4_fine_vs_default(default, fine, differ) -> str:
             "winner's bbox")
 
 
-def run_config4(dev, smi: str, name: str):
-    """The instanced path: per view host culling and the autotune of each
-    raster mode, the kernel phases, then the counted frames."""
+def c4_frames(dev, modes=C4_MODES):
+    """Config 4's scene built on the card, then per view the host culling
+    and the autotune of each raster mode in ``modes`` (the dense slot count
+    picked by :func:`pick_dense_cap`), each printed. Returns (frames: a
+    list of (label, frame data, view block, settings), frame parameters,
+    materials)."""
     import dataclasses
 
     import torch
 
     from bibim_tpu_torch import math3d as m3
-    from bibim_tpu_torch.ops import fused
-    from bibim_tpu_torch.ops.shading import shade_sampled
-    from bibim_tpu_torch.ops.sort import sort_keys
-    from bibim_tpu_torch.pipeline import (
-        KERNELS,
-        PLAIN,
-        FrameParams,
-        RenderSettings,
-        render_frame,
-    )
+    from bibim_tpu_torch.pipeline import FrameParams, RenderSettings
     from bibim_tpu_torch.pipeline.autotune import (
         autotune_settings,
         dense_cap_candidates,
@@ -1625,7 +1706,7 @@ def run_config4(dev, smi: str, name: str):
         print(f"config-4 view {view_def[0]}: culled on the host in "
               f"{cull_ms:.2f} ms: {n_vis} of {C4_INSTANCES} instances "
               f"visible, bucket {bucket}, {tris} triangles")
-        for mode, extra in C4_MODES:
+        for mode, extra in modes:
             t0 = time.perf_counter()
             s, probe = autotune_settings(
                 data, vb, dataclasses.replace(base, **extra),
@@ -1651,6 +1732,20 @@ def run_config4(dev, smi: str, name: str):
                 raise AssertionError(f"config-4 {mode}: a single raster "
                                      "pass was derived")
             frames.append((f"{view_def[0]}, {mode}", data, vb, s))
+    return frames, fp, mats
+
+
+def run_config4(dev, smi: str, name: str):
+    """The instanced path: per view host culling and the autotune of each
+    raster mode, the kernel phases, then the counted frames."""
+    import torch
+
+    from bibim_tpu_torch.ops import fused
+    from bibim_tpu_torch.ops.shading import shade_sampled
+    from bibim_tpu_torch.ops.sort import sort_keys
+    from bibim_tpu_torch.pipeline import KERNELS, PLAIN, render_frame
+
+    frames, fp, mats = c4_frames(dev)
 
     # Kernel phases on the frames' own inputs.
     calls: dict = {}
@@ -1715,6 +1810,20 @@ def run_config4(dev, smi: str, name: str):
             row.update(raster_bound("raster", a, o))
             print(f"config-4 K1 launch, {label}, pass {p}: "
                   + json.dumps(row))
+    # K9 per launch (every pass of each early-z frame) and K11 per launch
+    # (pass 0 of each fine-bin frame), each beside K1 on the same windows:
+    # is a launch held back by its longest window?
+    ez = iter(calls["raster_earlyz"])
+    fine = iter(calls["raster_fine"])
+    for (label, _, _, s), n in zip(frames, per_frame):
+        for p in range(n.get("raster_earlyz", 0)):
+            a, k, o = next(ez)
+            print(f"config-4 K9 launch, {label}, pass {p}: "
+                  + json.dumps(k9_launch(a, k, o)))
+        for _ in range(n.get("raster_fine", 0)):
+            a, k, o = next(fine)
+            print(f"config-4 K11 launch, {label}, pass 0: " + json.dumps(
+                k11_launch(a, k, o, -(-s.max_candidates // 8) * 8)))
     kres["raster_earlyz"]["all_calls_skipped_chunk_share"] = (
         1.0 - total[0] / total[1])
     print(f"config-4 K9 early-z: {total[1] - total[0]} of {total[1]} window "
@@ -1838,14 +1947,16 @@ def main() -> int:
           f"(nvcc {_build.build_seconds or 0.0:.1f} s)")
     usage = ptxas_usage(_build.build_log)
     print("ptxas usage: " + json.dumps(usage))
-    shading = {k: v for k, v in usage.items()
-               if k.startswith(("shade_kernel", "gbuffer_shade_kernel"))}
-    if len(shading) < 4 or any(v.get("stack", 1) or v.get("spill_stores", 1)
-                               or v.get("spill_loads", 1)
-                               for v in shading.values()):
-        raise AssertionError("K2 / K5 instantiations must have a 0-byte "
-                             "stack frame and no spills: "
-                             + json.dumps(shading))
+    for what, prefixes, least in (
+            ("K2 / K5", ("shade_kernel", "gbuffer_shade_kernel"), 4),
+            ("K9 / K11", ("raster_earlyz_kernel", "raster_fine_kernel"), 8)):
+        kern = {k: v for k, v in usage.items() if k.startswith(prefixes)}
+        if len(kern) < least or any(
+                v.get("stack", 1) or v.get("spill_stores", 1)
+                or v.get("spill_loads", 1) for v in kern.values()):
+            raise AssertionError(f"{what} instantiations must have a 0-byte "
+                                 "stack frame and no spills: "
+                                 + json.dumps(kern))
 
     scene, mats, overlay, proj, fp, settings = build_inputs(dev)
     t = sum(int(b.positions.shape[0]) // 3 * int(b.model.shape[0])

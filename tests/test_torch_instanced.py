@@ -35,14 +35,16 @@ def _port_sources():
     files = sorted((REPO / "bibim_tpu_torch").rglob("*.py"))
     tools = [REPO / "tools" / f for f in ("torch_profile.py",
                                           "sass_counts.py",
-                                          "shade_variants.py")]
+                                          "shade_variants.py",
+                                          "raster_variants.py")]
     return files + [REPO / "chip_smoke.py"] + tools
 
 
 def test_port_imports_no_jax_package():
     """No import in the port, chip_smoke.py or its GPU tools
-    (tools/torch_profile.py, sass_counts.py, shade_variants.py) names
-    bibim_tpu (or jax); the package imports without either."""
+    (tools/torch_profile.py, sass_counts.py, shade_variants.py,
+    raster_variants.py) names bibim_tpu (or jax); the package imports
+    without either."""
     bad = []
     for path in _port_sources():
         tree = ast.parse(path.read_text(), str(path))

@@ -693,14 +693,60 @@ def test_raster_variant_kernels_bit_equal(dev, frame, kw):
         assert "group_pair_cap" in kw
 
 
-def _occluded_layers(dev, layers=8, cell=16):
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(earlyz=True, max_candidates=512),
+    dict(earlyz=True, max_candidates=48, passes=4, raster_tile_cap=96,
+         dense_tile_cap=64),
+    dict(fine_bins=True, max_candidates=512),
+], ids=["earlyz", "earlyz_multipass", "fine_bins"])
+@pytest.mark.parametrize("init", ["frame", "ties"])
+def test_raster_variant_kernels_every_split(dev, frame, kw, init):
+    """K9 at every cluster size and K11 at every warp split, on each
+    captured call of the frame: bit-equal to their plain versions. "ties":
+    the initial keys (and K9's draw orders) are the call's own result, so
+    every covered pixel's winner ties them."""
+    rec, setup = _setup(frame)
+    name = "raster_earlyz" if "earlyz" in kw else "raster_fine"
+    kern = getattr(fused, _VARIANT_FN["earlyz" if "earlyz" in kw
+                                       else "fine_bins"])
+    plain = getattr(fused, f"{kern.__name__}_plain")
+    calls = []
+
+    def capture(*a, **k):
+        calls.append((list(a), k))
+        return kern(*a, **k)
+
+    fused.raster_fused(rec, setup, W, H, overflow_cap=64, span_cap=16,
+                       **{name: capture}, **kw)
+    zi = 7 if name == "raster_earlyz" else 8  # init_zkey's position
+    for a, k in calls:
+        if init == "ties":
+            out = plain(*a, **k)
+            a[zi] = out[0]
+            if name == "raster_earlyz":
+                a[zi + 1] = out[1]
+        want = plain(*a, **k)
+        splits = (fused.CLUSTER_SIZES if name == "raster_earlyz"
+                  else fused.FINE_PARTS)
+        for c in splits:
+            knob = {"cluster" if name == "raster_earlyz" else "parts": c}
+            got = kern(*a, **k, **knob)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (init, c)
+
+
+def _occluded_layers(dev, layers=40, cell=16):
     """Clip-space test geometry for K9's break: two near triangles (z 0.9,
     spanning the viewport: the overflow list) in front of ``layers`` grids
-    of small far triangles (z 0.05-0.4), one per 16-px cell and layer."""
+    of small far triangles (z 0.4 down in steps of 0.01), one per 16-px
+    cell and layer: windows of 8 · ``layers`` candidates, longer than one
+    of K9's rounds."""
     tris = [[[-3.0, -3.0, 0.9, 1.0], [3.0, -3.0, 0.9, 1.0],
              [0.0, 5.0, 0.9, 1.0]]] * 2
     for layer in range(layers):
-        z = 0.4 - 0.05 * layer
+        z = 0.4 - 0.01 * layer
         for y0 in range(0, H, cell):
             for x0 in range(0, W, cell):
                 c = [(x0 + 1, y0 + 1), (x0 + cell - 1, y0 + 1),
@@ -720,10 +766,16 @@ def _occluded_layers(dev, layers=8, cell=16):
 @pytest.mark.cuda
 def test_earlyz_kernel_break_fires(dev):
     """K9's break on the card: behind a near occluder (the overflow list)
-    every window candidate is farther, so each tile stops after its first
-    window round; the chunk counter shows the skip, and zkey, okey and
-    every plane equal the plain version's (which scans everything) and
-    K1's frame."""
+    every window candidate is farther, so a tile scanned by one block stops
+    after its first window round; the chunk counter shows the skip, and
+    zkey, okey and every plane equal the plain version's (which scans
+    everything) and K1's frame. At every cluster size the outputs stay
+    equal; a split slot's later parts do not hold the occluder's keys, so
+    they scan on. A second pass from the first pass's keys gives every
+    part the occluder's keys as its bound: a later part stops after its
+    first round too, while the next round's copies are bound for the
+    bytes its merge reuses; the outputs stay equal, and at cluster 2 the
+    counter shows the later part's skip."""
     rec, setup = _occluded_layers(dev)
     calls = []
 
@@ -736,15 +788,23 @@ def test_earlyz_kernel_break_fires(dev):
                              raster_earlyz=capture, **kw)
     base = fused.raster_fused(rec, setup, W, H, **kw)
     a, k = calls[0]
-    stats = torch.zeros(2, dtype=torch.int64, device=dev)
-    out = fused.raster_tiles_earlyz(*a, **k, stats=stats)
     want = fused.raster_tiles_earlyz_plain(*a, **k)
-    torch.cuda.synchronize()
-    for x, y in zip(out, want):
-        assert torch.equal(x, y)
+    a2 = (*a[:7], want[0], want[1], *a[9:])
+    want2 = fused.raster_tiles_earlyz_plain(*a2, **k)
+    scanned = {}
+    for again, args, ref in ((False, a, want), (True, a2, want2)):
+        for c in fused.CLUSTER_SIZES:
+            stats = torch.zeros(2, dtype=torch.int64, device=dev)
+            out = fused.raster_tiles_earlyz(*args, **k, cluster=c,
+                                            stats=stats)
+            torch.cuda.synchronize()
+            for x, y in zip(out, ref):
+                assert torch.equal(x, y), (again, c)
+            scanned[again, c], present = stats.tolist()
+            assert 0 < scanned[again, c] <= (
+                present // 2 if c == 1 else present), (again, c, present)
+    assert scanned[True, 2] < scanned[False, 2], scanned
     _assert_rasters_equal(got, base)
-    scanned, present = stats.tolist()
-    assert 0 < scanned <= present // 2, (scanned, present)
     assert bool((got[0].tri_id >= 0).all())
 
 
