@@ -23,7 +23,7 @@ library at first use (see ``_build.py``):
 - K9 early-z raster          → ``ops.fused.raster_tiles_earlyz``
   (csrc/raster_earlyz.cu)
 - K10 group-window raster    → ``ops.fused.raster_tiles_gw``
-  (csrc/raster_gw.cu)
+  (csrc/raster.cu, K1's scan over group windows)
 - K11 fine-subtile raster    → ``ops.fused.raster_tiles_fine``
   (csrc/raster_fine.cu)
 

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 SOURCES = ("raster.cu", "overlay.cu", "shade.cu", "sort.cu",
            "gbuffer_shade.cu", "sample.cu", "mip_sample.cu",
-           "raster_earlyz.cu", "raster_gw.cu", "raster_fine.cu")
+           "raster_earlyz.cu", "raster_fine.cu")
 HEADERS = ("common.cuh", "shading.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,10 +39,6 @@ NVCC_FLAGS = (
 # Max (pixels per tile / threads per block) the raster and overlay kernels
 # take; must match MAX_PPT in csrc/common.cuh.
 MAX_TILE_PIXELS = 256 * 8
-# Pixels of one group-window block (K10: 1024 threads × MAX_PPT) and the
-# largest group (MAX_GROUP in csrc/raster_gw.cu).
-MAX_GROUP_PIXELS = 1024 * 8
-MAX_GROUP = 8
 
 
 class Groups(ctypes.Structure):
@@ -170,9 +166,9 @@ def _declare(lib) -> None:
                              ctypes.c_uint, i, i, p, p, p, p, p],
         # rec, big_ids, n_big, big_len, pair_tri, pair_len, ids, win,
         # lb_al, cnt_k, init_zkey, n_slots, group, tiles_x, tile_h, tile_w,
-        # rec_stride, field mask, zkey out, fields out, stream
+        # rec_stride, field mask, cluster size, zkey out, fields out, stream
         "bb_raster_gw": [p, p, p, i, p, i, p, p, p, p, p, i, i, i, i, i, i,
-                         ctypes.c_uint, p, p, p],
+                         ctypes.c_uint, i, p, p, p],
         # rec, big_ids, n_big, big_len, pair_tri, pair_len, ids, starts,
         # lb_al, cntk, init_zkey, n_slots, nsub, tiles_x, tile_h, tile_w,
         # rec_stride, field mask, parts, zkey out, fields out, stream
@@ -197,9 +193,10 @@ def _declare(lib) -> None:
         "bb_sample_block": [p, i, i, i, i, i, p, p, i, p, p],
         # quads, rows, cpad, n_out, idx, tx, ty, n, out, stream
         "bb_sample_small": [p, i, i, i, p, p, p, i, p, p],
-        # blocks, row_bytes, cs, int planes (5, n), float planes (5, n),
-        # n, out, stream
-        "bb_sample_mip_block": [p, i, i, p, p, i, p, p],
+        # blocks, row_bytes, cs, level table, materials, levels a
+        # material, u, v, material ids (or NULL), tiles, tile_h, tile_w,
+        # out, stream
+        "bb_sample_mip_block": [p, i, i, p, i, i, p, p, p, i, i, i, p, p],
         # keys in, keys out, second key buffer, n, scratch, route (-1:
         # its pick, 0: many blocks, c: one cluster of c blocks), device
         # launches made (int out), stream

@@ -1,10 +1,10 @@
-// Device code shared by the raster kernels (K1 raster.cu, K9
-// raster_earlyz.cu, K10 raster_gw.cu, K11 raster_fine.cu) and the overlay
-// composite (K4, overlay.cu): the candidate coverage/depth test, the
-// cp.async staging of candidate records (K1, K9, K11), the packed
-// (key, index) maximum and the cluster split of a slot's candidates (K1,
-// K9; K11 packs too), the per-tile candidate scan (K4, K10) and the
-// winner's attribute resolve.
+// Device code shared by the raster kernels (K1 and K10 raster.cu, K9
+// raster_earlyz.cu, K11 raster_fine.cu) and the overlay composite (K4,
+// overlay.cu): the candidate coverage/depth test, the cp.async staging of
+// candidate records (K1, K9, K10, K11), the packed (key, index) maximum
+// and the cluster split of a slot's candidates (K1, K9, K10; K11 packs
+// too), the per-tile candidate scan (K4) and the winner's attribute
+// resolve.
 //
 // Semantics (the reference kernel's, bibim_tpu/ops/fused.py _chunk_test):
 // homogeneous edge functions E_e = A_e*px + B_e*py + C_e, coverage when all
@@ -70,8 +70,8 @@ __device__ __forceinline__ int depth_key(const float* co, float px, float py,
 constexpr int MISS_KEY = (int)0xBF800000u & LOW3;  // bits(-1.0f) & ~7
 
 // Masked depth key of one candidate at one pixel (MISS_KEY for a miss),
-// all five planes without a branch: K4's and K10's test of every candidate
-// at every pixel (K4 took 17-24 % longer with the edges tested first).
+// all five planes without a branch: K4's test of every candidate at every
+// pixel (K4 took 17-24 % longer with the edges tested first).
 __device__ __forceinline__ int cover_key(const float* co, float px,
                                          float py) {
   const float e0 = plane_eval(co[0], co[3], co[6], px, py);

@@ -1,12 +1,20 @@
-// K1 — raster + resolve + perspective-correct interpolation.
+// K1 — raster + resolve + perspective-correct interpolation, and K10, the
+// same scan over group windows.
 //
 // Replaces bibim_tpu/ops/fused.py:_fused_kernel (launched by
-// raster_fused_pallas; tie rule in _chunk_test). Slot s rasterizes one
-// 8x128 screen tile from its candidate sequence: the overflow list, then
-// its sorted window. Per pixel the winner is the last candidate whose
-// packed depth key is >= the running key, starting from the initial key —
-// that is, the lexicographic maximum of (key, candidate index) over the
-// candidates and the initial key, which carries index -1.
+// raster_fused_pallas; tie rule in _chunk_test) and, as raster_gw_kernel,
+// _fused_kernel_gw (single-pass frames with group_pair_cap). Slot s
+// rasterizes one 8x128 screen tile from its candidate sequence: the
+// overflow list, then its sorted window. Per pixel the winner is the last
+// candidate whose packed depth key is >= the running key, starting from the
+// initial key — that is, the lexicographic maximum of (key, candidate
+// index) over the candidates and the initial key, which carries index -1.
+// K1's window starts at starts[s]; K10's at win[s / group] + lb_al[s] (the
+// group's window in the pair list, then the slot's 8-aligned base in it:
+// the up to 7 prefix rows before its own belong to the previous tile and
+// cannot cover this one, or duplicate a later row whose position wins the
+// tie). Both read no row twice: the sorted list is contiguous in slot
+// order, so a group's windows are consecutive runs of one window.
 //
 // What bounds it on an H100: operations, about 25 per candidate and pixel
 // (five plane evaluations, the IEEE reciprocal, the key). One block of 256
@@ -52,6 +60,8 @@ struct RasterArgs {
   const int* ids;
   const int* starts;
   const int* counts;
+  const int* win;  // K10: the group windows' first rows, else unused
+  int group;       // K10: slots per group window
   const int* init_zkey;
   int n_slots, tiles_x, tile_h, tile_w;
   unsigned mask;
@@ -59,15 +69,15 @@ struct RasterArgs {
   float* fields;
 };
 
-// PPT: pixels per thread (tiles of up to PPT·THREADS pixels).
-template <int PPT>
-__global__ void __launch_bounds__(THREADS)
-raster_kernel(const RasterArgs a, int csize) {
+// PPT: pixels per thread (tiles of up to PPT·THREADS pixels); GW: K10's
+// group-window addressing.
+template <int PPT, bool GW>
+__device__ __forceinline__ void raster_scan(const RasterArgs& a, int csize) {
   __shared__ __align__(16) float sco[2][STAGE][STAGE_CH];
   const int s = blockIdx.x / csize;
   const int rank = blockIdx.x - s * csize;
   const int nb = min(*a.n_big, a.big_len);
-  const int start = a.starts[s];
+  const int start = GW ? a.win[s / a.group] + a.starts[s] : a.starts[s];
   const int total = nb + a.counts[s];
   int lo, hi;
   // With one part in use, rank 0 scans the whole sequence and no block
@@ -213,6 +223,40 @@ raster_kernel(const RasterArgs a, int csize) {
   }
 }
 
+template <int PPT>
+__global__ void __launch_bounds__(THREADS)
+raster_kernel(const RasterArgs a, int csize) {
+  raster_scan<PPT, false>(a, csize);
+}
+
+template <int PPT>
+__global__ void __launch_bounds__(THREADS)
+raster_gw_kernel(const RasterArgs a, int csize) {
+  raster_scan<PPT, true>(a, csize);
+}
+
+template <bool GW>
+int launch_raster(const RasterArgs& a, int csize, cudaStream_t st) {
+  const int npx = a.tile_h * a.tile_w;
+  if (npx <= 0 || npx > THREADS * MAX_PPT || a.rec_stride % 4 != 0 ||
+      a.rec_stride < STAGE_CH ||
+      (csize != 1 && csize != 2 && csize != 4 && csize != 8) ||
+      (GW && (a.group < 1 || a.n_slots % a.group != 0)))
+    return (int)cudaErrorInvalidValue;
+  if (a.n_slots <= 0) return (int)cudaGetLastError();
+  const int grid = a.n_slots * csize;
+  auto go = [&](auto kernel) {
+    return launch_clustered(kernel, grid, THREADS, csize, st, a, csize);
+  };
+  if (npx <= THREADS)
+    return go(GW ? raster_gw_kernel<1> : raster_kernel<1>);
+  if (npx <= 2 * THREADS)
+    return go(GW ? raster_gw_kernel<2> : raster_kernel<2>);
+  if (npx <= 4 * THREADS)
+    return go(GW ? raster_gw_kernel<4> : raster_kernel<4>);
+  return go(GW ? raster_gw_kernel<8> : raster_kernel<8>);
+}
+
 }  // namespace bb
 
 extern "C" int bb_raster(const float* rec, const int* big_ids,
@@ -222,24 +266,25 @@ extern "C" int bb_raster(const float* rec, const int* big_ids,
                          int tiles_x, int tile_h, int tile_w, int rec_stride,
                          unsigned mask, int csize, int* zkey, float* fields,
                          void* stream) {
-  const int npx = tile_h * tile_w;
-  if (npx <= 0 || npx > bb::THREADS * bb::MAX_PPT || rec_stride % 4 != 0 ||
-      rec_stride < bb::STAGE_CH ||
-      (csize != 1 && csize != 2 && csize != 4 && csize != 8))
-    return (int)cudaErrorInvalidValue;
-  if (n_slots <= 0) return (int)cudaGetLastError();
-  const bb::RasterArgs a{rec,    rec_stride, big_ids, n_big,   big_len,
-                         pair_tri, pair_len, ids,     starts,  counts,
-                         init_zkey, n_slots,  tiles_x, tile_h,  tile_w,
-                         mask,   zkey,       fields};
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int grid = n_slots * csize;
-  auto go = [&](auto kernel) {
-    return bb::launch_clustered(kernel, grid, bb::THREADS, csize, st, a,
-                                csize);
-  };
-  if (npx <= bb::THREADS) return go(bb::raster_kernel<1>);
-  if (npx <= 2 * bb::THREADS) return go(bb::raster_kernel<2>);
-  if (npx <= 4 * bb::THREADS) return go(bb::raster_kernel<4>);
-  return go(bb::raster_kernel<8>);
+  const bb::RasterArgs a{rec,     rec_stride, big_ids,  n_big,   big_len,
+                         pair_tri, pair_len,  ids,      starts,  counts,
+                         nullptr, 1,          init_zkey, n_slots, tiles_x,
+                         tile_h,  tile_w,     mask,     zkey,    fields};
+  return bb::launch_raster<false>(a, csize, (cudaStream_t)stream);
+}
+
+extern "C" int bb_raster_gw(const float* rec, const int* big_ids,
+                            const int* n_big, int big_len,
+                            const int* pair_tri, int pair_len,
+                            const int* ids, const int* win,
+                            const int* lb_al, const int* cnt_k,
+                            const int* init_zkey, int n_slots, int group,
+                            int tiles_x, int tile_h, int tile_w,
+                            int rec_stride, unsigned mask, int csize,
+                            int* zkey, float* fields, void* stream) {
+  const bb::RasterArgs a{rec,     rec_stride, big_ids,  n_big,   big_len,
+                         pair_tri, pair_len,  ids,      lb_al,   cnt_k,
+                         win,     group,      init_zkey, n_slots, tiles_x,
+                         tile_h,  tile_w,     mask,     zkey,    fields};
+  return bb::launch_raster<true>(a, csize, (cudaStream_t)stream);
 }

@@ -250,7 +250,7 @@ __device__ __forceinline__ void sample_group(const ShadeGroups& g, int i,
       const MipTaps t = mip_taps(G::cs(g), geom);
       static_for<0, N_SLOTS>([&](auto j) {
         constexpr int J = decltype(j)::value;
-        if (J < np) acc[J] = mip_channel(row, t, J);
+        if (J < np) acc[J] = mip_channel(row, G::cs(g), t, J);
       });
     } else if (kind == 3) {
       // A row outside the table samples 0 (the reference's one-hot

@@ -1,7 +1,8 @@
 // Device code shared by the sampled shade (K2, shade.cu), the G-buffer shade
 // (K5, gbuffer_shade.cu) and the standalone samplers (K6 / K7, sample.cu;
 // K8, mip_sample.cu): the bilinear footprint and texel blends of the
-// material tables, the trilinear mip-block blend, and the GGX light loop.
+// material tables, the mip-block level and footprint geometry (K8) and
+// trilinear blend, and the GGX light loop.
 //
 // Semantics are the reference's (bibim_tpu/ops/texture_quad.py _footprint,
 // _blend, block_blend_acc, mip_block_blend_acc;
@@ -139,10 +140,92 @@ __device__ __forceinline__ int load_mip_geom(const int* gi, const float* gf,
   return gi[i];
 }
 
+// Per-material table of a mip-block binding (texture_quad.mip_level_table),
+// int32 words read 16 bytes at a time: MIP_HEAD words a material — level-0
+// height and width (float bits), the last level, whether it has no stored
+// parent — then MIP_LEVEL words a (material, level), nlev levels a
+// material — height, width, first row, blocks a row, then height, width,
+// half height and half width (each at least 1) as float bits.
+constexpr int MIP_HEAD = 4, MIP_LEVEL = 8;
+constexpr int MIP_B = 4;  // texels a block edge
+
+// torch.remainder of int32 (the sign of the divisor, b > 0 here). A texel
+// coordinate lies within one wrap of [0, b) unless uv leaves [-1, 2):
+// those take no division.
+__device__ __forceinline__ int floor_mod(int a, int b) {
+  if ((unsigned)a < (unsigned)b) return a;
+  if (a < 0 && a >= -b) return a + b;
+  if (a >= b && a - b < b) return a - b;
+  const int r = a % b;
+  return r < 0 ? r + b : r;
+}
+
+// torch.maximum: NaN if either is NaN.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+
+// The level, blend fraction and footprint of one pixel in a mip-block
+// binding, as texture_quad._mip_block_geometry computes them (operation
+// for operation: quad_lod_planar, _level_select, _per_mat / _per_mat_level
+// and the footprint), from its uv, material id and 2x2-quad differences
+// (right - left, bottom - top); returns the block row index. An id outside
+// [0, nmat) reads material 0's level-0 size, last level and parent flag,
+// and height = width = 1, row 0, 1 block a row for the level. Int <->
+// float conversions give 16 results a clock per SM against FP32's 128, so
+// the table carries the sizes as floats too and floor-and-convert is one
+// instruction; the texel coordinates, in [0, size) after the floor-mod,
+// divide by MIP_B as unsigned (a shift).
+__device__ __forceinline__ int mip_geometry(const int* mt, int nmat,
+                                            int nlev, int mat, float u,
+                                            float v, float du_dx,
+                                            float dv_dx, float du_dy,
+                                            float dv_dy, MipGeom* g) {
+  const bool ok = mat >= 0 && mat < nmat;
+  const int4 head =
+      __ldg(reinterpret_cast<const int4*>(mt) + (ok ? mat : 0));
+  const float h0 = __int_as_float(head.x), w0 = __int_as_float(head.y);
+  const int max_level = head.z;
+  const float ax = du_dx * w0, bx = dv_dx * h0;
+  const float ay = du_dy * w0, by = dv_dy * h0;
+  const float rho_x = sqrtf(ax * ax + bx * bx);
+  const float rho_y = sqrtf(ay * ay + by * by);
+  const float lod =
+      clamp_min(log2f(clamp_min(nan_max(rho_x, rho_y), 1e-12f)), 0.f);
+  const int l0 = min(max(__float2int_rd(lod), 0), max_level);
+  g->frac = (l0 == max_level && head.w) ? 0.f : clamp01(lod - (float)l0);
+  int4 li = make_int4(1, 1, 0, 1);
+  float4 lf = make_float4(1.f, 1.f, 1.f, 1.f);
+  if (ok) {
+    const int4* lv = reinterpret_cast<const int4*>(mt + MIP_HEAD * nmat) +
+                     2 * (mat * nlev + l0);
+    li = __ldg(lv);
+    const int4 b = __ldg(lv + 1);
+    lf = make_float4(__int_as_float(b.x), __int_as_float(b.y),
+                     __int_as_float(b.z), __int_as_float(b.w));
+  }
+  const int hi = li.x, wi = li.y;
+  const float fx = u * lf.y - 0.5f, fy = v * lf.x - 0.5f;
+  const float x0 = floorf(fx), y0 = floorf(fy);
+  const int x0i = floor_mod((int)x0, wi), y0i = floor_mod((int)y0, hi);
+  const int bxi = (unsigned)x0i / MIP_B, byi = (unsigned)y0i / MIP_B;
+  const float fx2 = u * lf.w - 0.5f, fy2 = v * lf.z - 0.5f;
+  const float x02 = floorf(fx2), y02 = floorf(fy2);
+  g->lx = x0i - bxi * MIP_B;
+  g->ly = y0i - byi * MIP_B;
+  g->tx = fx - x0;
+  g->ty = fy - y0;
+  g->pxi = floor_mod((int)x02 - (2 * bxi - 1), max(wi / 2, 1));
+  g->pyi = floor_mod((int)y02 - (2 * byi - 1), max(hi / 2, 1));
+  g->tx2 = fx2 - x02;
+  g->ty2 = fy2 - y02;
+  return li.z + byi * li.w + bxi;
+}
+
 // Tap offsets and weights of the 41-tap trilinear blend at one pixel. Row
 // layout: 5x5 child taps then 4x4 parent taps, tap-major, channel stride cs.
 struct MipTaps {
-  int c00, c01, c10, c11, p00, p01, p10, p11;
+  int c00, p00;  // the first child and the first parent tap
   float w00, w01, w10, w11, v00, v01, v10, v11, frac, omfr;
   bool x0, x1, y0, y1;
 };
@@ -155,9 +238,6 @@ __device__ __forceinline__ MipTaps mip_taps(int cs, const MipGeom& g) {
   t.w10 = omtx * g.ty;
   t.w11 = g.tx * g.ty;
   t.c00 = (g.ly * 5 + g.lx) * cs;
-  t.c01 = t.c00 + cs;
-  t.c10 = t.c00 + 5 * cs;
-  t.c11 = t.c10 + cs;
   const float omtx2 = 1.f - g.tx2, omty2 = 1.f - g.ty2;
   t.v00 = omtx2 * omty2;
   t.v01 = g.tx2 * omty2;
@@ -168,37 +248,32 @@ __device__ __forceinline__ MipTaps mip_taps(int cs, const MipGeom& g) {
   t.y0 = g.pyi < 4;
   t.y1 = g.pyi + 1 < 4;
   t.p00 = (25 + g.pyi * 4 + g.pxi) * cs;
-  t.p01 = t.p00 + cs;
-  t.p10 = t.p00 + 4 * cs;
-  t.p11 = t.p10 + cs;
   t.frac = g.frac;
   t.omfr = 1.f - g.frac;
   return t;
 }
 
-// Channel k of the blend on its 8 live taps. Child taps add in the
-// w00/w01/w10/w11 (row-major) order of the 25-tap sum, whose 21 dead taps
-// add exact zeros; parent taps likewise (a tap outside the stored 4x4
-// window is not in the sum); then own*(1-frac) + par*frac.
-__device__ __forceinline__ float mip_channel(const uint8_t* row,
+// Channel k of the blend on its 8 live taps, read from the row through
+// the read-only path. Child taps add in the w00/w01/w10/w11 (row-major)
+// order of the 25-tap sum, whose 21 dead taps add exact zeros; parent
+// taps likewise (a tap outside the stored 4x4 window is not in the sum);
+// then own*(1-frac) + par*frac. The child taps lie at c00 + {0, 1, 5, 6}
+// cs and the parent taps at p00 + {0, 1, 4, 5} cs: two addresses, the
+// rest offsets (with cs a compile-time constant, immediate ones).
+__device__ __forceinline__ float mip_channel(const uint8_t* row, int cs,
                                              const MipTaps& t, int k) {
-  float own = tap(row, t.c00 + k) * t.w00;
-  own = own + tap(row, t.c01 + k) * t.w01;
-  own = own + tap(row, t.c10 + k) * t.w10;
-  own = own + tap(row, t.c11 + k) * t.w11;
-  float par = (t.x0 && t.y0) ? tap(row, t.p00 + k) * t.v00 : 0.f;
-  par = par + ((t.x1 && t.y0) ? tap(row, t.p01 + k) * t.v01 : 0.f);
-  par = par + ((t.x0 && t.y1) ? tap(row, t.p10 + k) * t.v10 : 0.f);
-  par = par + ((t.x1 && t.y1) ? tap(row, t.p11 + k) * t.v11 : 0.f);
+  const uint8_t* ch = row + t.c00 + k;
+  const uint8_t* pa = row + t.p00 + k;
+  auto ld = [](const uint8_t* p) { return (float)__ldg(p) * INV255; };
+  float own = ld(ch) * t.w00;
+  own = own + ld(ch + cs) * t.w01;
+  own = own + ld(ch + 5 * cs) * t.w10;
+  own = own + ld(ch + 6 * cs) * t.w11;
+  float par = (t.x0 && t.y0) ? ld(pa) * t.v00 : 0.f;
+  par = par + ((t.x1 && t.y0) ? ld(pa + cs) * t.v01 : 0.f);
+  par = par + ((t.x0 && t.y1) ? ld(pa + 4 * cs) * t.v10 : 0.f);
+  par = par + ((t.x1 && t.y1) ? ld(pa + 5 * cs) * t.v11 : 0.f);
   return own * t.omfr + par * t.frac;
-}
-
-// The 41-tap trilinear blend of n_out channels (K8).
-__device__ inline void mip_block_blend(const uint8_t* row, int cs,
-                                       const MipGeom& g, int n_out,
-                                       float* out) {
-  const MipTaps t = mip_taps(cs, g);
-  for (int k = 0; k < n_out; ++k) out[k] = mip_channel(row, t, k);
 }
 
 // ---------------------------------------------------------------------------

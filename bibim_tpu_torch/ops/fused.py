@@ -724,11 +724,13 @@ raster_tiles_earlyz.launches = 0
 def raster_tiles_gw_plain(rec, big_ids, n_big, pair_tri, ids, win, lb_al,
                           cnt_k, init_zkey, group: int, tiles_x: int,
                           tile_h: int, tile_w: int,
-                          out_fields: tuple = _OUT_FIELDS):
+                          out_fields: tuple = _OUT_FIELDS,
+                          max_count: int | None = None):
     """Plain version of K10. Slots come in groups of ``group``; group g's
     window starts at ``pair_tri[win[g]]``, and slot s scans the overflow
     list, then window rows [lb_al[s], lb_al[s] + cnt_k[s]). Returns (zkey,
-    fields) as :func:`raster_tiles_plain`."""
+    fields) as :func:`raster_tiles_plain`. ``max_count``, the static cap
+    on ``cnt_k``, only sizes the kernel's launch (:func:`raster_cluster`)."""
     starts = win.repeat_interleave(group) + lb_al
     return raster_tiles_plain(rec, big_ids, n_big, pair_tri, ids, starts,
                               cnt_k, init_zkey, tiles_x, tile_h, tile_w,
@@ -737,9 +739,16 @@ def raster_tiles_gw_plain(rec, big_ids, n_big, pair_tri, ids, win, lb_al,
 
 def raster_tiles_gw(rec, big_ids, n_big, pair_tri, ids, win, lb_al, cnt_k,
                     init_zkey, group: int, tiles_x: int, tile_h: int,
-                    tile_w: int, out_fields: tuple = _OUT_FIELDS):
-    """K10 wrapper (csrc/raster_gw.cu); same contract as
-    :func:`raster_tiles_gw_plain`, which it runs only for CPU tensors."""
+                    tile_w: int, out_fields: tuple = _OUT_FIELDS,
+                    max_count: int | None = None,
+                    cluster: int | None = None):
+    """K10 wrapper (csrc/raster.cu ``raster_gw_kernel``: K1's scan, each
+    slot's window start taken on the device as ``win[s // group] +
+    lb_al[s]``); same contract as :func:`raster_tiles_gw_plain`, which it
+    runs only for CPU tensors. A slot's candidates are split over a
+    cluster of :func:`raster_cluster` blocks, as K1's; ``cluster``
+    overrides the size (a measurement knob; any size gives the same
+    result)."""
     k = _check_common(rec, big_ids, n_big, pair_tri, ids, lb_al, cnt_k)
     npx = tile_h * tile_w
     if group < 1 or k % group:
@@ -753,9 +762,16 @@ def raster_tiles_gw(rec, big_ids, n_big, pair_tri, ids, win, lb_al, cnt_k,
     if rec.device.type != "cuda":
         raise RuntimeError(f"raster_tiles_gw: unsupported device "
                            f"{rec.device}")
-    if group > _build.MAX_GROUP or group * npx > _build.MAX_GROUP_PIXELS:
-        raise ValueError(f"raster_tiles_gw: a group of {group} tiles of "
-                         f"{npx} px exceeds the kernel's block")
+    if npx > _build.MAX_TILE_PIXELS:
+        raise ValueError(f"raster_tiles_gw: tiles of {npx} px exceed "
+                         f"{_build.MAX_TILE_PIXELS}")
+    if cluster is None:
+        cluster = raster_cluster(k, max_count)
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"raster_tiles_gw: cluster {cluster} not in "
+                         f"{CLUSTER_SIZES}")
+    if rec.data_ptr() % 16:
+        raise ValueError("raster_tiles_gw: rec must be 16-byte aligned")
     mask = _field_mask(out_fields)
     zkey = torch.empty((k, npx), dtype=torch.int32, device=rec.device)
     fields = torch.empty((len(out_fields), k, npx), dtype=torch.float32,
@@ -767,7 +783,7 @@ def raster_tiles_gw(rec, big_ids, n_big, pair_tri, ids, win, lb_al, cnt_k,
         p(rec), p(big_ids), p(n_big), big_ids.shape[0], p(pair_tri),
         pair_tri.shape[0], p(ids), p(win), p(lb_al), p(cnt_k), p(init_zkey),
         k, group, tiles_x, tile_h, tile_w, REC_CH, ctypes.c_uint(mask),
-        p(zkey), p(fields), _build.stream_ptr(rec.device))
+        cluster, p(zkey), p(fields), _build.stream_ptr(rec.device))
     _build.check(err, "raster_gw")
     raster_tiles_gw.launches += 1
     return zkey, fields
@@ -1206,7 +1222,8 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
             zk_new, fouts = raster_gw(
                 rec_table, big_ids, nb_p, sorted_tri, ids, win,
                 lb_al.contiguous(), cnt_k.contiguous(), zk_in, group,
-                tiles_x, tile_h, tile_w, out_fields)
+                tiles_x, tile_h, tile_w, out_fields,
+                max_count=gcap + CHUNK - 1)
         elif earlyz:
             zk_new, ok_new, fouts = raster_earlyz(
                 rec_table, big_ids, nb_p, sorted_tri, ids,

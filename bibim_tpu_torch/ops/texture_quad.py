@@ -37,10 +37,11 @@ Trilinear mips (BASELINE config 2):
   5×5 child and the covering 4×4 parent neighbourhood, so a trilinear
   sample reads ONE row. :func:`_mip_block_geometry` computes the LOD from
   2×2 pixel-quad uv differences, the level / material select and every
-  footprint plane as torch ops, shared by K8, K2's mip-block group and
-  both plain versions;
+  footprint plane as torch ops, for K2's mip-block group and both plain
+  versions;
 - K8, :func:`sample_mip_block_kernel` (csrc/mip_sample.cu, replaces
-  ``sample_mip_block_pallas``); plain version :func:`sample_mip_block`;
+  ``sample_mip_block_pallas``): the same geometry in the kernel, from
+  :func:`mip_level_table`; plain version :func:`sample_mip_block`;
 - :func:`sample_material_mips_multi` routes as the JAX package does:
   block groups → K8, single-level small groups → K7 with a material-routed
   row index, anything else → the quad oracle.
@@ -782,8 +783,8 @@ def _mip_block_geometry(table: MipBlockMulti, mat_id, u, v, tile_h: int,
     }
 
 
-# Geometry planes K8 and K2's mip-block group read, in csrc's order
-# (shading.cuh MipGeom).
+# Geometry planes K2's mip-block group reads, in csrc's order (shading.cuh
+# MipGeom).
 MIP_INT_PLANES = ("idx", "lx", "ly", "pxi", "pyi")
 MIP_FLOAT_PLANES = ("tx", "ty", "tx2", "ty2", "frac")
 
@@ -792,6 +793,38 @@ def mip_geometry_planes(g: dict) -> tuple:
     """(5, N) int32 and (5, N) float32 stacks of the geometry planes."""
     return (torch.stack([g[k].reshape(-1) for k in MIP_INT_PLANES]),
             torch.stack([g[k].reshape(-1) for k in MIP_FLOAT_PLANES]))
+
+
+def _f32_bits(x: float) -> int:
+    return int(np.float32(x).view(np.int32))
+
+
+@functools.lru_cache(maxsize=64)
+def _mip_levels(heights: tuple, widths: tuple, offsets: tuple,
+                last_parent: tuple) -> tuple:
+    nlev = max(len(h) for h in heights)
+    f = _f32_bits
+    head, lev = (), ()
+    for h, w, o, lp in zip(heights, widths, offsets, last_parent):
+        head += (f(h[0]), f(w[0]), len(h) - 1, int(not lp))
+        for i in range(nlev):
+            hi, wi, oi = (h[i], w[i], o[i]) if i < len(h) else (1, 1, 0)
+            lev += (hi, wi, oi, wi // MB_B, f(hi), f(wi),
+                    f(max(hi // 2, 1)), f(max(wi // 2, 1)))
+    return head + lev, nlev
+
+
+def mip_level_table(table: MipBlockMulti) -> tuple:
+    """(int32 words, nlev): the per-material numbers K8's geometry reads
+    (csrc/shading.cuh ``mip_geometry``). For each material 4 words: its
+    level-0 height and width as float32 bits, its last level and whether
+    that level has no stored parent (``_per_mat``'s values). Then for
+    each material and each of ``nlev`` levels 8 words: height, width,
+    first row, blocks a row (``_per_mat_level``'s), and height, width,
+    half height and half width (at least 1) as float32 bits. A material's
+    levels past its last are never read and hold a 1 × 1 level at row 0."""
+    return _mip_levels(table.heights, table.widths, table.offsets,
+                       table.last_parent)
 
 
 def mip_block_blend(blocks: torch.Tensor, g: dict, cs: int,
@@ -861,9 +894,9 @@ def sample_mip_block_kernel(table: MipBlockMulti, mat_id, u, v,
                             tile_h: int = 8, tile_w: int = 128) -> dict:
     """K8 wrapper (csrc/mip_sample.cu): slot → plane trilinear-sampled at
     planar (NT, tile_h·tile_w) uv with per-pixel material ids (None: all
-    material 0). The geometry planes are torch ops; the kernel reads each
-    pixel's row and blends. Runs :func:`sample_mip_block` only for CPU
-    tensors."""
+    material 0). One launch: the kernel computes the LOD and footprint
+    from uv and the ids (:func:`mip_level_table`, made once per binding)
+    and blends. Runs :func:`sample_mip_block` only for CPU tensors."""
     _check_uv("sample_mip_block_kernel", u, v)
     _check_mat("sample_mip_block_kernel", mat_id, u)
     dev = u.device
@@ -882,17 +915,19 @@ def sample_mip_block_kernel(table: MipBlockMulti, mat_id, u, v,
     if dev.type != "cuda":
         raise RuntimeError(f"sample_mip_block_kernel: unsupported device "
                            f"{dev}")
-    if tab.data_ptr() % 16:
-        raise ValueError("sample_mip_block_kernel: the table must be "
-                         "16-byte aligned")
-    gi, gf = mip_geometry_planes(
-        _mip_block_geometry(table, mat_id, u, v, tile_h, tile_w))
+    if tile_h % 2 or tile_w % 16:
+        raise ValueError("sample_mip_block_kernel: tiles must hold whole "
+                         "pixel quads in rows of 16-pixel runs")
+    levels, nlev = mip_level_table(table)
+    lv = _lookup(levels, torch.int32, dev)
+    mat = None if mat_id is None else mat_id.contiguous()
     out = torch.empty((cs,) + tuple(u.shape), dtype=torch.float32,
                       device=dev)
     p = _build.ptr
     err = _build.library().bb_sample_mip_block(
-        p(tab), tab.shape[1], cs, p(gi), p(gf), u.numel(), p(out),
-        _build.stream_ptr(dev))
+        p(tab), tab.shape[1], cs, p(lv), len(table.heights), nlev, p(u),
+        p(v), None if mat is None else p(mat),
+        u.shape[0], tile_h, tile_w, p(out), _build.stream_ptr(dev))
     _build.check(err, "sample_mip_block")
     sample_mip_block_kernel.launches += 1
     return {slot: out[k] for k, slot in enumerate(table.present)}

@@ -6,8 +6,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 1. builds the eleven CUDA kernels from ``bibim_tpu_torch/csrc`` (into
    ``build/``, one nvcc per source in parallel) and prints the build time
    and, per kernel instantiation, ptxas's registers, stack frame and spill
-   bytes (every K2, K5, K9 and K11 instantiation must have a 0-byte
-   stack frame and no spills);
+   bytes (every K2, K5, K8, K9, K10 and K11 instantiation must have a
+   0-byte stack frame and no spills);
 2. builds the frames from repository-only inputs: the ShaderBall scene's
    structure (100× ground plane at y=-10, the three ShaderBall lights, the
    default camera) with a ~10k-triangle UV sphere at the ball's instance
@@ -23,7 +23,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    without their fused fp16 + tone-map tail, which must equal the frame's
    torch tail, ``torch.equal``, on every captured call of every path);
    sizes ``group_pair_cap`` from the port's capacity probe and
-   checks K10 (group window) on that frame; renders 4 frames at 4 camera
+   checks K10 (group window) on that frame, at every cluster size, and
+   prints its launch (slots, group, the group windows' lengths, prefix
+   and dropped rows, kernel ms at every cluster size, the bound, K1's
+   kernel ms on the same windows); renders 4 frames at 4 camera
    yaws through ``render_frame`` with launch counters reset just before,
    then the group-window frame with the counters reset again (it must
    equal the default frame of its yaw);
@@ -40,7 +43,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    positions and the ALBEDO and MRHA G-buffer views of the first; checks
    K1, K3, K2 with the mip-block and routed small groups, K8 mip-block and
    K7 (routed rows) against their plain versions on that path's inputs
-   (K2 and K8 bit-equal) and times both; renders the five frames again
+   (K2 and K8 bit-equal; K8 also on LOD knife-edge inputs,
+   :func:`mip_rho_stress`) and times both, and prints K8's launch
+   (wrapper, kernel and torch-geometry ms, the bound); renders the five
+   frames again
    with the counters reset just before, and prints per view a histogram of
    the selected mip level and the share of pixels blending two levels;
 6. the 1920×1080 instanced path (BASELINE config 4: 64 instances of the
@@ -179,7 +185,7 @@ KERNEL_INFO = {
                       "bibim_tpu_torch/csrc/raster_earlyz.cu",
                       "bibim_tpu/ops/fused.py:589"),
     "raster_gw": ("K10 group-window raster",
-                  "bibim_tpu_torch/csrc/raster_gw.cu",
+                  "bibim_tpu_torch/csrc/raster.cu",
                   "bibim_tpu/ops/fused.py:1085"),
     "raster_fine": ("K11 fine-subtile raster",
                     "bibim_tpu_torch/csrc/raster_fine.cu",
@@ -545,14 +551,18 @@ def raster_bytes(name: str, args, out, window_share: float = 1.0) -> int:
               + 4 * ids.numel() + sum(4 * t[:k].numel() for t in index)
               + tensor_bytes(init))
     if name == "overlay":
-        # Winners by the plain scan of the live slots; the output is a new
-        # image (the LDR planes read once, written once).
+        # Winners by the plain scan of the live slots. The kernel writes
+        # the three LDR channels of the pixels an overlay triangle wins
+        # and reads no image pixel; the rest of the image (the wrapper's
+        # clone) is not its work.
         px, py = fused._pixel_centres(ids, args[10], args[11], args[12])
         _, best = fused._scan_plain(rec, big_ids, n_big, pair_tri, starts,
                                     cnt, init, px, py)
+        hits = (best >= 0) & (rec[best.clamp(min=0).long(), fused._ID]
+                              >= 0.5)
         chans = field_channels(("cr", "cg", "cb"))
         return int(nbytes + n_distinct(best) * chans * 4
-                   + 2 * tensor_bytes(args[9]))
+                   + int(hits.sum()) * 3 * args[9].element_size())
     out_fields = args[-1]
     fields = out[-1]
     if "idf" not in out_fields:
@@ -646,8 +656,9 @@ def check_raster(call, name: str = "raster", calls=()) -> dict:
     """A raster kernel (K1, K9, K10, K11) on one captured call, timed, and
     on every call in ``calls`` too: K1's zkey and tri_id bit-equal to the
     plain raster and its attribute planes within tests/test_fused.py's
-    bound; K9-K11 bit-equal in every output. K9 runs with its chunk
-    counter: the share of window chunks its break skipped."""
+    bound; K9-K11 bit-equal in every output, K10 at every cluster size.
+    K9 runs with its chunk counter: the share of window chunks its break
+    skipped."""
     import torch
 
     from bibim_tpu_torch.ops import fused
@@ -662,14 +673,17 @@ def check_raster(call, name: str = "raster", calls=()) -> dict:
         if name == "raster_earlyz":
             stats = torch.zeros(2, dtype=torch.int64, device=args[0].device)
             kwk["stats"] = stats
-        got = kern(*args, **kwk)
         want = plain(*args, **kw)
-        torch.cuda.synchronize()
+        # K10 also at every cluster size (the wrapper's pick first).
+        splits = fused.CLUSTER_SIZES if name == "raster_gw" else ()
+        for knob in [{}] + [{"cluster": c} for c in splits]:
+            got = kern(*args, **kwk, **knob)
+            torch.cuda.synchronize()
+            if name != "raster" and not all(
+                    torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{name}: differs from its plain "
+                                     f"version ({knob or 'its pick'})")
         if name != "raster":
-            for g, w in zip(got, want):
-                if not torch.equal(g, w):
-                    raise AssertionError(f"{name}: differs from its plain "
-                                         "version")
             continue
         zk, f = got
         zk_p, f_p = want
@@ -816,6 +830,141 @@ def k11_launch(args, kw, out, max_count: int) -> dict:
         (*args[:6], coarse.contiguous(), args[8]), args[9:12], args[12],
         max_count))
     return row
+
+
+def k10_launch(args, kw, out, gcap: int, k1_call) -> dict:
+    """The group-window K10 call as its launch sees it: slots, the group
+    size, each group's window length (rows from ``win[g]`` its slots
+    reach: max, mean, 99th percentile), the overflow entries, the prefix
+    rows (``lb - lb_al``, the previous tile's rows a slot rescans) and
+    the rows its ``gcap`` dropped — both from ``k1_call``, K1's call on
+    the default frame of the same view, whose ``starts`` / ``counts``
+    are the slots' true windows — its kernel ms (:func:`graph_ms`) at the
+    cluster size its wrapper picks and at every size, its bound, and K1's
+    kernel ms on the same derived ``starts`` / ``counts`` at every
+    cluster size (:func:`k1_reference_ms`)."""
+    import torch
+
+    from bibim_tpu_torch.ops import fused
+
+    rec, big_ids, n_big, pair_tri, ids, win, lb_al, cnt, init, group = \
+        args[:10]
+    k = int(ids.shape[0])
+    rep = win.repeat_interleave(group)
+    reach = torch.where(cnt > 0, lb_al + cnt, torch.zeros_like(cnt))
+    wl = reach.reshape(-1, group).amax(dim=1).float().cpu()
+    row = dict(window_stats(cnt), group=group, groups=k // group,
+               gcap=gcap, overflow=int(n_big[0]),
+               group_window_max=int(wl.max()),
+               group_window_mean=float(wl.mean()),
+               group_window_p99=float(torch.quantile(wl, 0.99)))
+    starts, counts = k1_call[0][5], k1_call[0][6]
+    lb = torch.clamp(starts - rep, 0, gcap)
+    kept = torch.minimum(torch.clamp(gcap - lb, min=0), counts)
+    if not (torch.equal(k1_call[0][4], ids)
+            and torch.equal(lb - lb % 8, lb_al)):
+        raise AssertionError("K10 launch: its slots are not the default "
+                             "frame's, its bases not theirs aligned down")
+    row.update(prefix_rows=int((lb - lb_al).sum()),
+               dropped_rows=int((counts - kept).sum()))
+    by = {c: graph_ms(lambda: fused.raster_tiles_gw(*args, **kw, cluster=c))
+          for c in fused.CLUSTER_SIZES}
+    row["cluster"] = fused.raster_cluster(k, kw.get("max_count"))
+    row["kernel_ms"] = by[row["cluster"]]
+    row["kernel_ms_by_cluster"] = by
+    row.update(raster_bound("raster_gw", args, out))
+    starts = (rep + lb_al).to(torch.int32)
+    row.update(k1_reference_ms(
+        (rec, big_ids, n_big, pair_tri, ids, starts, cnt, init),
+        args[10:13], args[13], gcap + 7))
+    return row
+
+
+def k8_launch(call) -> dict:
+    """The config-2 K8 call: pixels, slots, the table's shape, the
+    wrapper's ms (CUDA events around the call), the kernel's device ms
+    alone and the device ms of the torch geometry alone
+    (``_mip_block_geometry`` and ``mip_geometry_planes``, :func:`device_ms`),
+    and the bound."""
+    from bibim_tpu_torch.ops import texture_quad as tq
+
+    args, kw, _ = call
+    table, mat_id, u, v = args[:4]
+    tile = tuple(args[4:6]) or (kw.get("tile_h", 8), kw.get("tile_w", 128))
+    out = tq.sample_mip_block_kernel(*args, **kw)
+    cs = len(table.present)
+    ops = u.numel() * cs * SAMPLER_TAPS["sample_mip_block"] * SAMPLE_TAP_OPS
+    return dict(
+        pixels=int(u.numel()), slots=cs, table=list(table.blocks.shape),
+        wrapper_ms=cuda_ms(lambda: tq.sample_mip_block_kernel(*args, **kw)),
+        kernel_ms=device_ms(lambda: tq.sample_mip_block_kernel(*args, **kw),
+                            match="mip_block_kernel"),
+        geometry_device_ms=device_ms(lambda: tq.mip_geometry_planes(
+            tq._mip_block_geometry(table, mat_id, u, v, *tile))),
+        **bound(sampler_bytes(args, out), ops))
+
+
+def mip_rho_stress(table, nt: int, dev, seed: int = SEED, tile_h: int = 8,
+                   tile_w: int = 128):
+    """(mat_id, u, v), tiled (nt, tile_h·tile_w), whose 2×2 pixel quads
+    put K8's footprint ρ on its level knife-edges: per quad a material
+    (ids -1 and len(heights) too, out of range) and a level k from 0 to
+    one past the material's last, ρ = 2^k or 1 to 4 float steps either
+    side of it, along x or along y (the other axis at ρ/2). The quad's
+    left / top pixels sit at u = 0 / v = 0 and the others at ±ρ / size,
+    so the quad differences are ρ / size exactly and u, v go negative."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    nq = nt * (tile_h // 2) * (tile_w // 2)
+    nmat = len(table.heights)
+    mat = rng.integers(-1, nmat + 1, nq)
+    m0 = np.where((mat >= 0) & (mat < nmat), mat, 0)
+    h0 = np.array([h[0] for h in table.heights], np.float32)[m0]
+    w0 = np.array([w[0] for w in table.widths], np.float32)[m0]
+    nlev = np.array([len(h) for h in table.heights])[m0]
+    rho = np.ldexp(np.float32(1), rng.integers(0, nlev + 1)).astype(
+        np.float32)
+    for _ in range(4):
+        step = rng.integers(-1, 2, nq)  # -1, 0, +1 float steps, 4 times
+        rho = np.where(step > 0, np.nextafter(rho, np.float32(np.inf)),
+                       np.where(step < 0, np.nextafter(rho, np.float32(0)),
+                                rho)).astype(np.float32)
+    along_x = rng.integers(0, 2, nq) == 1
+    sign = np.where(rng.integers(0, 2, nq) == 1, 1, -1).astype(np.float32)
+    dx = sign * np.where(along_x, rho, rho / 2) / w0
+    dy = sign * np.where(along_x, rho / 2, rho) / h0
+    row = np.arange(tile_h)[:, None]
+    col = np.arange(tile_w)[None, :]
+    q = ((row // 2) * (tile_w // 2) + col // 2).reshape(-1)
+    q = (np.arange(nt)[:, None] * (nq // nt) + q[None, :])
+    u = np.broadcast_to(col % 2, (tile_h, tile_w)).reshape(-1) * dx[q]
+    v = np.broadcast_to(row % 2, (tile_h, tile_w)).reshape(-1) * dy[q]
+    return tuple(torch.as_tensor(a).to(dev) for a in (
+        mat[q].astype(np.int32), u.astype(np.float32), v.astype(np.float32)))
+
+
+def check_mip_stress(table, dev, nt: int = 900) -> dict:
+    """K8 on :func:`mip_rho_stress` inputs at a 1280×720 frame's tile
+    count: every slot plane ``torch.equal`` to its plain version, else
+    the run fails. Returns the pixels held and the levels selected."""
+    import torch
+
+    from bibim_tpu_torch.ops import texture_quad as tq
+
+    mat, u, v = mip_rho_stress(table, nt, dev)
+    got = tq.sample_mip_block_kernel(table, mat, u, v)
+    want = tq.sample_mip_block(table, mat, u, v)
+    torch.cuda.synchronize()
+    for slot in want:
+        if not torch.equal(got[slot], want[slot]):
+            bad = int((got[slot] != want[slot]).sum())
+            raise AssertionError(f"K8 on the rho knife-edge stress: slot "
+                                 f"{slot} differs at {bad} pixels")
+    l0 = tq._mip_block_geometry(table, mat, u, v, 8, 128)["l0"]
+    return dict(pixels=int(u.numel()),
+                l0_hist=torch.bincount(l0.reshape(-1).long()).tolist())
 
 
 def graph_ms(fn, reps: int = 20) -> float:
@@ -1439,9 +1588,12 @@ def check_kernels_c2(calls: dict) -> dict:
     for call in calls["sample_mip_block"][1:]:
         check_sampler(call, tq.sample_mip_block_kernel, tq.sample_mip_block,
                       "K8", 8)
-    res["sample_mip_block"] = check_sampler(
-        calls["sample_mip_block"][0], tq.sample_mip_block_kernel,
-        tq.sample_mip_block, "K8", 8)
+    args = calls["sample_mip_block"][0][0]
+    res["sample_mip_block"] = dict(
+        check_sampler(calls["sample_mip_block"][0],
+                      tq.sample_mip_block_kernel, tq.sample_mip_block, "K8",
+                      8),
+        rho_stress=check_mip_stress(args[0], args[2].device))
     res["sample_small"] = check_sampler(
         calls["sample_small"][0], tq.sample_rows_small,
         tq.sample_rows_small_plain, "K7 routed", 4)
@@ -1480,6 +1632,8 @@ def run_config2(dev, smi: str, name: str):
     kres = check_kernels_c2(calls)
     for k, v in kres.items():
         print(f"kernel {k} (config 2): " + json.dumps(v))
+    print("config-2 K8 launch: "
+          + json.dumps(k8_launch(calls["sample_mip_block"][0])))
     del calls
 
     counters = (fused.raster_tiles, sort_keys, shade_sampled,
@@ -1949,7 +2103,8 @@ def main() -> int:
     print("ptxas usage: " + json.dumps(usage))
     for what, prefixes, least in (
             ("K2 / K5", ("shade_kernel", "gbuffer_shade_kernel"), 4),
-            ("K9 / K11", ("raster_earlyz_kernel", "raster_fine_kernel"), 8)):
+            ("K9 / K11", ("raster_earlyz_kernel", "raster_fine_kernel"), 8),
+            ("K8 / K10", ("mip_block_kernel", "raster_gw_kernel"), 14)):
         kern = {k: v for k, v in usage.items() if k.startswith(prefixes)}
         if len(kern) < least or any(
                 v.get("stack", 1) or v.get("spill_stores", 1)
@@ -1974,6 +2129,7 @@ def main() -> int:
                      settings, kernels=capture_kernels(KERNELS, calls))
     torch.cuda.synchronize()
     kres = check_kernels(calls)
+    k1_yaw0 = calls["raster"][0]  # the default frame of the K10 view
     del calls
 
     # The group-window frame: group_pair_cap from the port's probe of the
@@ -1994,7 +2150,10 @@ def main() -> int:
                  kernels=capture_kernels(KERNELS, calls))
     torch.cuda.synchronize()
     kres["raster_gw"] = check_raster(calls["raster_gw"][0], "raster_gw")
-    del calls
+    args, kw, out = calls["raster_gw"][0]
+    print("config-3 K10 launch: " + json.dumps(k10_launch(
+        args, kw, out, -(-gw_cap // 8) * 8, k1_yaw0)))
+    del calls, k1_yaw0
     for k, v in kres.items():
         print(f"kernel {k}: " + json.dumps(v))
 

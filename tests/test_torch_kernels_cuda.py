@@ -512,6 +512,113 @@ def test_mip_block_kernel_bit_equal(dev, max_levels):
         assert torch.equal(routed[slot], plain[slot]), slot
 
 
+def _mixed_mip_table(dev):
+    """One MipBlockMulti of two materials with different level counts: a
+    seeded 256² albedo pyramid (its last parent stored) and a 128² one cut
+    at 3 levels (a true last level)."""
+    rng = np.random.default_rng(5)
+    mats = []
+    for n, max_levels in ((256, None), (128, 3)):
+        mips = tq.build_mip_pyramid(
+            rng.integers(0, 256, (n, n, 3), dtype=np.uint8), max_levels)
+        mats.append(tq.build_mip_block_tables(
+            {s: [m[:, :, k:k + 1] for m in mips]
+             for k, s in enumerate(("alb_r", "alb_g", "alb_b"))},
+            device=dev))
+    table, = tq.merge_mip_block_materials(tuple(mats))
+    assert table.last_parent == (True, False)
+    return table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["edges", "rho_stress", "no_ids"])
+def test_mip_block_kernel_edges_bit_equal(dev, case):
+    """K8, now computing its LOD and footprint itself, on negative uv and
+    uv past 1, ids out of range both ways, materials with different level
+    counts and a true last level, no id plane, and LODs on powers of two
+    and 1-4 float steps beside them (``chip_smoke.mip_rho_stress``): every
+    slot plane ``torch.equal`` to its plain version."""
+    import chip_smoke
+
+    table = _mixed_mip_table(dev)
+    if case == "rho_stress":
+        mat, u, v = chip_smoke.mip_rho_stress(table, 96, dev)
+    else:
+        u, v, mat = _smooth_uv(dev, 7, nt=48)
+        gen = np.random.default_rng(7)
+        mat = (None if case == "no_ids" else torch.as_tensor(
+            gen.integers(-2, 4, u.shape).astype(np.int32), device=dev))
+    before = tq.sample_mip_block_kernel.launches
+    got = tq.sample_mip_block_kernel(table, mat, u, v)
+    want = tq.sample_mip_block(table, mat, u, v)
+    torch.cuda.synchronize()
+    assert tq.sample_mip_block_kernel.launches == before + 1
+    for slot in want:
+        assert torch.equal(got[slot], want[slot]), slot
+    g = tq._mip_block_geometry(table, mat, u, v, 8, 128)
+    assert len(g["l0"].unique()) >= 4
+    if case == "rho_stress":
+        assert bool((g["frac"] == 0).any()) and bool((g["frac"] > 0).any())
+
+
+@pytest.mark.cuda
+def test_mip_block_kernel_one_launch(dev):
+    """On CUDA tensors K8's wrapper puts one kernel on the card and no
+    torch geometry op (after the binding's level table is made)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    table = _mixed_mip_table(dev)
+    u, v, mat = _smooth_uv(dev, 8)
+    tq.sample_mip_block_kernel(table, mat, u, v)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tq.sample_mip_block_kernel(table, mat, u, v)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "mip_block_kernel" in names[0], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gcap", [64, 4096], ids=["drops", "no_drops"])
+@pytest.mark.parametrize("init", ["frame", "ties"])
+def test_group_window_kernel_every_split(dev, frame, gcap, init):
+    """K10 at every cluster size on the frame's group-window call, whose
+    slots rescan prefix rows (bases 8-aligned below their first row) and,
+    with a 64-row window, lose dropped rows: bit-equal to its plain
+    version. "ties": the initial keys are the call's own result."""
+    rec, setup = _setup(frame)
+    kw = dict(max_candidates=512, overflow_cap=64, span_cap=16,
+              raster_tile_cap=96)
+    k1, gw = [], []
+
+    def capture(store, fn):
+        def run(*a, **k):
+            store.append((list(a), k))
+            return fn(*a, **k)
+        return run
+
+    fused.raster_fused(rec, setup, W, H, raster=capture(k1,
+                                                        fused.raster_tiles),
+                       **kw)
+    out = fused.raster_fused(rec, setup, W, H, group_pair_cap=gcap,
+                             raster_gw=capture(gw, fused.raster_tiles_gw),
+                             **kw)
+    (a, k), = gw
+    lb = torch.clamp(k1[0][0][5] - a[5].repeat_interleave(a[9]), 0, gcap)
+    assert torch.equal(lb - lb % 8, a[6]) and bool((lb % 8 > 0).any())
+    assert (int(out[2].dropped_cap) > 0) == (gcap == 64)
+    if init == "ties":
+        a[8] = fused.raster_tiles_gw_plain(*a, **k)[0]
+    want = fused.raster_tiles_gw_plain(*a, **k)
+    for c in fused.CLUSTER_SIZES:
+        got = fused.raster_tiles_gw(*a, **k, cluster=c)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (init, c)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("deferred", [True, False],
                          ids=["deferred", "forward"])

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Launch-shape variants of the shading kernels K2 (csrc/shade.cu) and K5
-(csrc/gbuffer_shade.cu), built from edited copies of ``csrc/`` and timed
-on one NVIDIA GPU beside the committed kernels.
+(csrc/gbuffer_shade.cu) and of the mip-block sampler K8
+(csrc/mip_sample.cu), built from edited copies of ``csrc/`` and timed on
+one NVIDIA GPU beside the committed kernels.
 
-Run from the repository root: ``python3 tools/shade_variants.py``. It
-captures one K2 call of config 3 (1080p), one K5 call of config 5 (4K)
-and one K2 call of config 2 (720p cubes) from ``chip_smoke.py``'s frames,
-then per call and per library prints one JSON line: the kernel's device
-time (``chip_smoke.device_ms``, 20 launches; the committed library timed
-first and again last) and whether its output equals the committed
-kernel's bit for bit. The variants change no pixel's arithmetic:
+Run from the repository root: ``python3 tools/shade_variants.py [--only
+k2k5|k8]``. It captures one K2 call of config 3 (1080p), one K5 call of
+config 5 (4K), one K2 call of config 2 (720p cubes) and the K8 call of
+config 2's ALBEDO view from ``chip_smoke.py``'s frames, and K8 on
+``chip_smoke.mip_rho_stress`` inputs, then per call and per library
+prints one JSON line: the kernel's device time (``chip_smoke.device_ms``,
+20 launches; the committed library timed first and again last) and
+whether its output equals the committed kernel's bit for bit. The
+variants change no pixel's arithmetic:
 
 - ``one_path``: every light list through the path the kernels keep for
   lists longer than their 64-light tile (restaged tile by tile, a barrier
@@ -20,13 +23,24 @@ kernel's bit for bit. The variants change no pixel's arithmetic:
   (and the planes 8-byte aligned), the two light loops interleaved light
   by light; a pair with one miss takes the one-pixel path. At the
   committed kernels' four blocks a multiprocessor (64 registers a thread)
-  and, as ``pixels2_regs128``, at two (128 registers).
+  and, as ``pixels2_regs128``, at two (128 registers);
+- ``mip_div_mod`` (K8): every floor-mod by a division, without the
+  in-range and one-wrap paths;
+- ``mip_flat_grid`` (K8): a 1-D grid of warps, each finding its tile,
+  row pair and columns by two integer divisions, in place of the 3-D
+  grid;
+- ``mip_tap_offsets`` (K8, and K2's mip group): every tap's address from
+  the row and its own int offset, in place of two bases and immediate
+  offsets;
+- ``mip_lut`` (K8): each tap's value byte × (1/255) read from a
+  256-entry shared-memory table, in place of a conversion and a multiply.
 
 The edited sources and their builds go to ``build/variants/`` (git-ignored).
 """
 
 from __future__ import annotations
 
+import argparse
 import importlib.util
 import json
 import shutil
@@ -159,8 +173,67 @@ def pixels2(blocks: int) -> list:
     ]
 
 
+_FLAT_GRID = r"""  const int segs = a.tile_w >> 4;
+  const int per_tile = (a.tile_h >> 1) * segs;  // warps a tile
+  const int wid = blockIdx.x * (MIP_THREADS / 32) + (threadIdx.x >> 5);
+  const int tile = wid / per_tile;
+  if (tile >= a.nt) return;
+  const int r = wid - tile * per_tile;
+  const int rp = r / segs;
+  const int y = 2 * rp + (lane >> 4);
+  const int x = 16 * (r - rp * segs) + (lane & 15);
+"""
+
+
 VARIANTS = {"one_path": ONE_PATH, "pixels2": pixels2(4),
             "pixels2_regs128": pixels2(2)}
+_TAP_OFFSETS = r"""  auto ld = [&](int o) { return (float)__ldg(row + o) * INV255; };
+  float own = ld(t.c00 + k) * t.w00;
+  own = own + ld(t.c00 + cs + k) * t.w01;
+  own = own + ld(t.c00 + 5 * cs + k) * t.w10;
+  own = own + ld(t.c00 + 6 * cs + k) * t.w11;
+  float par = (t.x0 && t.y0) ? ld(t.p00 + k) * t.v00 : 0.f;
+  par = par + ((t.x1 && t.y0) ? ld(t.p00 + cs + k) * t.v01 : 0.f);
+  par = par + ((t.x0 && t.y1) ? ld(t.p00 + 4 * cs + k) * t.v10 : 0.f);
+  par = par + ((t.x1 && t.y1) ? ld(t.p00 + 5 * cs + k) * t.v11 : 0.f);
+"""
+
+_LUT_BLEND = r"""  for (int k = 0; k < CS; ++k) {
+    const uint8_t* ch = row + t.c00 + k;
+    const uint8_t* pa = row + t.p00 + k;
+    auto ld = [&](const uint8_t* p) { return lut[__ldg(p)]; };
+    float own = ld(ch) * t.w00;
+    own = own + ld(ch + CS) * t.w01;
+    own = own + ld(ch + 5 * CS) * t.w10;
+    own = own + ld(ch + 6 * CS) * t.w11;
+    float par = (t.x0 && t.y0) ? ld(pa) * t.v00 : 0.f;
+    par = par + ((t.x1 && t.y0) ? ld(pa + CS) * t.v01 : 0.f);
+    par = par + ((t.x0 && t.y1) ? ld(pa + 4 * CS) * t.v10 : 0.f);
+    par = par + ((t.x1 && t.y1) ? ld(pa + 5 * CS) * t.v11 : 0.f);
+    out[k * n] = own * t.omfr + par * t.frac;
+  }"""
+
+MIP_VARIANTS = {
+    "mip_div_mod": [("shading.cuh", ("  if ((unsigned)a < (unsigned)b)",
+                                     "  const int r = a % b;"), "")],
+    "mip_flat_grid": [
+        ("mip_sample.cu", ("  const int tile = blockIdx.x;",
+                           "  const int npx"), _FLAT_GRID),
+        ("mip_sample.cu", "dim3(a.nt, a.tile_h / 2, runs)",
+         "(int)(((long long)a.nt * (a.tile_h / 2) * (a.tile_w / 16) + 7)"
+         " / 8)")],
+    "mip_tap_offsets": [("shading.cuh",
+                         ("  const uint8_t* ch = row + t.c00 + k;",
+                          "  return own * t.omfr + par * t.frac;"),
+                         _TAP_OFFSETS)],
+    "mip_lut": [
+        ("mip_sample.cu", "  const int lane = threadIdx.x & 31;\n",
+         "  __shared__ float lut[256];  // MIP_THREADS == 256\n"
+         "  lut[threadIdx.x] = (float)threadIdx.x * INV255;\n"
+         "  __syncthreads();\n  const int lane = threadIdx.x & 31;\n"),
+        ("mip_sample.cu",
+         "  for (int k = 0; k < CS; ++k) out[k * n] = "
+         "mip_channel(row, CS, t, k);", _LUT_BLEND)]}
 
 
 def edit(text: str, old, new: str) -> str:
@@ -204,9 +277,14 @@ def main() -> int:
     import chip_smoke as cs
     from bibim_tpu_torch import _build
     from bibim_tpu_torch.ops import shading as sh
+    from bibim_tpu_torch.ops import texture_quad as tq
     from bibim_tpu_torch.ops.ibl import make_ibl_sh
     from bibim_tpu_torch.pipeline import KERNELS, render_frame
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=("k2k5", "k8"),
+                    help="the K2 / K5 or the K8 variants alone")
+    only = ap.parse_args().only
     if not torch.cuda.is_available():
         print("shade_variants: no CUDA device", file=sys.stderr)
         return 2
@@ -214,10 +292,12 @@ def main() -> int:
     print(cs.nvidia_smi_line(), flush=True)
     committed = _build.library()
     libs = {"committed": committed}
-    for name, edits in VARIANTS.items():
+    todo = {**({} if only == "k8" else VARIANTS),
+            **({} if only == "k2k5" else MIP_VARIANTS)}
+    for name, edits in todo.items():
         libs[name], log = variant_library(name, edits)
         usage = {k: v for k, v in cs.ptxas_usage(log).items()
-                 if "shade" in k}
+                 if "shade" in k or "mip_block" in k}
         print(f"ptxas {name}: " + json.dumps(usage), flush=True)
 
     def capture(frames):
@@ -228,31 +308,50 @@ def main() -> int:
         torch.cuda.synchronize()
         return calls
 
-    scene, mats, overlay, proj, fp, settings = cs.build_inputs(dev)
-    c3 = capture([((scene, cs.view_block(0.0, proj, dev), fp, mats,
-                    overlay, settings), {})])
-    s5 = cs.build_inputs(dev, cs.C5_WIDTH, cs.C5_HEIGHT, cs.C5_CAPS,
-                         enable_shadows=True, shadow_fit_batches=(0,),
-                         enable_ibl=True)
-    c5 = capture([((s5[0], cs.view_block(0.0, s5[3], dev), s5[4], s5[1],
-                    s5[2], s5[5]), dict(ibl=make_ibl_sh(device=dev)))])
+    rows = []
     scene2, mats2, proj2, fp2, s2 = cs.cube_inputs(dev)
-    _, vb2, st2 = cs.c2_frames(s2, proj2, dev)[0]
-    c2 = capture([((scene2, vb2, fp2, mats2, None, st2), {})])
-
-    rows = [("config 3 K2", sh.shade_sampled, c3["shade"][0],
-             "bb::shade_kernel", list(libs)),
-            ("config 5 K5", sh.shade_tonemap, c5["shade_gbuffer"][0],
-             "gbuffer_shade_kernel", ["committed", "one_path"]),
-            ("config 2 K2", sh.shade_sampled, c2["shade"][0],
-             "bb::shade_kernel", list(libs))]
+    frames2 = cs.c2_frames(s2, proj2, dev)
+    if only != "k8":
+        k2 = ["committed", *VARIANTS]
+        scene, mats, overlay, proj, fp, settings = cs.build_inputs(dev)
+        c3 = capture([((scene, cs.view_block(0.0, proj, dev), fp, mats,
+                        overlay, settings), {})])
+        s5 = cs.build_inputs(dev, cs.C5_WIDTH, cs.C5_HEIGHT, cs.C5_CAPS,
+                             enable_shadows=True, shadow_fit_batches=(0,),
+                             enable_ibl=True)
+        c5 = capture([((s5[0], cs.view_block(0.0, s5[3], dev), s5[4],
+                        s5[1], s5[2], s5[5]),
+                       dict(ibl=make_ibl_sh(device=dev)))])
+        _, vb2, st2 = frames2[0]
+        c2 = capture([((scene2, vb2, fp2, mats2, None, st2), {})])
+        rows += [("config 3 K2", sh.shade_sampled, c3["shade"][0],
+                  "bb::shade_kernel", k2),
+                 ("config 5 K5", sh.shade_tonemap, c5["shade_gbuffer"][0],
+                  "gbuffer_shade_kernel", ["committed", "one_path"]),
+                 ("config 2 K2", sh.shade_sampled, c2["shade"][0],
+                  "bb::shade_kernel", k2)]
+    if only != "k2k5":
+        k8 = ["committed", *MIP_VARIANTS]
+        _, vba, sta = frames2[len(cs.C2_CAMERA_Z)]  # the ALBEDO view
+        ca = capture([((scene2, vba, fp2, mats2, None, sta), {})])
+        call = ca["sample_mip_block"][0]
+        stress = cs.mip_rho_stress(call[0][0], 900, dev)
+        rows += [("config 2 ALBEDO view K8", tq.sample_mip_block_kernel,
+                  call, "mip_block_kernel", k8),
+                 ("K8 rho stress", tq.sample_mip_block_kernel,
+                  ((call[0][0], *stress), {}, None), "mip_block_kernel",
+                  k8)]
     for label, fn, (args, kw, _), match, names in rows:
         _build._lib = committed
         want = fn(*args, **kw)
+        if isinstance(want, dict):  # K8: slot → plane
+            want = list(want.values())
         row = {}
         for name in names + ["committed"]:
             _build._lib = libs[name]
             got = fn(*args, **kw)
+            if isinstance(got, dict):
+                got = list(got.values())
             torch.cuda.synchronize()
             key = name if name not in row else "committed_again"
             row[key] = dict(
