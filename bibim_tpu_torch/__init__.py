@@ -11,7 +11,8 @@ library at first use (see ``_build.py``):
 - K1 raster + resolve        → ``ops.fused.raster_tiles``   (csrc/raster.cu)
 - K2 sampled shade           → ``ops.shading.shade_sampled`` (csrc/shade.cu)
 - K3 pair sort               → ``ops.sort.sort_keys``       (csrc/sort.cu)
-- K4 overlay composite       → ``ops.fused.overlay_tiles``  (csrc/overlay.cu)
+- K4 overlay composite       → ``ops.fused.overlay_tiles``
+  (csrc/raster.cu, K1's scan over the live tiles of a compact list)
 - K5 G-buffer shade          → ``ops.shading.shade_tonemap``
   (csrc/gbuffer_shade.cu)
 - K6 block-table sample      → ``ops.texture_quad.sample_table_block_kernel``
@@ -46,6 +47,7 @@ Layout:
   texture tables, shading, shadow map, IBL, tone mapping
 - :mod:`bibim_tpu_torch.pipeline`  — ``render_frame``, the capacity
   autotune
+- :mod:`bibim_tpu_torch.host`      — the in-frame HUD's geometry and text
 - :mod:`bibim_tpu_torch.interop`   — numpy state of the JAX package → port
 - :mod:`bibim_tpu_torch.utils`     — capacity validation, resource root
 """

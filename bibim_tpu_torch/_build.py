@@ -28,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
-SOURCES = ("raster.cu", "overlay.cu", "shade.cu", "sort.cu",
+SOURCES = ("raster.cu", "shade.cu", "sort.cu",
            "gbuffer_shade.cu", "sample.cu", "mip_sample.cu",
            "raster_earlyz.cu", "raster_fine.cu")
 HEADERS = ("common.cuh", "shading.cuh")
@@ -175,10 +175,11 @@ def _declare(lib) -> None:
         "bb_raster_fine": [p, p, p, i, p, i, p, p, p, p, p, i, i, i, i, i, i,
                            ctypes.c_uint, i, p, p, p],
         # rec, big_ids, n_big, big_len, pair_tri, pair_len, ids, starts,
-        # counts, n_live, zkey, ldr in/out, n_slots, nt, tiles_x, tile_h,
-        # tile_w, rec_stride, stream
-        "bb_overlay": [p, p, p, i, p, i, p, p, p, p, p, p, i, i, i, i, i, i,
-                       p],
+        # counts, n_live, zkey (or NULL), ldr in/out, ldr channel stride,
+        # n_slots, tiles_x, tile_h, tile_w, rec_stride, cluster size,
+        # clusters, stream
+        "bb_overlay": [p, p, p, i, p, i, p, p, p, p, p, p, ctypes.c_longlong,
+                       i, i, i, i, i, i, i, p],
         # groups, u, v, world×3, normal×3, tangent×3, valid, vis (or
         # NULL), lights, n_lights, view_pos, nm_enable, quantize, exposure
         # and tonemap enable (or NULL), quantize_hdr, tonemap, generic, n,

@@ -1,9 +1,8 @@
-// Device code shared by the raster kernels (K1 and K10 raster.cu, K9
-// raster_earlyz.cu, K11 raster_fine.cu) and the overlay composite (K4,
-// overlay.cu): the candidate coverage/depth test, the cp.async staging of
-// candidate records (K1, K9, K10, K11), the packed (key, index) maximum
-// and the cluster split of a slot's candidates (K1, K9, K10; K11 packs
-// too), the per-tile candidate scan (K4) and the winner's attribute
+// Device code shared by the raster kernels (K1, K10 and the overlay
+// composite K4 in raster.cu, K9 raster_earlyz.cu, K11 raster_fine.cu): the
+// candidate coverage/depth test, the cp.async staging of candidate records,
+// the packed (key, index) maximum and the cluster split of a slot's
+// candidates (K1, K4, K9, K10; K11 packs too) and the winner's attribute
 // resolve.
 //
 // Semantics (the reference kernel's, bibim_tpu/ops/fused.py _chunk_test):
@@ -36,6 +35,10 @@ constexpr int LOW3 = ~7;
 // The fewest candidates a cluster block of K1 / K9 scans (the last part
 // may hold fewer): a slot with at most MIN_PART is scanned by rank 0 alone.
 constexpr int MIN_PART = 64;
+// K4's: an overlay call scans a few dozen short windows, so a slot's scan
+// on one SM is its time (parts of 8 took 0.017-0.021 ms on an H100 where
+// parts of 64 took 0.033-0.040; PERF.md).
+constexpr int OVERLAY_MIN_PART = 8;
 
 __device__ __forceinline__ float plane_eval(float a, float b, float c,
                                             float px, float py) {
@@ -44,7 +47,8 @@ __device__ __forceinline__ float plane_eval(float a, float b, float c,
 
 // The same test in two steps, for K9 and K11, which skip the depth planes
 // when no lane of a warp passes a candidate's edges (K1 keeps its own
-// copy: through these two it ran 4-6 % slower on an H100, PERF.md).
+// copy, which K4 and K10 share: through these two it ran 4-6 % slower on
+// an H100, PERF.md).
 // edges_in: whether a candidate passes its three edge functions at a
 // pixel.
 __device__ __forceinline__ bool edges_in(const float* co, float px,
@@ -68,22 +72,6 @@ __device__ __forceinline__ int depth_key(const float* co, float px, float py,
 
 // The key of a candidate that misses a pixel.
 constexpr int MISS_KEY = (int)0xBF800000u & LOW3;  // bits(-1.0f) & ~7
-
-// Masked depth key of one candidate at one pixel (MISS_KEY for a miss),
-// all five planes without a branch: K4's test of every candidate at every
-// pixel (K4 took 17-24 % longer with the edges tested first).
-__device__ __forceinline__ int cover_key(const float* co, float px,
-                                         float py) {
-  const float e0 = plane_eval(co[0], co[3], co[6], px, py);
-  const float e1 = plane_eval(co[1], co[4], co[7], px, py);
-  const float e2 = plane_eval(co[2], co[5], co[8], px, py);
-  const float zn = plane_eval(co[9], co[10], co[11], px, py);
-  const float wn = plane_eval(co[12], co[13], co[14], px, py);
-  const bool ok = e0 >= 0.f && e1 >= 0.f && e2 >= 0.f && wn > 0.f &&
-                  zn >= 0.f && zn <= wn;
-  const float z = zn * __frcp_rn(wn == 0.f ? 1.f : wn);
-  return __float_as_int(ok ? z : -1.f) & LOW3;
-}
 
 // 16 (or 4) bytes from global to shared memory, asynchronously; zeros
 // when !copy (src must still be a valid address).
@@ -149,10 +137,11 @@ __device__ __forceinline__ int best_idx(unsigned long long v) {
 
 // Part [lo, hi) of a slot's `total` candidates that cluster rank `rank` of
 // `csize` scans, and the number of parts in use (the same in every block
-// of the cluster): parts of at least MIN_PART candidates.
+// of the cluster): parts of at least min_part candidates.
 __device__ __forceinline__ int cluster_part(int total, int csize, int rank,
-                                            int* lo, int* hi) {
-  const int part = max((total + csize - 1) / csize, MIN_PART);
+                                            int* lo, int* hi,
+                                            int min_part = MIN_PART) {
+  const int part = max((total + csize - 1) / csize, min_part);
   *lo = min(total, rank * part);
   *hi = min(total, *lo + part);
   return (total + part - 1) / part;
@@ -191,91 +180,6 @@ __device__ __forceinline__ int candidate_tri(const int* big_ids, int nb,
   if (c < nb) return big_ids[c];
   const int pi = start + (c - nb);
   return (pi >= 0 && pi < pair_len) ? pair_tri[pi] : -1;
-}
-
-// Copies the 15 coverage coefficients of `n` staged triangles into sco
-// (zeros for tri < 0), threads t0, t0+step, ... of the caller sharing it.
-__device__ __forceinline__ void stage_coeffs(const float* rec, int rec_stride,
-                                             const int* stri, int n,
-                                             float (*sco)[COV_CH], int t0,
-                                             int step) {
-  for (int i = t0; i < n * COV_CH; i += step) {
-    const int cand = i / COV_CH;
-    const int ch = i - cand * COV_CH;
-    const int tri = stri[cand];
-    sco[cand][ch] = tri >= 0 ? rec[(size_t)tri * rec_stride + ch] : 0.f;
-  }
-}
-
-struct TileScan {
-  const float* rec;     // (T, rec_stride) records
-  int rec_stride;
-  const int* big_ids;   // overflow triangle ids, first nb live
-  int nb;
-  const int* pair_tri;  // sorted pair list (triangle ids)
-  int pair_len;
-  int start;            // this tile's window [start, start + count)
-  int count;
-};
-
-// Scans the overflow list, then the tile's window, in order; candidate
-// coefficients are staged through shared memory STAGE at a time. bkey/best
-// hold the running key and winning triangle id of this thread's pixels.
-__device__ inline void scan_tile(const TileScan& a, const float* px,
-                                 const float* py, int* bkey, int* best,
-                                 int npt, float (*sco)[COV_CH], int* stri) {
-  const int total = a.nb + a.count;
-  for (int base = 0; base < total; base += STAGE) {
-    const int n = min(STAGE, total - base);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      stri[i] = candidate_tri(a.big_ids, a.nb, a.pair_tri, a.pair_len,
-                              a.start, base + i);
-    }
-    __syncthreads();
-    stage_coeffs(a.rec, a.rec_stride, stri, n, sco, threadIdx.x, blockDim.x);
-    __syncthreads();
-    for (int i = 0; i < n; ++i) {
-      const float* co = sco[i];
-      const int tri = stri[i];
-#pragma unroll
-      for (int k = 0; k < MAX_PPT; ++k) {
-        if (k < npt) {
-          const int key = cover_key(co, px[k], py[k]);
-          if (key >= bkey[k]) {
-            bkey[k] = key;
-            best[k] = tri;
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Pixel centres and initial keys of this thread's pixels in tile `tid`.
-// Returns the number of pixels the thread owns.
-__device__ inline int tile_pixels(int tid, int tiles_x, int tile_h,
-                                  int tile_w, const int* init_key, float* px,
-                                  float* py, int* bkey, int* best) {
-  const int npx = tile_h * tile_w;
-  const int row = tid / tiles_x;
-  const int col = tid - row * tiles_x;
-  int npt = 0;
-#pragma unroll
-  for (int k = 0; k < MAX_PPT; ++k) {
-    const int p = threadIdx.x + k * blockDim.x;
-    best[k] = -1;
-    if (p < npx) {
-      npt = k + 1;
-      px[k] = (float)(p % tile_w + col * tile_w) + 0.5f;
-      py[k] = (float)(p / tile_w + row * tile_h) + 0.5f;
-      bkey[k] = init_key[p] & LOW3;
-    } else {
-      px[k] = py[k] = 0.f;
-      bkey[k] = 0;
-    }
-  }
-  return npt;
 }
 
 // Barycentric weights e_k / (e0 + e1 + e2) of a winning record.

@@ -1,9 +1,12 @@
-// K1 — raster + resolve + perspective-correct interpolation, and K10, the
-// same scan over group windows.
+// K1 — raster + resolve + perspective-correct interpolation; K10, the same
+// scan over group windows; K4, the same scan over a compact list of live
+// tiles, compositing flat colour into the LDR planes.
 //
 // Replaces bibim_tpu/ops/fused.py:_fused_kernel (launched by
-// raster_fused_pallas; tie rule in _chunk_test) and, as raster_gw_kernel,
-// _fused_kernel_gw (single-pass frames with group_pair_cap). Slot s
+// raster_fused_pallas; tie rule in _chunk_test), as raster_gw_kernel
+// _fused_kernel_gw (single-pass frames with group_pair_cap) and, as
+// overlay_kernel, _overlay_kernel (launched by composite_overlay_pallas:
+// the light spheres and the HUD). Slot s
 // rasterizes one 8x128 screen tile from its candidate sequence: the
 // overflow list, then its sorted window. Per pixel the winner is the last
 // candidate whose packed depth key is >= the running key, starting from the
@@ -14,7 +17,11 @@
 // the up to 7 prefix rows before its own belong to the previous tile and
 // cannot cover this one, or duplicate a later row whose position wins the
 // tie). Both read no row twice: the sorted list is contiguous in slot
-// order, so a group's windows are consecutive runs of one window.
+// order, so a group's windows are consecutive runs of one window. K4's
+// slot s continues the scene's keys of its tile, zkey[ids[s]] (or a
+// cleared key, 0), and where an overlay triangle (_ID >= 0.5) wins a
+// pixel, its interpolated vertex colour replaces that pixel of the LDR
+// planes in place; no other pixel is read or written.
 //
 // What bounds it on an H100: operations, about 25 per candidate and pixel
 // (five plane evaluations, the IEEE reciprocal, the key). One block of 256
@@ -36,6 +43,13 @@
 //     _ID) are staged 128 candidates a round with 16-byte cp.async copies,
 //     double-buffered: round r+1's copies and round r+2's triangle ids are
 //     in flight while round r is tested.
+//   - K4 (an overlay touches 8-28 tiles of a list sized for the worst
+//     frame, n_live of them live, a count the host never reads) runs on a
+//     fixed grid of clusters: cluster g scans live slots g, g + G, ...,
+//     so no block is launched per dead slot and the grid does not depend
+//     on the list's size. Its windows are short (22-100 candidates on
+//     average), so its parts hold at least OVERLAY_MIN_PART (8)
+//     candidates: one SM's scan of a whole window was most of its time.
 // The scan keeps the reference's arithmetic bit for bit (common.cuh):
 // z = zn * __frcp_rn(wn), key bits(z) & ~7 accepted with >=, -fmad=false.
 // Each pixel then reads its winner's record (60 floats, L2-resident) by
@@ -62,32 +76,42 @@ struct RasterArgs {
   const int* counts;
   const int* win;  // K10: the group windows' first rows, else unused
   int group;       // K10: slots per group window
-  const int* init_zkey;
+  const int* init_zkey;  // K1, K10: by slot; K4: by tile, or null (0)
   int n_slots, tiles_x, tile_h, tile_w;
   unsigned mask;
   int* zkey;
   float* fields;
+  const int* n_live;   // K4: slots [0, n_live) are live
+  float* ldr;          // K4: three LDR planes of (·, npx), in place
+  long long ldr_cstride;  // K4: floats from one LDR plane to the next
 };
 
-// PPT: pixels per thread (tiles of up to PPT·THREADS pixels); GW: K10's
-// group-window addressing.
-template <int PPT, bool GW>
-__device__ __forceinline__ void raster_scan(const RasterArgs& a, int csize) {
+// The scan's three callers: K1, K10 (GW: group-window addressing) and K4.
+enum Mode { RASTER, GW, OVERLAY };
+
+// Scans slot s as rank `rank` of a cluster of csize blocks. PPT: pixels
+// per thread (tiles of up to PPT·THREADS pixels).
+template <int PPT, Mode MODE>
+__device__ __forceinline__ void raster_scan(const RasterArgs& a, int csize,
+                                            int s, int rank) {
   __shared__ __align__(16) float sco[2][STAGE][STAGE_CH];
-  const int s = blockIdx.x / csize;
-  const int rank = blockIdx.x - s * csize;
   const int nb = min(*a.n_big, a.big_len);
-  const int start = GW ? a.win[s / a.group] + a.starts[s] : a.starts[s];
+  const int start =
+      MODE == GW ? a.win[s / a.group] + a.starts[s] : a.starts[s];
   const int total = nb + a.counts[s];
   int lo, hi;
   // With one part in use, rank 0 scans the whole sequence and no block
   // meets another: the others leave.
-  const int parts = cluster_part(total, csize, rank, &lo, &hi);
+  const int parts = cluster_part(total, csize, rank, &lo, &hi,
+                                 MODE == OVERLAY ? OVERLAY_MIN_PART
+                                                 : MIN_PART);
   if (parts <= 1 && rank != 0) return;
   const int npx = a.tile_h * a.tile_w;
   const int tid = a.ids[s];
   const int row = tid / a.tiles_x, col = tid - row * a.tiles_x;
-  const int* init = a.init_zkey + (size_t)s * npx;
+  const int* init =
+      MODE != OVERLAY ? a.init_zkey + (size_t)s * npx
+      : a.init_zkey != nullptr ? a.init_zkey + (size_t)tid * npx : nullptr;
   float px[PPT], py[PPT];
   int bkey[PPT], bidx[PPT];
   int npt = 0;
@@ -101,7 +125,7 @@ __device__ __forceinline__ void raster_scan(const RasterArgs& a, int csize) {
       npt = k + 1;
       px[k] = (float)(p % a.tile_w + col * a.tile_w) + 0.5f;
       py[k] = (float)(p / a.tile_w + row * a.tile_h) + 0.5f;
-      bkey[k] = init[p] & LOW3;
+      if (MODE != OVERLAY || init != nullptr) bkey[k] = init[p] & LOW3;
     }
   }
 
@@ -210,15 +234,34 @@ __device__ __forceinline__ void raster_scan(const RasterArgs& a, int csize) {
     cl.sync();  // the other blocks' shared memory stays until rank 0 read it
     if (rank != 0) return;
   }
+  if constexpr (MODE == OVERLAY) {
 #pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    if (k < npt) {
-      const int tri = bidx[k] < 0 ? -1
-                                  : candidate_tri(a.big_ids, nb, a.pair_tri,
-                                                  a.pair_len, start, bidx[k]);
-      write_pixel(a.rec, a.rec_stride, tri, bkey[k], px[k], py[k], a.mask, s,
-                  a.n_slots, npx, threadIdx.x + k * THREADS, a.zkey,
-                  a.fields);
+    for (int k = 0; k < PPT; ++k) {
+      if (k >= npt || bidx[k] < 0) continue;
+      const int tri = candidate_tri(a.big_ids, nb, a.pair_tri, a.pair_len,
+                                    start, bidx[k]);
+      if (tri < 0) continue;
+      const float* r = a.rec + (size_t)tri * a.rec_stride;
+      if (!(r[CH_ID] >= 0.5f)) continue;
+      float e[3], inv;
+      bary(r, px[k], py[k], e, &inv);
+      const float b0 = e[0] * inv, b1 = e[1] * inv, b2 = e[2] * inv;
+      float* o = a.ldr + (size_t)tid * npx + threadIdx.x + k * THREADS;
+      for (int c = 0; c < 3; ++c)
+        o[c * a.ldr_cstride] = blend3(r, CH_COL + 3 * c, b0, b1, b2);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      if (k < npt) {
+        const int tri =
+            bidx[k] < 0 ? -1
+                        : candidate_tri(a.big_ids, nb, a.pair_tri,
+                                        a.pair_len, start, bidx[k]);
+        write_pixel(a.rec, a.rec_stride, tri, bkey[k], px[k], py[k], a.mask,
+                    s, a.n_slots, npx, threadIdx.x + k * THREADS, a.zkey,
+                    a.fields);
+      }
     }
   }
 }
@@ -226,35 +269,55 @@ __device__ __forceinline__ void raster_scan(const RasterArgs& a, int csize) {
 template <int PPT>
 __global__ void __launch_bounds__(THREADS)
 raster_kernel(const RasterArgs a, int csize) {
-  raster_scan<PPT, false>(a, csize);
+  raster_scan<PPT, RASTER>(a, csize, blockIdx.x / csize, blockIdx.x % csize);
 }
 
 template <int PPT>
 __global__ void __launch_bounds__(THREADS)
 raster_gw_kernel(const RasterArgs a, int csize) {
-  raster_scan<PPT, true>(a, csize);
+  raster_scan<PPT, GW>(a, csize, blockIdx.x / csize, blockIdx.x % csize);
 }
 
-template <bool GW>
-int launch_raster(const RasterArgs& a, int csize, cudaStream_t st) {
+// K4: gridDim.x / csize clusters deal the live slots round robin; n_live
+// is the same for every block, so a cluster's blocks take the same slots.
+template <int PPT>
+__global__ void __launch_bounds__(THREADS)
+overlay_kernel(const RasterArgs a, int csize) {
+  const int n_live = min(*a.n_live, a.n_slots);
+  const int clusters = gridDim.x / csize;
+  for (int s = blockIdx.x / csize; s < n_live; s += clusters)
+    raster_scan<PPT, OVERLAY>(a, csize, s, blockIdx.x % csize);
+}
+
+// grid: the launch's blocks (K1, K10: n_slots · csize; K4: its clusters ·
+// csize).
+template <Mode MODE>
+int launch_raster(const RasterArgs& a, int csize, int grid, cudaStream_t st) {
   const int npx = a.tile_h * a.tile_w;
   if (npx <= 0 || npx > THREADS * MAX_PPT || a.rec_stride % 4 != 0 ||
       a.rec_stride < STAGE_CH ||
       (csize != 1 && csize != 2 && csize != 4 && csize != 8) ||
-      (GW && (a.group < 1 || a.n_slots % a.group != 0)))
+      grid % csize != 0 ||
+      (MODE == GW && (a.group < 1 || a.n_slots % a.group != 0)))
     return (int)cudaErrorInvalidValue;
-  if (a.n_slots <= 0) return (int)cudaGetLastError();
-  const int grid = a.n_slots * csize;
+  if (a.n_slots <= 0 || grid <= 0) return (int)cudaGetLastError();
   auto go = [&](auto kernel) {
     return launch_clustered(kernel, grid, THREADS, csize, st, a, csize);
   };
-  if (npx <= THREADS)
-    return go(GW ? raster_gw_kernel<1> : raster_kernel<1>);
-  if (npx <= 2 * THREADS)
-    return go(GW ? raster_gw_kernel<2> : raster_kernel<2>);
-  if (npx <= 4 * THREADS)
-    return go(GW ? raster_gw_kernel<4> : raster_kernel<4>);
-  return go(GW ? raster_gw_kernel<8> : raster_kernel<8>);
+  auto pick = [&](auto k1, auto k2, auto k4, auto k8) {
+    if (npx <= THREADS) return go(k1);
+    if (npx <= 2 * THREADS) return go(k2);
+    if (npx <= 4 * THREADS) return go(k4);
+    return go(k8);
+  };
+  if (MODE == OVERLAY)
+    return pick(overlay_kernel<1>, overlay_kernel<2>, overlay_kernel<4>,
+                overlay_kernel<8>);
+  if (MODE == GW)
+    return pick(raster_gw_kernel<1>, raster_gw_kernel<2>,
+                raster_gw_kernel<4>, raster_gw_kernel<8>);
+  return pick(raster_kernel<1>, raster_kernel<2>, raster_kernel<4>,
+              raster_kernel<8>);
 }
 
 }  // namespace bb
@@ -270,7 +333,8 @@ extern "C" int bb_raster(const float* rec, const int* big_ids,
                          pair_tri, pair_len,  ids,      starts,  counts,
                          nullptr, 1,          init_zkey, n_slots, tiles_x,
                          tile_h,  tile_w,     mask,     zkey,    fields};
-  return bb::launch_raster<false>(a, csize, (cudaStream_t)stream);
+  return bb::launch_raster<bb::RASTER>(a, csize, n_slots * csize,
+                                       (cudaStream_t)stream);
 }
 
 extern "C" int bb_raster_gw(const float* rec, const int* big_ids,
@@ -286,5 +350,27 @@ extern "C" int bb_raster_gw(const float* rec, const int* big_ids,
                          pair_tri, pair_len,  ids,      lb_al,   cnt_k,
                          win,     group,      init_zkey, n_slots, tiles_x,
                          tile_h,  tile_w,     mask,     zkey,    fields};
-  return bb::launch_raster<true>(a, csize, (cudaStream_t)stream);
+  return bb::launch_raster<bb::GW>(a, csize, n_slots * csize,
+                                   (cudaStream_t)stream);
+}
+
+// K4: slots [0, *n_live) of the n_slots-long compact list, on `clusters`
+// clusters of csize blocks; zkey (the scene's keys by tile) may be null.
+extern "C" int bb_overlay(const float* rec, const int* big_ids,
+                          const int* n_big, int big_len, const int* pair_tri,
+                          int pair_len, const int* ids, const int* starts,
+                          const int* counts, const int* n_live,
+                          const int* zkey, float* ldr, long long ldr_cstride,
+                          int n_slots, int tiles_x, int tile_h, int tile_w,
+                          int rec_stride, int csize, int clusters,
+                          void* stream) {
+  bb::RasterArgs a{rec,     rec_stride, big_ids, n_big,   big_len, pair_tri,
+                   pair_len, ids,       starts,  counts,  nullptr, 1,
+                   zkey,    n_slots,    tiles_x, tile_h,  tile_w,  0u,
+                   nullptr, nullptr};
+  a.n_live = n_live;
+  a.ldr = ldr;
+  a.ldr_cstride = ldr_cstride;
+  return bb::launch_raster<bb::OVERLAY>(a, csize, clusters * csize,
+                                        (cudaStream_t)stream);
 }

@@ -903,12 +903,16 @@ raster_tiles_fine.launches = 0
 
 def overlay_tiles_plain(rec, big_ids, n_big, pair_tri, ids, starts, counts,
                         n_live, zkey, ldr, tiles_x: int, tile_h: int,
-                        tile_w: int):
+                        tile_w: int, max_count: int | None = None):
     """Plain version of K4. Slots s < n_live rasterize tile ``ids[s]``
-    (overflow list, then the window) against ``zkey[ids[s]]``; where an
-    overlay triangle wins, its interpolated flat colour replaces the LDR
-    pixel. ``ldr`` is (3, NT, NPX); returns a new (3, NT, NPX) tensor."""
-    nt = ldr.shape[1]
+    (overflow list, then the window) against ``zkey[ids[s]]`` (``zkey``
+    None: a cleared key, 0, at every pixel); where an overlay triangle
+    wins, its interpolated flat colour replaces the LDR pixel. ``ldr`` is
+    (3, NT, NPX); returns a new (3, NT, NPX) tensor. ``max_count`` only
+    sizes the kernel's launch (:func:`overlay_cluster`)."""
+    nt, npx = ldr.shape[1], tile_h * tile_w
+    if zkey is None:
+        zkey = torch.zeros((nt, npx), dtype=torch.int32, device=ldr.device)
     k = ids.shape[0]
     ids_l = ids.long()
     px, py = _pixel_centres(ids, tiles_x, tile_h, tile_w)
@@ -931,39 +935,89 @@ def overlay_tiles_plain(rec, big_ids, n_big, pair_tri, ids, starts, counts,
     return res[:, :nt].contiguous()
 
 
+# K4 runs K1's cluster split on a fixed grid (csrc/raster.cu
+# overlay_kernel): OVERLAY_BLOCKS blocks — one wave of 4 blocks on each of
+# an H100's 132 SMs — in clusters that deal the live slots among them, so
+# neither the grid nor the host depends on how many slots are live. Its
+# parts hold at least OVERLAY_MIN_PART candidates (the kernel's constant).
+OVERLAY_BLOCKS = 4 * 132
+OVERLAY_MIN_PART = 8
+
+
+def overlay_cluster(max_count: int | None) -> int:
+    """K4's cluster size for slots that scan at most ``max_count``
+    candidates (the overflow list and a window, static capacities): the
+    largest size that keeps every part at least OVERLAY_MIN_PART
+    candidates long; 1 without a ``max_count``."""
+    if max_count is None:
+        return 1
+    return max(c for c in CLUSTER_SIZES
+               if c == 1 or max_count >= c * OVERLAY_MIN_PART)
+
+
 def overlay_tiles(rec, big_ids, n_big, pair_tri, ids, starts, counts,
-                  n_live, zkey, ldr, tiles_x: int, tile_h: int, tile_w: int):
-    """K4 wrapper (csrc/overlay.cu); same contract as
-    :func:`overlay_tiles_plain`, which it runs only for CPU tensors. Dead
-    slots (s >= n_live) are skipped by the kernel."""
+                  n_live, zkey, ldr, tiles_x: int, tile_h: int, tile_w: int,
+                  max_count: int | None = None, cluster: int | None = None,
+                  clusters: int | None = None):
+    """K4 wrapper (csrc/raster.cu ``overlay_kernel``): composites into
+    ``ldr`` in place and returns it, with the result of
+    :func:`overlay_tiles_plain` (which it runs for CPU tensors, copying
+    the result into ``ldr``). ``ldr`` (3, NT, NPX) float32 may be a view
+    whose planes are contiguous and apart (a channel stride of at least
+    NT·NPX, such as the first NT tiles of a (3, NT + 1, NPX) buffer); only
+    the pixels an overlay triangle wins are written. ``zkey`` (NT, NPX)
+    int32, or None for a cleared key. ``n_live`` stays on the device: the
+    kernel's clusters deal slots [0, n_live) among themselves. Launch
+    knobs (any value gives the same result): ``cluster`` overrides
+    :func:`overlay_cluster`, ``clusters`` the grid's cluster count
+    (default: OVERLAY_BLOCKS / cluster, at most one per slot)."""
     k = _check_common(rec, big_ids, n_big, pair_tri, ids, starts, counts)
     dev = rec.device
     npx = tile_h * tile_w
-    nt = zkey.shape[0]
+    nt = ldr.shape[1] if ldr.ndim == 3 else -1
     _check("n_live", n_live, torch.int32, dev, (1,))
-    _check("zkey", zkey, torch.int32, dev, (nt, npx))
-    _check("ldr", ldr, torch.float32, dev, (3, nt, npx))
+    if zkey is not None:
+        _check("zkey", zkey, torch.int32, dev, (nt, npx))
+    if (ldr.dtype != torch.float32 or ldr.device != dev
+            or tuple(ldr.shape) != (3, nt, npx) or ldr.stride(2) != 1
+            or ldr.stride(1) != npx or ldr.stride(0) < nt * npx):
+        raise ValueError(f"ldr: expected (3, NT, {npx}) float32 planes on "
+                         f"{dev} with contiguous, disjoint planes; got "
+                         f"{tuple(ldr.shape)} {ldr.dtype} strides "
+                         f"{ldr.stride()}")
     if dev.type == "cpu":
-        return overlay_tiles_plain(rec, big_ids, n_big, pair_tri, ids, starts,
-                                   counts, n_live, zkey, ldr, tiles_x,
-                                   tile_h, tile_w)
+        ldr.copy_(overlay_tiles_plain(rec, big_ids, n_big, pair_tri, ids,
+                                      starts, counts, n_live, zkey, ldr,
+                                      tiles_x, tile_h, tile_w))
+        return ldr
     if dev.type != "cuda":
         raise RuntimeError(f"overlay_tiles: unsupported device {dev}")
     if npx > _build.MAX_TILE_PIXELS:
         raise ValueError(f"overlay_tiles: tiles of {npx} px exceed "
                          f"{_build.MAX_TILE_PIXELS}")
-    out = ldr.clone()
+    if cluster is None:
+        cluster = overlay_cluster(max_count)
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"overlay_tiles: cluster {cluster} not in "
+                         f"{CLUSTER_SIZES}")
+    if clusters is None:
+        clusters = max(1, min(k, OVERLAY_BLOCKS // cluster))
+    if clusters < 1:
+        raise ValueError(f"overlay_tiles: clusters {clusters} < 1")
+    if rec.data_ptr() % 16:
+        raise ValueError("overlay_tiles: rec must be 16-byte aligned")
     if k == 0:
-        return out
+        return ldr
     p = _build.ptr
     err = _build.library().bb_overlay(
         p(rec), p(big_ids), p(n_big), big_ids.shape[0], p(pair_tri),
-        pair_tri.shape[0], p(ids), p(starts), p(counts), p(n_live), p(zkey),
-        p(out), k, nt, tiles_x, tile_h, tile_w, REC_CH,
+        pair_tri.shape[0], p(ids), p(starts), p(counts), p(n_live),
+        None if zkey is None else p(zkey), p(ldr), ldr.stride(0), k,
+        tiles_x, tile_h, tile_w, REC_CH, cluster, clusters,
         _build.stream_ptr(dev))
     _build.check(err, "overlay")
     overlay_tiles.launches += 1
-    return out
+    return ldr
 
 
 overlay_tiles.launches = 0
@@ -1280,17 +1334,21 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
 
 
 def composite_overlay(rec_table: torch.Tensor, setup: PlanarSetup,
-                      ldr3: tuple, zkey: torch.Tensor, width: int,
-                      height: int, tile_h: int = 8, tile_w: int = 128,
-                      max_candidates: int = 128, overflow_cap: int = 64,
-                      span_cap: int = 64, max_tiles: int = 512,
-                      pair_budget: int = 65536,
+                      ldr: torch.Tensor, zkey: torch.Tensor | None,
+                      width: int, height: int, tile_h: int = 8,
+                      tile_w: int = 128, max_candidates: int = 128,
+                      overflow_cap: int = 64, span_cap: int = 64,
+                      max_tiles: int = 512, pair_budget: int = 65536,
                       span_mid_cap: int | None = None,
                       overlay=overlay_tiles, sort=sort_keys):
-    """Composite depth-tested flat-colour geometry into LDR planes over a
-    compact list of the tiles it may touch (the host side of K4).
+    """Composite depth-tested flat-colour geometry into the LDR planes
+    ``ldr`` ((3, NT, NPX), :func:`overlay_tiles`' layout) over a compact
+    list of the tiles it may touch (the host side of K4), continuing the
+    scene's keys ``zkey`` (None: a cleared key).
 
-    Returns (ldr3', diag); tiles beyond ``max_tiles`` land in
+    Returns (ldr', diag): ``overlay``'s result — the kernel wrapper writes
+    ``ldr`` in place and returns it, the plain version a new tensor — and
+    the binning's BinDiag; tiles beyond ``max_tiles`` land in
     diag.dropped_tiles."""
     maxc = _ceil8(max_candidates)
     oc = _ceil8(overflow_cap)
@@ -1310,12 +1368,11 @@ def composite_overlay(rec_table: torch.Tensor, setup: PlanarSetup,
     slot_live = torch.arange(k_top, device=dev) < n_live
     counts_c = torch.where(slot_live, counts[ids.long()],
                            torch.zeros_like(ids))
-    ldr = torch.stack(ldr3).contiguous()
     out = overlay(rec_table, big_ids, n_big, sorted_tri, ids,
                   starts[ids.long()].contiguous(), counts_c.contiguous(),
-                  n_live.contiguous(), zkey.contiguous(), ldr, tiles_x,
-                  tile_h, tile_w)
-    return (out[0], out[1], out[2]), diag
+                  n_live.contiguous(), zkey, ldr, tiles_x, tile_h, tile_w,
+                  max_count=oc + maxc)
+    return out, diag
 
 
 def untile(plane: torch.Tensor, width: int, height: int, tiles_x: int,

@@ -22,13 +22,14 @@ Stages of :func:`render_frame`:
      the raw planes as HDR;
    then the fp16 HDR round trip and the exposure tone map as torch ops;
 6. scatter-back, light spheres through the overlay composite (K4, depth
-   tested against the scene's keys), the corner gizmo (K1 in its own
-   viewport), sRGB encode and u8.
+   tested against the scene's keys), the in-frame HUD text (K4 against a
+   cleared key, ``hud=``), the corner gizmo (K1 in its own viewport),
+   sRGB encode and u8.
 
 The main pass takes the reference's raster schedule variants: early-z
 (K9, every pass), the group window (K10) and fine subtiles (K11);
 ``merged_coverage`` is accepted and has no counterpart. Settings outside the port (forward lighting,
-pair sampling and pair visibility, anisotropic taps, HUD, TBN, flat
+pair sampling and pair visibility, anisotropic taps, TBN, flat
 main-frame shading) raise NotImplementedError.
 """
 
@@ -221,7 +222,6 @@ def check_supported(settings: RenderSettings, materials) -> None:
         (not s.deferred, "deferred=False (forward lighting)"),
         (s.shading != "pbr", f"shading={s.shading!r}"),
         (s.show_tbn, "show_tbn"),
-        (s.show_hud, "show_hud"),
         (s.aniso_taps != 1, f"aniso_taps={s.aniso_taps}"),
         (bool(s.pair_sampling), f"pair_sampling={s.pair_sampling}"),
         (s.pair_lossy, "pair_lossy"),
@@ -505,14 +505,17 @@ def _light_sphere_planar_soup(lights: Lights, overlay: OverlayResources,
     )
 
 
-def _composite_light_spheres(ldr3, zkey, lights: Lights,
+def _composite_light_spheres(ldr, zkey, lights: Lights,
                              overlay: OverlayResources, view_proj,
                              settings: RenderSettings, kernels: Kernels):
+    """The light spheres into the (3, NT, NPX) LDR planes ``ldr`` (in
+    place on the card), depth-tested against the scene's keys ``zkey``.
+    Returns (ldr', diag)."""
     soup = _light_sphere_planar_soup(lights, overlay, view_proj)
     setup = triangle_setup_planar(soup.clip, settings.width, settings.height)
     rec = fused.build_record_table_planar(setup, soup)
     return fused.composite_overlay(
-        rec, setup, ldr3, zkey, settings.width, settings.height,
+        rec, setup, ldr, zkey, settings.width, settings.height,
         tile_h=settings.tile_h, tile_w=settings.tile_w,
         max_candidates=settings.overlay_candidates,
         overflow_cap=settings.overlay_overflow_cap, span_cap=32,
@@ -521,6 +524,55 @@ def _composite_light_spheres(ldr3, zkey, lights: Lights,
         span_mid_cap=max(256, rec.shape[0] // 4),
         overlay=kernels.overlay, sort=kernels.sort,
     )
+
+
+def _hud_geometry(hud, device):
+    """HUD cell quads as an indexed mesh (JAX framegraph._composite_hud):
+    corners tl/tr/br/bl of each cell, a mask of 0 collapsing the quad to
+    its centre (zero area, culled by triangle setup), z = w = 1; the
+    triangles [0, 1, 3] of every cell, then [1, 2, 3]. Returns (clip
+    (4·cells, 4), tris (2·cells, 3) int32)."""
+    geom, mask = hud
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32).to(device)
+
+    cx, cy, m = t(geom.cx), t(geom.cy), t(mask)
+    n = cx.shape[0]
+    offx = t([-1.0, 1.0, 1.0, -1.0]) * geom.dx
+    offy = t([-1.0, -1.0, 1.0, 1.0]) * geom.dy
+    x = (cx[:, None] + offx[None, :] * m[:, None]).reshape(-1)
+    y = (cy[:, None] + offy[None, :] * m[:, None]).reshape(-1)
+    ones = torch.ones_like(x)
+    clip = torch.stack([x, y, ones, ones], dim=-1)
+    base = (torch.arange(n, dtype=torch.int32, device=device) * 4)[:, None]
+    corners = torch.tensor([[0, 1, 3], [1, 2, 3]], dtype=torch.int32,
+                           device=device)
+    tris = torch.cat([base + corners[0], base + corners[1]], dim=0)
+    return clip, tris
+
+
+def _composite_hud(ldr, hud, settings: RenderSettings, kernels: Kernels):
+    """Burn the HUD text cells (``hud`` = (HudGeometry, mask), host.hud)
+    into the (3, NT, NPX) LDR planes ``ldr`` (in place on the card): white
+    cell quads drawn depth-free (reversed-Z 1.0 against a cleared key:
+    no key plane is built) through the overlay composite (K4), with the
+    JAX package's capacities (cells span at most 4 tiles; one 8×128 tile
+    holds up to ~440 triangles of a 2×-scale line). Returns (ldr',
+    diag)."""
+    dev = ldr.device
+    clip, tris = _hud_geometry(hud, dev)
+    w, h = settings.width, settings.height
+    setup = triangle_setup(clip, tris, w, h)
+    zeros = torch.zeros((clip.shape[0], 3), dtype=torch.float32, device=dev)
+    rec = fused.build_record_table(setup, tris, zeros[:, :2], zeros, zeros,
+                                   zeros, torch.ones_like(zeros))
+    nt = settings.tiles_x * settings.tiles_y
+    return fused.composite_overlay(
+        rec, setup, ldr, None, w, h, tile_h=settings.tile_h,
+        tile_w=settings.tile_w, max_candidates=512, overflow_cap=64,
+        span_cap=4, max_tiles=min(64, nt), overlay=kernels.overlay,
+        sort=kernels.sort)
 
 
 def _gizmo_clip(view, proj, overlay: OverlayResources):
@@ -588,6 +640,25 @@ def _composite_gizmo(ldr3_img, view, proj, overlay: OverlayResources,
     return tuple(out), gz_diag
 
 
+def _ldr_planes(ldr3, compact_ids, nt_full: int) -> torch.Tensor:
+    """The shaded LDR planes as one (3, NT, NPX) tensor that the overlay
+    composites write in place, and nothing else reads: the shading
+    kernel's own output where the three planes are its views, else their
+    stack; with live-tile compaction (``compact_ids``, dead slots at
+    ``nt_full``), scattered into the first NT tiles of a zeroed
+    (3, NT + 1, NPX) buffer."""
+    base = ldr3[0]._base
+    own = (base is not None and base.dim() == 3 and base.shape[0] == 3
+           and all(c._base is base and c.data_ptr() == base[i].data_ptr()
+                   for i, c in enumerate(ldr3)))
+    planes = base if own else torch.stack(ldr3)
+    if compact_ids is None:
+        return planes
+    full = planes.new_zeros((3, nt_full + 1, planes.shape[2]))
+    full[:, compact_ids] = planes
+    return full[:, :nt_full]
+
+
 def _assemble_and_raster(scene: SceneData, view_block: ViewBlock,
                          settings: RenderSettings, kernels: Kernels):
     """The main pass: corner-planar vertex stage, setup, records, raster.
@@ -604,7 +675,7 @@ def _assemble_and_raster(scene: SceneData, view_block: ViewBlock,
 def render_frame(scene: SceneData, view_block: ViewBlock,
                  frame_params: FrameParams, materials,
                  overlay: OverlayResources | None, settings: RenderSettings,
-                 ibl=None, kernels: Kernels = KERNELS):
+                 ibl=None, kernels: Kernels = KERNELS, hud=None):
     """Render one deferred PBR frame.
 
     ``settings.outputs``: "image" → {'image': (H,W,3) u8}; "image+diag"
@@ -614,7 +685,9 @@ def render_frame(scene: SceneData, view_block: ViewBlock,
     ``IblMaps``) is the light probe ``settings.enable_ibl`` shades with.
     ``kernels`` selects the kernel entry points (default: the wrappers;
     :data:`PLAIN` renders a reference frame with the plain versions on any
-    device)."""
+    device). ``hud`` = (``host.hud.HudGeometry``, its text mask) is the
+    text ``settings.show_hud`` burns in; without it the frame has no
+    HUD."""
     check_supported(settings, materials)
     if settings.show_gizmo and overlay is not None \
             and overlay.gizmo_tris is None:
@@ -721,24 +794,23 @@ def render_frame(scene: SceneData, view_block: ViewBlock,
                         frame_params.enable_tone_mapping,
                         frame_params.exposure)
 
-    if compact_ids is not None:
-        npx = ldr3[0].shape[1]
-
-        def scatter(c):
-            full = torch.zeros((nt_full + 1, npx), dtype=c.dtype, device=dev)
-            full[compact_ids] = c
-            return full[:nt_full]
-
-        ldr3 = tuple(scatter(c) for c in ldr3)
-
+    spheres = (settings.show_lights and overlay is not None
+               and scene.lights.num_lights > 0)
+    show_hud = settings.show_hud and hud is not None
+    ldr = ldr3
+    if compact_ids is not None or spheres or show_hud:
+        ldr = _ldr_planes(ldr3, compact_ids, nt_full)
+    del ldr3  # a compacted shade output is not needed past the scatter
     view_proj = m3.matmul(view_block.proj, view_block.view)
-    if settings.show_lights and overlay is not None \
-            and scene.lights.num_lights > 0:
-        ldr3, sp_diag = _composite_light_spheres(
-            ldr3, zkey, scene.lights, overlay, view_proj, settings, kernels)
+    if spheres:
+        ldr, sp_diag = _composite_light_spheres(
+            ldr, zkey, scene.lights, overlay, view_proj, settings, kernels)
         diags.append(sp_diag)
+    if show_hud:
+        ldr, hud_diag = _composite_hud(ldr, hud, settings, kernels)
+        diags.append(hud_diag)
 
-    ldr3_img = tuple(_untile(c, settings) for c in ldr3)
+    ldr3_img = tuple(_untile(c, settings) for c in ldr)
     if settings.show_gizmo and overlay is not None:
         ldr3_img, gz_diag = _composite_gizmo(
             ldr3_img, view_block.view, view_block.proj, overlay, settings,

@@ -6,7 +6,7 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 1. builds the eleven CUDA kernels from ``bibim_tpu_torch/csrc`` (into
    ``build/``, one nvcc per source in parallel) and prints the build time
    and, per kernel instantiation, ptxas's registers, stack frame and spill
-   bytes (every K2, K5, K8, K9, K10 and K11 instantiation must have a
+   bytes (every K2, K4, K5, K8, K9, K10 and K11 instantiation must have a
    0-byte stack frame and no spills);
 2. builds the frames from repository-only inputs: the ShaderBall scene's
    structure (100× ground plane at y=-10, the three ShaderBall lights, the
@@ -26,13 +26,23 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    checks K10 (group window) on that frame, at every cluster size, and
    prints its launch (slots, group, the group windows' lengths, prefix
    and dropped rows, kernel ms at every cluster size, the bound, K1's
-   kernel ms on the same windows); renders 4 frames at 4 camera
-   yaws through ``render_frame`` with launch counters reset just before,
-   then the group-window frame with the counters reset again (it must
-   equal the default frame of its yaw);
+   kernel ms on the same windows); prints, for the light-sphere call
+   with the most live slots and for the HUD frame's call, K4's launch
+   (slots, live slots, overflow rows, window lengths, the cluster size
+   and cluster count its wrapper picks, kernel ms at every cluster size
+   and on a grid of one cluster a slot, the bound, K1's kernel ms on the
+   same tiles, windows and initial keys, and the whole
+   ``composite_overlay`` call's device ms and launches); renders 4
+   frames at 4 camera yaws through ``render_frame`` with launch counters
+   reset just before, then the group-window frame with the counters
+   reset again (it must equal the default frame of its yaw), then the
+   HUD frame (the first yaw with the app's stats line burned in,
+   ``show_hud``) with the counters reset again: it must be bit-equal to
+   the HUD-off frame outside the text rows, its glyph pixels white;
 4. the 3840×2160 shadows + IBL path (BASELINE config 5: shadow map of the
    ball at 1024², analytic IBL from the procedural sky): checks K1 (the
-   4K main pass and the 1024² shadow pass), K3 (every sort), K4, K5
+   4K main pass and the 1024² shadow pass), K3 (every sort), K4 (with
+   its launch line), K5
    G-buffer shade, K6 block-table and K7 small-table samplers against
    their plain versions on that path's inputs and times both; renders 3
    frames with the counters reset just before, the shadow pass's K1
@@ -167,7 +177,7 @@ KERNEL_INFO = {
               "bibim_tpu/ops/shading_pallas.py:294"),
     "sort": ("K3 pair sort", "bibim_tpu_torch/csrc/sort.cu",
              "bibim_tpu/ops/sort_pallas.py:43"),
-    "overlay": ("K4 overlay composite", "bibim_tpu_torch/csrc/overlay.cu",
+    "overlay": ("K4 overlay composite", "bibim_tpu_torch/csrc/raster.cu",
                 "bibim_tpu/ops/fused.py:1882"),
     "shade_gbuffer": ("K5 G-buffer shade",
                       "bibim_tpu_torch/csrc/gbuffer_shade.cu",
@@ -254,26 +264,49 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 3, match: str | None = None) -> float:
-    """Device milliseconds per ``fn`` call, after one warm-up: the summed
-    time of the device-side events (kernels, memcpy, memset) that ``reps``
-    calls put on the card under ``torch.profiler``; with ``match``, only
-    the kernels whose name contains it. Unlike CUDA events around a
-    host-bound call, it does not count the gaps the host leaves."""
+def profile_window(fn, reps: int, match: str | None = None):
+    """``key_averages()`` of ``reps`` calls of ``fn`` under
+    ``torch.profiler`` (CPU and CUDA activity), after one warm-up, and the
+    device microseconds of the events whose name contains ``match`` (all
+    device events for None). On the H100 the profiler now and then
+    records no device event for a window (seen in two smoke runs): a
+    window with none of them is profiled again, three times at most."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and (match is None or match in e.key))
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ka = prof.key_averages()
+        us = sum(e.self_device_time_total for e in ka
+                 if e.device_type == DeviceType.CUDA
+                 and (match is None or match in e.key))
+        if us > 0:
+            break
+    return ka, us
+
+
+def profiled_ms(fn, match: str, reps: int = 20):
+    """Device milliseconds per ``fn`` call of the kernels whose name
+    contains ``match`` under ``torch.profiler`` (their own run time, no
+    gaps between launches), or None where the profiler recorded none."""
+    _, us = profile_window(fn, reps, match)
+    return us / 1e3 / reps if us > 0 else None
+
+
+def device_ms(fn, reps: int = 3, match: str | None = None) -> float:
+    """Device milliseconds per ``fn`` call, after one warm-up: the summed
+    time of the device-side events (kernels, memcpy, memset) that ``reps``
+    calls put on the card under ``torch.profiler``; with ``match``, only
+    the kernels whose name contains it. Unlike CUDA events around a
+    host-bound call, it does not count the gaps the host leaves."""
+    _, us = profile_window(fn, reps, match)
     if not us > 0:
         raise AssertionError("torch.profiler recorded no device time"
                              + (f" for {match}" if match else ""))
@@ -403,12 +436,45 @@ def capture_kernels(kernels, calls: dict):
 
     def wrap(name, fn):
         def run(*args, **kw):
+            kept = args
+            if name == "overlay":
+                # K4 writes its LDR planes in place: keep the input.
+                kept = args[:9] + (args[9].clone(),) + args[10:]
             out = fn(*args, **kw)
-            calls.setdefault(name, []).append((args, kw, out))
+            calls.setdefault(name, []).append((kept, kw, out))
             return out
         return run
 
     return Kernels(*(wrap(n, f) for n, f in zip(Kernels._fields, kernels)))
+
+
+class capture_composites:
+    """Within the block, every ``ops.fused.composite_overlay`` call (the
+    frame's light spheres and HUD) is recorded into ``calls`` as (args,
+    kw) with its LDR input as it was before the call."""
+
+    def __init__(self, calls: list):
+        self.calls = calls
+
+    def __enter__(self):
+        from bibim_tpu_torch.ops import fused
+
+        self.fn = fn = fused.composite_overlay
+
+        def run(*args, **kw):
+            ldr = args[2]
+            keep = (tuple(c.clone() for c in ldr) if isinstance(ldr, tuple)
+                    else ldr.clone())
+            self.calls.append((args[:2] + (keep,) + args[3:], kw))
+            return fn(*args, **kw)
+
+        fused.composite_overlay = run
+        return self
+
+    def __exit__(self, *exc):
+        from bibim_tpu_torch.ops import fused
+
+        fused.composite_overlay = self.fn
 
 
 def assert_shade_close(got, want, what: str, rel: bool = False) -> float:
@@ -534,7 +600,8 @@ def raster_bytes(name: str, args, out, window_share: float = 1.0) -> int:
         k = int(args[7])  # live slots; the rest are skipped
         starts, cnt, ids = args[5][:k], args[6][:k], ids[:k]
         lo, index = starts, (starts, cnt)
-        init = args[8][ids.long()]
+        # A cleared key (zkey None) reads no plane.
+        init = () if args[8] is None else args[8][ids.long()]
     else:
         starts, cnt, init = args[5], args[6], args[7]
         lo, index = starts, (starts, cnt)
@@ -553,9 +620,10 @@ def raster_bytes(name: str, args, out, window_share: float = 1.0) -> int:
     if name == "overlay":
         # Winners by the plain scan of the live slots. The kernel writes
         # the three LDR channels of the pixels an overlay triangle wins
-        # and reads no image pixel; the rest of the image (the wrapper's
-        # clone) is not its work.
+        # and reads no image pixel.
         px, py = fused._pixel_centres(ids, args[10], args[11], args[12])
+        if isinstance(init, tuple):
+            init = torch.zeros_like(px, dtype=torch.int32)
         _, best = fused._scan_plain(rec, big_ids, n_big, pair_tri, starts,
                                     cnt, init, px, py)
         hits = (best >= 0) & (rec[best.clamp(min=0).long(), fused._ID]
@@ -967,10 +1035,13 @@ def check_mip_stress(table, dev, nt: int = 900) -> dict:
                 l0_hist=torch.bincount(l0.reshape(-1).long()).tolist())
 
 
-def graph_ms(fn, reps: int = 20) -> float:
+def graph_ms(fn, reps: int = 20, busy: bool = False) -> float:
     """Device milliseconds of one ``fn`` call: ``fn`` captured once in a
     CUDA graph and replayed ``reps`` times between two CUDA events, so no
-    host work (checks, allocation, ctypes) falls inside the timed span."""
+    host work (checks, allocation, ctypes) falls inside the timed span.
+    ``busy``: about 20 ms of float32 matrix products run on the stream
+    just before the timed replays, so that they find the card's clocks
+    raised."""
     import torch
 
     side = torch.cuda.Stream()
@@ -982,6 +1053,10 @@ def graph_ms(fn, reps: int = 20) -> float:
     with torch.cuda.graph(graph):
         fn()
     graph.replay()
+    if busy:
+        m = torch.ones((4096, 4096), device="cuda")
+        for _ in range(12):
+            m = m @ m * 1e-4
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
@@ -1096,33 +1171,149 @@ def k3_device_line(what: str) -> str:
             f"{sort_keys.device_launches} device launches")
 
 
-def check_overlay(calls: list) -> dict:
-    """K4 on the light-sphere composite with the most live tiles
-    (bit-equal to its plain version)."""
+def device_profile(fn, reps: int = 5) -> dict:
+    """Device milliseconds, device events (kernels, memcpy, memset) and
+    host-side kernel launches (``cudaLaunchKernel`` and
+    ``cudaLaunchKernelEx``) per ``fn`` call under ``torch.profiler``
+    (:func:`profile_window`)."""
+    from torch.autograd import DeviceType
+
+    ka, us = profile_window(fn, reps)
+    if not us > 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    dev = [e for e in ka if e.device_type == DeviceType.CUDA]
+    return dict(
+        device_ms=us / 1e3 / reps,
+        device_events=sum(e.count for e in dev) / reps,
+        launches=sum(e.count for e in ka if e.key in (
+            "cudaLaunchKernel", "cudaLaunchKernelEx")) / reps)
+
+
+def overlay_call(calls: list, comps: list, pick=None):
+    """The captured K4 call with the most live slots (``pick``: its index)
+    and the composite_overlay call that made it (one K4 call each)."""
+    if len(calls) != len(comps):
+        raise AssertionError(f"{len(calls)} K4 calls from {len(comps)} "
+                             "composites")
+    if pick is None:
+        pick = max(range(len(calls)), key=lambda i: int(calls[i][0][7][0]))
+    return calls[pick], comps[pick]
+
+
+def k4_launch(call, comp) -> dict:
+    """One K4 call as its launch sees it: slots, live slots (``n_live``,
+    read on the host here only), the overflow rows every live slot scans
+    first, the live slots' window lengths (max, mean, 99th percentile),
+    the cluster size and cluster count its wrapper picks, its kernel ms
+    (:func:`graph_ms`) at every cluster size, on a grid of one cluster a
+    slot, after the card was kept busy (``busy``), and by
+    :func:`profiled_ms`; K1's ms on
+    the same tiles, windows and initial keys (``ids``, ``starts``,
+    ``counts`` of the live slots, their scene keys; the colour planes) at
+    every cluster size and at the size K1's rule picks for the call's
+    window cap, and the device ms, device events and launches of the
+    whole ``composite_overlay`` call that made it (binning, compaction,
+    copies, the kernel)."""
+    import torch
+
+    from bibim_tpu_torch.ops import fused
+    from bibim_tpu_torch.ops.sort import sort_keys
+
+    args, kw, _ = call
+    rec, big_ids, n_big, pair_tri, ids, starts, counts, n_live_t = args[:8]
+    zkey, tiles = args[8], args[10:13]
+    n_live = int(n_live_t[0])
+    cnt = counts[:n_live].float().cpu()
+    row = dict(slots=int(ids.shape[0]), live_slots=n_live,
+               overflow=min(int(n_big[0]), int(big_ids.shape[0])),
+               window_max=int(cnt.max()) if n_live else 0,
+               window_mean=float(cnt.mean()) if n_live else 0.0,
+               window_p99=float(torch.quantile(cnt, 0.99)) if n_live
+               else 0.0)
+    k = row["slots"]
+    row["cluster"] = fused.overlay_cluster(kw.get("max_count"))
+    row["clusters"] = min(k, fused.OVERLAY_BLOCKS // row["cluster"])
+    by = {c: graph_ms(lambda: fused.overlay_tiles(*args, **kw, cluster=c))
+          for c in fused.CLUSTER_SIZES}
+    row["kernel_ms"] = by[row["cluster"]]
+    row["kernel_ms_by_cluster"] = by
+    # The grid sized from the list's length (one cluster a slot, the dead
+    # ones leaving at once) instead of the fixed grid.
+    row["kernel_ms_cluster_per_slot"] = graph_ms(
+        lambda: fused.overlay_tiles(*args, **kw, clusters=k))
+    row["kernel_ms_busy"] = graph_ms(
+        lambda: fused.overlay_tiles(*args, **kw), reps=200, busy=True)
+    row["kernel_profiled_ms"] = profiled_ms(
+        lambda: fused.overlay_tiles(*args, **kw), "overlay_kernel")
+    ids_l = ids[:n_live]
+    init = (zkey[ids_l.long()] if zkey is not None else torch.zeros(
+        (n_live, tiles[1] * tiles[2]), dtype=torch.int32,
+        device=ids.device)).contiguous()
+    args8 = (rec, big_ids, n_big, pair_tri, ids_l.contiguous(),
+             starts[:n_live].contiguous(), counts[:n_live].contiguous(), init)
+    cap = -(-comp[1]["max_candidates"] // 8) * 8
+    by = {c: graph_ms(lambda: fused.raster_tiles(
+        *args8, *tiles, ("cr", "cg", "cb"), cluster=c))
+        for c in fused.CLUSTER_SIZES}
+    row["k1_cluster"] = fused.raster_cluster(n_live, cap)
+    row["k1_kernel_ms"] = by[row["k1_cluster"]]
+    row["k1_kernel_ms_by_cluster"] = by
+    row["k1_kernel_ms_busy"] = graph_ms(lambda: fused.raster_tiles(
+        *args8, *tiles, ("cr", "cg", "cb"), cluster=row["k1_cluster"]),
+        reps=200, busy=True)
+    row["k1_profiled_ms_by_cluster"] = {c: profiled_ms(
+        lambda: fused.raster_tiles(*args8, *tiles, ("cr", "cg", "cb"),
+                                   cluster=c), "raster_kernel")
+        for c in fused.CLUSTER_SIZES}
+    cargs, ckw = comp
+    ckw = dict(ckw, overlay=fused.overlay_tiles, sort=sort_keys)
+    row["composite"] = device_profile(
+        lambda: fused.composite_overlay(*cargs, **ckw))
+    row["composite"]["graph_ms"] = graph_ms(
+        lambda: fused.composite_overlay(*cargs, **ckw))
+    return row
+
+
+def overlay_bound(args, out) -> dict:
+    """:func:`bound` of one K4 call: :func:`raster_bytes`, its live slots'
+    coverage tests and their pixels' resolves as operations."""
+    n_live, nb = int(args[7][0]), min(int(args[2][0]), int(args[1].shape[0]))
+    npx = args[11] * args[12]
+    tests = (nb * n_live + int(args[6][:n_live].sum())) * npx
+    ops = tests * COVER_OPS + n_live * npx * RESOLVE_OPS
+    return bound(raster_bytes("overlay", args, out), ops)
+
+
+def check_overlay(call, comp, what: str) -> dict:
+    """K4 on one captured call (bit-equal to its plain version), timed,
+    with its launch line (:func:`k4_launch`) printed as ``<what> K4
+    launch``."""
     import torch
 
     from bibim_tpu_torch.ops import fused
 
-    args, kw, _ = max(calls, key=lambda c: int(c[0][7]))
-    got = fused.overlay_tiles(*args, **kw)
+    args, kw, _ = call
+    # The wrapper composites into its LDR argument: a copy of the input.
+    work = args[:9] + (args[9].clone(),) + args[10:]
+    got = fused.overlay_tiles(*work, **kw)
     want = fused.overlay_tiles_plain(*args, **kw)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
-        raise AssertionError("K4 composite differs from the plain version")
+        raise AssertionError(f"{what}: K4 differs from its plain version")
     changed = int((got != args[9]).any(dim=0).sum())
     if changed == 0:
-        raise AssertionError("K4 composited no pixel")
-    n_live, nb = int(args[7]), int(args[2][0])
-    npx = args[11] * args[12]
-    tests = (nb * n_live + int(args[6][:n_live].sum())) * npx
-    ops = tests * COVER_OPS + n_live * npx * RESOLVE_OPS
-    return dict(max_abs_err=0.0, live_slots=n_live,
-                pixels_changed=changed,
-                ms=cuda_ms(lambda: fused.overlay_tiles(*args, **kw)),
-                plain_ms=cuda_ms(lambda: fused.overlay_tiles_plain(*args,
-                                                                   **kw)),
-                library_ms=None, whole_tensor_bytes=tensor_bytes(args, got),
-                **bound(raster_bytes("overlay", args, got), ops))
+        raise AssertionError(f"{what}: K4 composited no pixel")
+    res = dict(max_abs_err=0.0, live_slots=int(args[7][0]),
+               pixels_changed=changed,
+               ms=cuda_ms(lambda: fused.overlay_tiles(*work, **kw)),
+               plain_ms=cuda_ms(lambda: fused.overlay_tiles_plain(*args,
+                                                                  **kw)),
+               library_ms=None, whole_tensor_bytes=tensor_bytes(args, got),
+               **overlay_bound(args, got))
+    line = dict(k4_launch((work, kw, got), comp), **{k: res[k] for k in (
+        "bound_ms", "bound_by", "bytes", "ops", "pixels_changed")})
+    print(f"{what} K4 launch: " + json.dumps(line))
+    return res
 
 
 def shade_bound(args, kw, out, tap_channels: int,
@@ -1211,8 +1402,9 @@ def k2_layout(args, kw) -> int:
     return _build.library().bb_shade_layout(ctypes.byref(groups))
 
 
-def check_kernels(calls: dict) -> dict:
-    """K1-K4 vs their plain versions on the 1080p frames' own inputs."""
+def check_kernels(calls: dict, comps: list) -> dict:
+    """K1-K4 vs their plain versions on the 1080p frames' own inputs
+    (``comps``: the frames' composite_overlay calls)."""
     import torch
 
     from bibim_tpu_torch.ops.shading import shade_sampled, shade_sampled_plain
@@ -1259,11 +1451,12 @@ def check_kernels(calls: dict) -> dict:
                             lambda: shade_sampled_plain(*args, **kw_vis)),
                         tails_equal=check_tails(calls, "1080p"))
 
-    res["overlay"] = check_overlay(calls["overlay"])
+    res["overlay"] = check_overlay(*overlay_call(calls["overlay"], comps),
+                                   "config-3 light spheres")
     return res
 
 
-def check_kernels_c5(calls: dict) -> dict:
+def check_kernels_c5(calls: dict, comps: list) -> dict:
     """K1 (main and shadow pass), K3, K4, K5, K6 and K7 vs their plain
     versions on the config-5 frames' own inputs."""
     import torch
@@ -1278,7 +1471,8 @@ def check_kernels_c5(calls: dict) -> dict:
         "raster_shadow_pass": check_raster(next(
             c for c in calls["raster"] if tuple(c[0][11]) == shadow)),
         "sort": check_sorts(calls["sort"]),
-        "overlay": check_overlay(calls["overlay"]),
+        "overlay": check_overlay(*overlay_call(calls["overlay"], comps),
+                                 "config-5 light spheres"),
     }
     # K5 on the frame's inputs (IBL ambient, shadow visibility): its HDR
     # output (no quantize, no tonemap), and with fp16 + tone map on, as
@@ -1366,6 +1560,42 @@ def check_sampler(call, kern, plain, name: str, taps: int) -> dict:
                 plain_ms=cuda_ms(lambda: plain(*args, **kw)))
 
 
+def hud_input(width: int, height: int, yaw: float, fps: float = 60.0):
+    """(text, (HudGeometry, mask)): the app's stats line for the camera at
+    ``yaw`` (bibim_tpu/host/app.py's format), on build_hud_geometry's
+    default line (48 characters at (6, 6), scale 2)."""
+    from bibim_tpu_torch.host.hud import build_hud_geometry, hud_text_mask
+    from bibim_tpu_torch.scene.camera import FreeLookCamera
+
+    cam = FreeLookCamera(yaw=yaw)
+    text = (f"{fps:5.1f} FPS  POS {cam.pos[0]:.1f} {cam.pos[1]:.1f} "
+            f"{cam.pos[2]:.1f}  YAW {cam.yaw:.0f} PITCH {cam.pitch:.0f}")
+    geom = build_hud_geometry(width, height)
+    return text, (geom, hud_text_mask(text, geom.max_chars))
+
+
+def check_hud_frame(img, off, geom) -> str:
+    """The HUD frame against the HUD-off frame of its view: bit for bit
+    outside the text rows (build_hud_geometry's default line: rows 6 to
+    19), white glyph pixels inside them."""
+    from bibim_tpu_torch.host.hud import GLYPH_H
+
+    y0 = int(round((float(geom.cy[0]) + 1.0) * img.shape[0] / 2
+                   - geom.dy * img.shape[0] / 2))
+    y1 = y0 + GLYPH_H * int(round(geom.dy * img.shape[0]))
+    same = (img == off).all(dim=-1)
+    if not (bool(same[:y0].all()) and bool(same[y1:].all())):
+        raise AssertionError(f"HUD frame differs from the HUD-off frame "
+                             f"outside its text rows {y0}-{y1 - 1}")
+    changed = ~same[y0:y1]
+    lit = int((img[y0:y1] == 255).all(dim=-1)[changed].sum())
+    if lit == 0 or lit != int(changed.sum()):
+        raise AssertionError(f"HUD frame: {int(changed.sum())} pixels "
+                             f"changed in the text rows, {lit} white")
+    return (f"equal to the HUD-off frame outside rows {y0}-{y1 - 1}; "
+            f"{lit} white glyph pixels")
+
+
 def check_frame(i: int, out, cov, ref, shape, what: str) -> str:
     """Image type, zero drops, coverage, not background, golden bound
     against the all-plain render; returns a summary."""
@@ -1411,15 +1641,17 @@ def run_config5(dev, smi: str, name: str):
     print("config-5 capacities: " + json.dumps(C5_CAPS))
 
     calls: dict = {}
-    for yaw in C5_YAWS:
-        render_frame(scene, view_block(yaw, proj, dev), fp, mats, overlay,
-                     settings, ibl=ibl,
-                     kernels=capture_kernels(KERNELS, calls))
+    comps: list = []
+    with capture_composites(comps):
+        for yaw in C5_YAWS:
+            render_frame(scene, view_block(yaw, proj, dev), fp, mats,
+                         overlay, settings, ibl=ibl,
+                         kernels=capture_kernels(KERNELS, calls))
     torch.cuda.synchronize()
-    kres = check_kernels_c5(calls)
+    kres = check_kernels_c5(calls, comps)
     for k, v in kres.items():
         print(f"kernel {k}: " + json.dumps(v))
-    del calls
+    del calls, comps
 
     vbs = [view_block(y, proj, dev) for y in C5_YAWS]
     counters = (fused.raster_tiles, shade_sampled, sort_keys,
@@ -2104,7 +2336,8 @@ def main() -> int:
     for what, prefixes, least in (
             ("K2 / K5", ("shade_kernel", "gbuffer_shade_kernel"), 4),
             ("K9 / K11", ("raster_earlyz_kernel", "raster_fine_kernel"), 8),
-            ("K8 / K10", ("mip_block_kernel", "raster_gw_kernel"), 14)):
+            ("K4 / K8 / K10", ("overlay_kernel", "mip_block_kernel",
+                               "raster_gw_kernel"), 18)):
         kern = {k: v for k, v in usage.items() if k.startswith(prefixes)}
         if len(kern) < least or any(
                 v.get("stack", 1) or v.get("spill_stores", 1)
@@ -2124,13 +2357,16 @@ def main() -> int:
 
     # Kernel phases on the inputs the smoke frames produce.
     calls: dict = {}
-    for yaw in YAWS:
-        render_frame(scene, view_block(yaw, proj, dev), fp, mats, overlay,
-                     settings, kernels=capture_kernels(KERNELS, calls))
+    comps: list = []
+    with capture_composites(comps):
+        for yaw in YAWS:
+            render_frame(scene, view_block(yaw, proj, dev), fp, mats,
+                         overlay, settings,
+                         kernels=capture_kernels(KERNELS, calls))
     torch.cuda.synchronize()
-    kres = check_kernels(calls)
+    kres = check_kernels(calls, comps)
     k1_yaw0 = calls["raster"][0]  # the default frame of the K10 view
-    del calls
+    del calls, comps
 
     # The group-window frame: group_pair_cap from the port's probe of the
     # first view (derive_settings' rule), the other capacities as above.
@@ -2154,13 +2390,31 @@ def main() -> int:
     print("config-3 K10 launch: " + json.dumps(k10_launch(
         args, kw, out, -(-gw_cap // 8) * 8, k1_yaw0)))
     del calls, k1_yaw0
-    for k, v in kres.items():
+
+    # The HUD frame: the first view with the app's stats line burned in
+    # by K4 against a cleared key, after the light spheres.
+    hud_text, hud = hud_input(WIDTH, HEIGHT, YAWS[0])
+    settings_hud = dataclasses.replace(settings, show_hud=True)
+    print(f"HUD frame: yaw {YAWS[0]}, {hud[0].max_chars} characters at "
+          f"scale 2, text {hud_text!r}")
+    calls, comps = {}, []
+    with capture_composites(comps):
+        render_frame(scene, vb0, fp, mats, overlay, settings_hud,
+                     kernels=capture_kernels(KERNELS, calls), hud=hud)
+    torch.cuda.synchronize()
+    kres_hud = check_overlay(*overlay_call(calls["overlay"], comps, -1),
+                             "config-3 HUD")
+    del calls, comps
+    for k, v in [*kres.items(), ("overlay (HUD)", kres_hud)]:
         print(f"kernel {k}: " + json.dumps(v))
 
     # Main path: counters to 0, the four frames through render_frame; then
-    # counters to 0 again and the group-window frame in its own window.
-    frames = [(f"yaw {y}", view_block(y, proj, dev), settings) for y in YAWS]
-    frames.append((f"yaw {YAWS[0]}, group window", vb0, settings_gw))
+    # counters to 0 again and the group-window frame in its own window;
+    # then the HUD frame in a third.
+    frames = [(f"yaw {y}", view_block(y, proj, dev), settings, None)
+              for y in YAWS]
+    frames.append((f"yaw {YAWS[0]}, group window", vb0, settings_gw, None))
+    frames.append((f"yaw {YAWS[0]}, HUD", vb0, settings_hud, hud))
     counters = {"raster": fused.raster_tiles, "shade": shade_sampled,
                 "sort": sort_keys, "overlay": fused.overlay_tiles,
                 "raster_gw": fused.raster_tiles_gw}
@@ -2176,15 +2430,16 @@ def main() -> int:
     counted = KERNELS._replace(raster=cov(KERNELS.raster),
                                raster_gw=cov(KERNELS.raster_gw))
     outs, frame_ms, windows = [], [], []
-    for window in (frames[:len(YAWS)], frames[len(YAWS):]):
+    n = len(YAWS)
+    for window in (frames[:n], frames[n:n + 1], frames[n + 1:]):
         for fn in counters.values():
             fn.launches = 0
         sort_keys.device_launches = 0
-        for _, vb, s in window:
+        for _, vb, s, h in window:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = render_frame(scene, vb, fp, mats, overlay, s,
-                               kernels=counted)
+                               kernels=counted, hud=h)
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - t0) * 1e3)
             outs.append((out, cover[-1]))
@@ -2194,22 +2449,28 @@ def main() -> int:
     print(f"main-path launches ({len(YAWS)} frames): "
           + json.dumps(windows[0]))
     print("group-window frame launches (1 frame): " + json.dumps(windows[1]))
-    for k, n in launches.items():
-        if n <= 0:
+    print("HUD frame launches (1 frame): " + json.dumps(windows[2]))
+    for k, n_k in [*launches.items(), ("overlay (HUD frame)",
+                                       windows[2]["overlay"])]:
+        if n_k <= 0:
             raise AssertionError(f"kernel {k} was not launched by the frame")
 
-    for i, ((out, cov_i), (label, vb, s)) in enumerate(zip(outs, frames)):
-        ref = render_frame(scene, vb, fp, mats, overlay, s,
-                           kernels=PLAIN)["image"]
+    for i, ((out, cov_i), (label, vb, s, h)) in enumerate(zip(outs,
+                                                              frames)):
+        ref = render_frame(scene, vb, fp, mats, overlay, s, kernels=PLAIN,
+                           hud=h)["image"]
         summary = check_frame(i, out, cov_i, ref, (HEIGHT, WIDTH, 3),
                               "1080p")
         print(f"frame {i}: {label}, {frame_ms[i]:.2f} ms, " + summary)
-    if not torch.equal(outs[-1][0]["image"], outs[0][0]["image"]):
+    if not torch.equal(outs[n][0]["image"], outs[0][0]["image"]):
         raise AssertionError("the group-window frame differs from the "
                              "default frame of its yaw")
-    print(f"frame time median: {statistics.median(frame_ms[:len(YAWS)]):.2f}"
+    print("HUD frame: " + check_hud_frame(outs[-1][0]["image"],
+                                          outs[0][0]["image"], hud[0]))
+    print(f"frame time median: {statistics.median(frame_ms[:n]):.2f}"
           f" ms (host clock around render_frame + synchronize, {name}, "
-          f"{smi}); group-window frame {frame_ms[-1]:.2f} ms")
+          f"{smi}); group-window frame {frame_ms[n]:.2f} ms, HUD frame "
+          f"{frame_ms[-1]:.2f} ms")
     del outs
 
     kres5, launches5 = run_config5(dev, smi, name)
@@ -2224,6 +2485,8 @@ def main() -> int:
     n2, n4 = len(C2_CAMERA_Z) + len(C2_VIEWS), len(C4_VIEWS) * len(C4_MODES)
     rows = [(k, KERNEL_INFO[k][0] + ", 1080p", kres[k], launches[k],
              1 if k == "raster_gw" else len(YAWS)) for k in kres]
+    rows.append(("overlay", KERNEL_INFO["overlay"][0] + ", 1080p HUD frame",
+                 kres_hud, windows[2]["overlay"], 1))
     rows += [(k, KERNEL_INFO[k][0] + ", config-5 4K", kres5[k],
               launches5[k], len(C5_YAWS)) for k in kres5 if k in KERNEL_INFO]
     rows.append(("raster", KERNEL_INFO["raster"][0]

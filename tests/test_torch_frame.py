@@ -115,7 +115,7 @@ def test_output_modes(inputs):
     # ported (deferred); these still raise for the setting beside them
     # (pair-rate PCF, forward lighting).
     dict(gbuffer_viz=1, deferred=False),
-    dict(show_tbn=True), dict(show_hud=True),
+    dict(show_tbn=True),
     dict(enable_shadows=True, pair_visibility=True),
     dict(enable_ibl=True, deferred=False), dict(pair_visibility=True),
     dict(aniso_taps=2), dict(pair_sampling=2), dict(raster="xla"),

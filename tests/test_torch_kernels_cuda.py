@@ -687,8 +687,47 @@ def test_cube_frame_kernels_vs_plain(dev, extra):
     assert float((out["image"] > 0).any(dim=-1).float().mean()) > 0.05
 
 
+def _capture_overlay(calls):
+    """An overlay entry point that records K4's arguments (its LDR input
+    as it was) and runs the kernel."""
+    def run(*args, **kw):
+        calls.append((args[:9] + (args[9].clone(),) + args[10:], kw))
+        return fused.overlay_tiles(*args, **kw)
+    return run
+
+
+def _assert_overlay_in_place(args, kw, buf, view):
+    """K4 at every cluster size and cluster count (the fixed grid, one
+    cluster, and one per slot as a grid sized from the list) composites
+    into ``view`` — the first NT tiles of ``buf`` — in place: equal to the
+    plain version, only the live tiles' pixels written, the pad tile and
+    an alias of the same storage unchanged elsewhere."""
+    want = fused.overlay_tiles_plain(*args, **kw)
+    k = int(args[4].shape[0])
+    n_live = int(args[7][0])
+    live = torch.zeros(view.shape[1], dtype=torch.bool, device=view.device)
+    live[args[4][:n_live].long()] = True
+    for c in fused.CLUSTER_SIZES:
+        for clusters in (None, 1, k):
+            buf.copy_(torch.cat([args[9], buf[:, -1:]], dim=1))
+            pad = buf[:, -1].clone()
+            alias = buf[1]  # another view of the same storage
+            got = fused.overlay_tiles(*args[:9], view, *args[10:], **kw,
+                                      cluster=c, clusters=clusters)
+            torch.cuda.synchronize()
+            assert got is view
+            assert torch.equal(view, want), (c, clusters)
+            assert torch.equal(buf[:, -1], pad)
+            assert torch.equal(alias[:-1], want[1])
+            changed = (view != args[9]).any(dim=0).any(dim=1)
+            assert not bool((changed & ~live).any())
+    return want
+
+
 @pytest.mark.cuda
 def test_overlay_kernel_bit_equal(dev, frame):
+    """The light spheres over the test frame's keys (K4 against its plain
+    version, in place, at every launch shape)."""
     scene, vb, _, _ = frame
     rec, setup = _setup(frame)
     _, zkey, _ = fused.raster_fused(rec, setup, W, H, max_candidates=512)
@@ -698,16 +737,54 @@ def test_overlay_kernel_bit_equal(dev, frame):
     vp = m3.matmul(vb.proj, vb.view)
     s = RenderSettings(width=W, height=H)
     nt = s.tiles_x * s.tiles_y
-    ldr = tuple(torch.rand((nt, 1024), device=dev) for _ in range(3))
-    got, diag = _composite_light_spheres(ldr, zkey, lights, overlay, vp, s,
-                                         KERNELS)
-    want, _ = _composite_light_spheres(ldr, zkey, lights, overlay, vp, s,
-                                       PLAIN)
+    buf = torch.rand((3, nt + 1, 1024), device=dev)
+    before = buf.clone()
+    calls = []
+    got, diag = _composite_light_spheres(
+        buf[:, :nt], zkey, lights, overlay, vp, s,
+        KERNELS._replace(overlay=_capture_overlay(calls)))
+    want, _ = _composite_light_spheres(before[:, :nt], zkey, lights,
+                                       overlay, vp, s, PLAIN)
     torch.cuda.synchronize()
     assert int(diag.dropped_tiles) == 0
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert any(bool((a != b).any()) for a, b in zip(got, ldr))
+    assert got.data_ptr() == buf.data_ptr() and torch.equal(got, want)
+    assert bool((want != before[:, :nt]).any())
+    assert torch.equal(buf[:, nt], before[:, nt])
     assert _light_sphere_planar_soup(lights, overlay, vp).num_triangles > 0
+    args, kw = calls[0]
+    assert kw["max_count"] == 384 + 512
+    _assert_overlay_in_place(args, kw, buf, buf[:, :nt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("text", [
+    " 60.0 FPS  POS 0.0 1.0 3.0  YAW -90 PITCH 0",
+    "8888888888MMMMMMMMMMWWWWWWWWWW%%%%%%%%%%"], ids=["stats", "dense"])
+def test_overlay_kernel_hud_bit_equal(dev, frame, text):
+    """The HUD (a line at the frame's scale 2: up to ~440 candidates a tile
+    against a cleared key) through K4: the frame's composite against the
+    plain version, in place, at every launch shape."""
+    from bibim_tpu_torch.host.hud import build_hud_geometry, hud_text_mask
+    from bibim_tpu_torch.pipeline.framegraph import _composite_hud
+
+    s = RenderSettings(width=W, height=H)
+    nt = s.tiles_x * s.tiles_y
+    geom = build_hud_geometry(W, H, max_chars=40, origin=(1, 1))
+    hud = (geom, hud_text_mask(text, geom.max_chars))
+    buf = torch.rand((3, nt + 1, 1024), device=dev)
+    before = buf.clone()
+    calls = []
+    got, diag = _composite_hud(buf[:, :nt], hud, s, KERNELS._replace(
+        overlay=_capture_overlay(calls)))
+    want, _ = _composite_hud(before[:, :nt], hud, s, PLAIN)
+    torch.cuda.synchronize()
+    assert all(int(d) == 0 for d in diag)
+    assert torch.equal(got, want)
+    args, kw = calls[0]
+    assert args[8] is None  # a cleared key, no key plane
+    # Long windows: the split engages (dense: the capacity's range).
+    assert int(args[6].max()) > (200 if text[0] == "8" else 100)
+    _assert_overlay_in_place(args, kw, buf, buf[:, :nt])
 
 
 @pytest.mark.cuda

@@ -34,6 +34,12 @@ def _ldr(seed=3):
                  .astype(np.float32) for _ in range(3))
 
 
+def _planes(ldr3):
+    """Three numpy planes as the (3, NT, NPX) tensor composite_overlay
+    writes."""
+    return torch.stack([cases.t(c) for c in ldr3])
+
+
 def test_matches_pallas_interpret(overlay_geometry):
     _, _, setup, rec = overlay_geometry
     ldr3 = _ldr()
@@ -46,7 +52,7 @@ def test_matches_pallas_interpret(overlay_geometry):
         interpret=True, **caps)
     got, diag = fused.composite_overlay(
         cases.record_table(rec), cases.planar_setup(setup),
-        tuple(map(cases.t, ldr3)), cases.t(zkey), cases.W, cases.H,
+        _planes(ldr3), cases.t(zkey), cases.W, cases.H,
         tile_h=cases.TILE_H, tile_w=cases.TILE_W, **caps)
     for a, b in zip(diag, wdiag):
         assert int(a) == int(b)
@@ -99,7 +105,7 @@ def test_light_spheres_over_scene_depth(overlay_geometry):
         jnp.asarray(zkey.numpy()), cases.W, cases.H, interpret=True, **caps)
     got, diag = fused.composite_overlay(
         cases.record_table(jrec), cases.planar_setup(jsetup),
-        tuple(map(cases.t, ldr3)), zkey, cases.W, cases.H, **caps)
+        _planes(ldr3), zkey, cases.W, cases.H, **caps)
     for a, b in zip(diag, wdiag):
         assert int(a) == int(b)
     n_changed = 0
@@ -113,7 +119,7 @@ def test_light_spheres_over_scene_depth(overlay_geometry):
     # the full-size list (mostly dead padding slots) does.
     tight, tdiag = fused.composite_overlay(
         cases.record_table(jrec), cases.planar_setup(jsetup),
-        tuple(map(cases.t, ldr3)), zkey, cases.W, cases.H,
+        _planes(ldr3), zkey, cases.W, cases.H,
         **{**caps, "max_tiles": 12})
     assert int(tdiag.dropped_tiles) == 0
     for a, b in zip(got, tight):
@@ -122,11 +128,11 @@ def test_light_spheres_over_scene_depth(overlay_geometry):
 
 def test_dropped_tiles_are_counted(overlay_geometry):
     _, _, setup, rec = overlay_geometry
-    ldr3 = tuple(map(cases.t, _ldr()))
     zkey = torch.zeros((cases.NT, cases.TILE_H * cases.TILE_W),
                        dtype=torch.int32)
     _, diag = fused.composite_overlay(
-        cases.record_table(rec), cases.planar_setup(setup), ldr3, zkey,
+        cases.record_table(rec), cases.planar_setup(setup), _planes(_ldr()),
+        zkey,
         cases.W, cases.H, max_candidates=2048, overflow_cap=512,
         span_cap=128, max_tiles=2)
     assert int(diag.dropped_tiles) > 0

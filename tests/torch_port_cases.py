@@ -153,7 +153,8 @@ INSTANCED_BASE = dict(width=W, height=H, show_lights=False,
                       show_gizmo=False, span_cap=16)
 
 
-def frames_without_fma(frame: str, jax_kw: dict, port_kws, ibl=None):
+def frames_without_fma(frame: str, jax_kw: dict, port_kws, ibl=None,
+                       hud=None):
     """The JAX package's "full" render of a test frame (``frame``:
     "frame", :func:`frame_inputs` at FRAME_BASE; "instanced", the
     :func:`instanced_scene` frame at INSTANCED_BASE) with settings
@@ -161,9 +162,11 @@ def frames_without_fma(frame: str, jax_kw: dict, port_kws, ibl=None):
     renders of the same inputs with each of ``port_kws``, the LDR planes
     of each captured before the sRGB encode. ``ibl``: "maps"
     (``make_ibl``) or "sh" (``make_ibl_sh``), built in the subprocess and
-    carried into the port. Returns (jax dict, [port dict, ...]) of numpy
-    arrays: image, ldr and, for "full" renders, tri_id and the G-buffer
-    planes."""
+    carried into the port. ``hud``: the in-frame HUD as a dict of
+    ``text`` and ``build_hud_geometry``'s keywords, built by each package's
+    own ``host.hud`` and passed to every render. Returns (jax dict, [port
+    dict, ...]) of numpy arrays: image, ldr and, for "full" renders,
+    tri_id and the G-buffer planes."""
     import json
     import os
     import subprocess
@@ -172,7 +175,7 @@ def frames_without_fma(frame: str, jax_kw: dict, port_kws, ibl=None):
     from pathlib import Path
 
     spec = json.dumps(dict(frame=frame, jax_kw=jax_kw,
-                           port_kws=list(port_kws), ibl=ibl))
+                           port_kws=list(port_kws), ibl=ibl, hud=hud))
     env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=NO_FMA_XLA_FLAGS)
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "frames.npz")
@@ -238,9 +241,23 @@ def _render_frames_main(spec_json: str, path: str) -> None:
     probe = {None: lambda: None, "maps": jibl.make_ibl,
              "sh": jibl.make_ibl_sh}[spec["ibl"]]()
     pibl = None if probe is None else interop.ibl(probe, device="cpu")
+    jhud = phud = None
+    if spec.get("hud"):
+        from bibim_tpu.host import hud as jax_hud
+        from bibim_tpu_torch.host import hud as port_hud
+
+        kw = settings(dict(spec["hud"]))
+        text = kw.pop("text")
+        geom = jax_hud.build_hud_geometry(base["width"], base["height"], **kw)
+        jhud = (geom, jnp.asarray(jax_hud.hud_text_mask(text,
+                                                        geom.max_chars)))
+        geom = port_hud.build_hud_geometry(base["width"], base["height"],
+                                           **kw)
+        phud = (geom, port_hud.hud_text_mask(text, geom.max_chars))
     out = jax.tree_util.tree_map(np.asarray, jfg.render_frame(
         *jin, jfg.RenderSettings(**{**base, **settings(spec["jax_kw"]),
-                                    "outputs": "full"}), ibl=probe))
+                                    "outputs": "full"}), ibl=probe,
+        hud=jhud))
     arrays = {"jax_image": out["image"], "jax_ldr": out["ldr"],
               "jax_tri_id": out["tri_id"]}
     arrays.update({f"jax_{g}": out["gbuffer"][g] for g in _GBUFFER})
@@ -250,7 +267,7 @@ def _render_frames_main(spec_json: str, path: str) -> None:
         pfg.srgb_encode = lambda x: (seen.append(x), encode(x))[1]
         try:
             got = render_frame(*pin, RenderSettings(
-                **{**base, **settings(kw)}), ibl=pibl)
+                **{**base, **settings(kw)}), ibl=pibl, hud=phud)
         finally:
             pfg.srgb_encode = encode
         arrays[f"port{i}_image"] = got["image"].numpy()

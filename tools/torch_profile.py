@@ -5,7 +5,8 @@ Run from the repository root: ``python3 tools/torch_profile.py``. It takes
 the frames of ``chip_smoke.py`` (same stand-in scenes, maps and
 capacities) with ``outputs="image"``: the 1920×1080 deferred frame
 (config 3) and its group-window variant (K10), the 3840×2160 shadows +
-IBL frame (config 5), the 1280×720 textured-cube frame (config 2, at the
+IBL frame (config 5), the config-3 frame with the in-frame HUD (the
+app's stats line), the 1280×720 textured-cube frame (config 2, at the
 bench's camera) and its ALBEDO G-buffer view, and the 1920×1080
 64-instance frame (config 4, culled on the host and autotuned) at
 chip_smoke.py's three views in its three raster modes: default (K1),
@@ -22,7 +23,8 @@ early-z (K9) and fine bins (K11). Per frame:
 - the peak device memory of those 4 renders (``max_memory_allocated``
   after a reset).
 
-``--trace DIR`` writes each frame's Chrome trace into DIR.
+``--trace DIR`` writes each frame's Chrome trace into DIR; ``--only
+LABEL ...`` profiles those frames alone (e.g. ``config3_1080p_hud``).
 
 ``--probe`` instead renders the config-5 frame at 4 yaws with generous
 capacities and prints, for every raster pass and the overlay, the tiles
@@ -65,17 +67,22 @@ C5_EXTRA = dict(enable_shadows=True, shadow_fit_batches=(0,),
                 enable_ibl=True)
 
 
-def shaderball_frames(dev, width, height, caps, extra, ibl, yaws):
-    """``frame(i)`` rendering the ShaderBall stand-in at yaw i mod n."""
+def shaderball_frames(dev, width, height, caps, extra, ibl, yaws,
+                      hud=False):
+    """``frame(i)`` rendering the ShaderBall stand-in at yaw i mod n
+    (``hud``: with chip_smoke.py's HUD line for that yaw)."""
     from bibim_tpu_torch.pipeline import render_frame
 
     scene, mats, overlay, proj, fp, s = cs.build_inputs(
         dev, width, height, caps, **extra)
-    s = dataclasses.replace(s, outputs="image")
+    s = dataclasses.replace(s, outputs="image", show_hud=hud)
     vbs = [cs.view_block(y, proj, dev) for y in yaws]
+    huds = [cs.hud_input(width, height, y)[1] if hud else None
+            for y in yaws]
 
     def frame(i):
-        render_frame(scene, vbs[i % len(vbs)], fp, mats, overlay, s, ibl=ibl)
+        render_frame(scene, vbs[i % len(vbs)], fp, mats, overlay, s, ibl=ibl,
+                     hud=huds[i % len(vbs)])
 
     return frame
 
@@ -303,6 +310,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--probe", action="store_true",
                     help="capacity probe of the config-5 frame")
+    ap.add_argument("--only", nargs="+", metavar="FRAME",
+                    help="profile only these frames (their labels)")
     ap.add_argument("--trace", metavar="DIR",
                     help="write each frame's Chrome trace into DIR")
     args = ap.parse_args()
@@ -321,23 +330,34 @@ def main() -> int:
         return 0
     from bibim_tpu_torch.pipeline import GBufferViz
 
-    profile("config3_1080p", shaderball_frames(
-        dev, cs.WIDTH, cs.HEIGHT, cs.CAPS, {}, None, cs.YAWS), args.trace)
-    profile("config3_1080p_group_window", group_window_frames(dev),
-            args.trace)
-    profile("config5_4k_shadows_ibl", shaderball_frames(
-        dev, cs.C5_WIDTH, cs.C5_HEIGHT, cs.C5_CAPS, C5_EXTRA,
-        make_ibl_sh(device=dev), cs.C5_YAWS), args.trace)
-    profile("config2_720p_cubes", cube_frames(dev), args.trace)
-    profile("config2_720p_albedo_view",
-            cube_frames(dev, gbuffer_viz=GBufferViz.ALBEDO), args.trace)
-    c4 = instanced_scene(dev)
+    frames = [
+        ("config3_1080p", lambda: shaderball_frames(
+            dev, cs.WIDTH, cs.HEIGHT, cs.CAPS, {}, None, cs.YAWS)),
+        ("config3_1080p_group_window", lambda: group_window_frames(dev)),
+        ("config3_1080p_hud", lambda: shaderball_frames(
+            dev, cs.WIDTH, cs.HEIGHT, cs.CAPS, {}, None, cs.YAWS,
+            hud=True)),
+        ("config5_4k_shadows_ibl", lambda: shaderball_frames(
+            dev, cs.C5_WIDTH, cs.C5_HEIGHT, cs.C5_CAPS, C5_EXTRA,
+            make_ibl_sh(device=dev), cs.C5_YAWS)),
+        ("config2_720p_cubes", lambda: cube_frames(dev)),
+        ("config2_720p_albedo_view",
+         lambda: cube_frames(dev, gbuffer_viz=GBufferViz.ALBEDO)),
+    ]
+    c4 = []
     for view in cs.C4_VIEWS:
         for label, extra in cs.C4_MODES:
             tag = view[0].replace(" ", "_")
-            profile(f"config4_x64_1080p_{tag}_{label}", instanced_frames(
-                c4, *instanced_settings(dev, c4, view, **extra)),
-                args.trace)
+            frames.append((f"config4_x64_1080p_{tag}_{label}",
+                           lambda view=view, extra=extra: instanced_frames(
+                               c4[0], *instanced_settings(
+                                   dev, c4[0], view, **extra))))
+    for label, make in frames:
+        if args.only and label not in args.only:
+            continue
+        if label.startswith("config4") and not c4:
+            c4.append(instanced_scene(dev))
+        profile(label, make(), args.trace)
     return 0
 
 
