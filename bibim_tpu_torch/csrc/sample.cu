@@ -2,13 +2,20 @@
 // thread per pixel; each writes one float plane per present slot.
 //
 // K6 replaces bibim_tpu/ops/texture_quad.py:_block_blend_kernel (launched
-// by sample_table_block_pallas) at pair_rows=0, with the block_prep that
-// feeds it. The TPU path gathers every pixel's 128-byte block row and
-// transposes the rows to (NT, 128, NPX) through device memory (taps on
-// sublanes, pixels on lanes) before a 25-tap blend; here each thread
-// computes its footprint, reads its block row by index (y0/4)*nbx + x0/4
-// and blends only the 4 live taps in the reference's (j, i) order, which
-// is bit-equal because the 21 dead taps add exact zeros.
+// by sample_table_block_pallas), with the block_prep that feeds it. The
+// TPU path gathers every pixel's 128-byte block row and transposes the
+// rows to (NT, 128, NPX) through device memory (taps on sublanes, pixels
+// on lanes) before a 25-tap blend; here each thread computes its
+// footprint, reads its block row by index (y0/4)*nbx + x0/4 and blends
+// only the 4 live taps in the reference's (j, i) order, which is
+// bit-equal because the 21 dead taps add exact zeros. At pair rate
+// (pair_rows 1 / 2: 2x1 / 2x2 pixel groups) the TPU kernel expands a
+// group-rate row gather by lane-segment concatenation in a member-major
+// pixel order (member_perm), because Mosaic cannot shuffle lanes; here
+// each thread reads its group's members' coverage and uv, computes the
+// same integer anchor (shading.cuh pair_block_footprint) and reads the
+// anchor's row, which the group's threads share through L1: the pixel
+// order of the planes does not change.
 //
 // K7 replaces bibim_tpu/ops/texture_quad.py:_small_kernel (launched by
 // sample_rows_small_pallas): a one-hot select of the texel row on the MXU
@@ -42,6 +49,27 @@ sample_block_kernel(const uint8_t* __restrict__ blocks, int row_bytes, int h,
   for (int k = 0; k < n_out; ++k) out[(size_t)k * n + i] = acc[k];
 }
 
+// Pair level 1 (RX = 1) or 2 (RX = 2); valid may be NULL (all covered).
+template <int RX>
+__global__ void __launch_bounds__(256)
+sample_block_pair_kernel(const uint8_t* __restrict__ blocks, int row_bytes,
+                         int h, int w, int cpad, int n_out,
+                         const float* __restrict__ u,
+                         const float* __restrict__ v,
+                         const uint8_t* __restrict__ valid, int npx,
+                         int tile_w, int n, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int lx, ly;
+  float tx, ty;
+  const int r = pair_block_footprint<RX>(u, v, valid, i, npx, tile_w, h, w,
+                                         u[i], v[i], &lx, &ly, &tx, &ty);
+  float acc[N_SLOTS];
+  blend_block(blocks + (size_t)r * row_bytes, lx, ly, tx, ty, cpad, n_out,
+              acc);
+  for (int k = 0; k < n_out; ++k) out[(size_t)k * n + i] = acc[k];
+}
+
 __global__ void __launch_bounds__(256)
 sample_small_kernel(const uint8_t* __restrict__ quads, int rows, int cpad,
                     int n_out, const int* __restrict__ idx,
@@ -62,15 +90,27 @@ sample_small_kernel(const uint8_t* __restrict__ quads, int rows, int cpad,
 
 }  // namespace bb
 
+// pair: 0 per pixel, 1 / 2 the pair level (npx pixels a tile row-major,
+// tile_w a row; valid NULL: all covered).
 extern "C" int bb_sample_block(const uint8_t* blocks, int row_bytes, int h,
                                int w, int cpad, int n_out, const float* u,
-                               const float* v, int n, float* out,
-                               void* stream) {
+                               const float* v, const uint8_t* valid,
+                               int pair, int npx, int tile_w, int n,
+                               float* out, void* stream) {
   if (n > 0) {
-    const int threads = 256;
-    bb::sample_block_kernel<<<(n + threads - 1) / threads, threads, 0,
-                              (cudaStream_t)stream>>>(
-        blocks, row_bytes, h, w, cpad, n_out, u, v, n, out);
+    const int threads = 256, grid = (n + threads - 1) / threads;
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (pair == 0)
+      bb::sample_block_kernel<<<grid, threads, 0, s>>>(
+          blocks, row_bytes, h, w, cpad, n_out, u, v, n, out);
+    else if (pair == 1)
+      bb::sample_block_pair_kernel<1><<<grid, threads, 0, s>>>(
+          blocks, row_bytes, h, w, cpad, n_out, u, v, valid, npx, tile_w, n,
+          out);
+    else
+      bb::sample_block_pair_kernel<2><<<grid, threads, 0, s>>>(
+          blocks, row_bytes, h, w, cpad, n_out, u, v, valid, npx, tile_w, n,
+          out);
   }
   return (int)cudaGetLastError();
 }

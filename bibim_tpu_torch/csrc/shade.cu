@@ -3,7 +3,7 @@
 //
 // Replaces bibim_tpu/ops/shading_pallas.py:_sampled_kernel (launched by
 // shade_sampled_pallas) together with the XLA-side block_prep / small_prep
-// that feed it at pair level 0.
+// that feed it, at pair levels 0, 1 and 2.
 //
 // What bounds it on an H100: bytes. Per valid pixel it reads 11 float
 // planes (plus the shadow visibility plane when given), one block-table row
@@ -44,6 +44,15 @@
 // Trilinear mip bindings (config 2) add two group kinds fed by per-pixel
 // planes computed as torch ops: the mip-block row with the 41-tap blend K8
 // runs and material-routed small-table rows.
+// Pair levels 1 and 2 (pair_sampling: the block-table groups read one row
+// a 2x1 / 2x2 pixel group) are a template argument beside the layout, so
+// level 0's instantiations are what they were. The TPU kernel takes the
+// group-rate rows in a member-major pixel order and expands them by lane
+// concatenation (its `expand` path) because Mosaic cannot shuffle lanes;
+// here each thread reads its group's members' coverage and uv from the
+// planes, computes the group's integer anchor (shading.cuh
+// pair_block_footprint) and reads the anchor's row, which the group's
+// threads share; the pixel order does not change.
 #include "shading.cuh"
 
 namespace bb {
@@ -130,6 +139,23 @@ struct Grp {
   }
 };
 
+struct ShadeArgs {
+  const float *u, *v, *wx, *wy, *wz, *nx, *ny, *nz, *tgx, *tgy, *tgz;
+  const uint8_t* valid;    // the bool plane's bytes
+  const float* vis_plane;  // or NULL
+  const float* lp;         // (max(L, 1), 16) light rows
+  int n_lights;
+  const float* view_pos;
+  const int* nm_enable;
+  int quantize;           // the G-buffer's fp16 round trip
+  const float* exposure;       // tail: NULL when tonemap is 0
+  const int* tm_enable;
+  int quantize_hdr, tonemap;
+  int n;
+  int npx, tile_w;  // pixels a tile and its row width (pair levels)
+  float *out_r, *out_g, *out_b;
+};
+
 // NW aligned 4-byte words from p (16-byte vectors where NW allows).
 template <int NW>
 __device__ __forceinline__ void load_words(const uint8_t* p,
@@ -162,19 +188,31 @@ __device__ __forceinline__ float word_tap(const uint32_t (&w)[NW]) {
 }
 
 // Channels J < np of a block-table row (kind 0, channel stride CPAD): the
-// 4 live taps of the 5x5 neighbourhood, blend_block's order.
-template <int CPAD>
+// 4 live taps of the 5x5 neighbourhood, blend_block's order. PAIR 0: the
+// pixel's own block; 1 / 2: its group's anchor block, the taps relative to
+// it (pair_block_footprint).
+template <int CPAD, int PAIR>
 __device__ __forceinline__ void sample_block(const ShadeGroups& g, int gi,
+                                             const ShadeArgs& a, int i,
                                              float u, float v, int np,
                                              float (&acc)[N_SLOTS]) {
   constexpr int NW = CPAD / 4;
   const int h = g.h[gi], w = g.w[gi];
-  int x0i, y0i;
+  int r, lx, ly;
   float tx, ty;
-  footprint(u, v, h, w, &x0i, &y0i, &tx, &ty);
-  const uint8_t* row =
-      g.tab[gi] + (size_t)((y0i / 4) * (w / 4) + (x0i / 4)) * g.row_bytes[gi];
-  const int t00 = ((y0i % 4) * 5 + (x0i % 4)) * CPAD;
+  if constexpr (PAIR == 0) {
+    int x0i, y0i;
+    footprint(u, v, h, w, &x0i, &y0i, &tx, &ty);
+    r = (y0i / 4) * (w / 4) + (x0i / 4);
+    lx = x0i % 4;
+    ly = y0i % 4;
+  } else {
+    r = pair_block_footprint<PAIR == 2 ? 2 : 1>(
+        a.u, a.v, a.valid, i, a.npx, a.tile_w, h, w, u, v, &lx, &ly, &tx,
+        &ty);
+  }
+  const uint8_t* row = g.tab[gi] + (size_t)r * g.row_bytes[gi];
+  const int t00 = (ly * 5 + lx) * CPAD;
   uint32_t q00[NW], q01[NW], q10[NW], q11[NW];
   load_words<NW>(row + t00, q00);
   load_words<NW>(row + t00 + CPAD, q01);
@@ -186,11 +224,11 @@ __device__ __forceinline__ void sample_block(const ShadeGroups& g, int gi,
   static_for<0, (CPAD < N_SLOTS ? CPAD : N_SLOTS)>([&](auto j) {
     constexpr int J = decltype(j)::value;
     if (J < np) {
-      float a = word_tap<J>(q00) * w00;
-      a = a + word_tap<J>(q01) * w01;
-      a = a + word_tap<J>(q10) * w10;
-      a = a + word_tap<J>(q11) * w11;
-      acc[J] = a;
+      float x = word_tap<J>(q00) * w00;
+      x = x + word_tap<J>(q01) * w01;
+      x = x + word_tap<J>(q10) * w10;
+      x = x + word_tap<J>(q11) * w11;
+      acc[J] = x;
     }
   });
 }
@@ -231,10 +269,12 @@ __device__ __forceinline__ void with_cpad(const ShadeGroups& g, int gi,
   }
 }
 
-// Samples of group GI (layout S) at pixel i (of n) into the slots.
-template <int S, int GI>
-__device__ __forceinline__ void sample_group(const ShadeGroups& g, int i,
-                                             int n, float u, float v,
+// Samples of group GI (layout S, pair level PAIR) at pixel i into the
+// slots.
+template <int S, int GI, int PAIR>
+__device__ __forceinline__ void sample_group(const ShadeGroups& g,
+                                             const ShadeArgs& a, int i,
+                                             float u, float v,
                                              float (&slots)[N_SLOTS]) {
   if constexpr (S != NONE) {
     using G = Grp<S, GI>;
@@ -245,7 +285,7 @@ __device__ __forceinline__ void sample_group(const ShadeGroups& g, int i,
     static_for<0, N_SLOTS>([&](auto j) { acc[decltype(j)::value] = 0.f; });
     if (kind == 2) {
       MipGeom geom;
-      const int r = load_mip_geom(g.gi[GI], g.gf[GI], i, n, &geom);
+      const int r = load_mip_geom(g.gi[GI], g.gf[GI], i, a.n, &geom);
       const uint8_t* row = g.tab[GI] + (size_t)r * g.row_bytes[GI];
       const MipTaps t = mip_taps(G::cs(g), geom);
       static_for<0, N_SLOTS>([&](auto j) {
@@ -258,14 +298,14 @@ __device__ __forceinline__ void sample_group(const ShadeGroups& g, int i,
       const int r = g.gi[GI][i];
       if (r >= 0 && r < g.rows[GI]) {
         const uint8_t* row = g.tab[GI] + (size_t)r * g.row_bytes[GI];
-        const float tx = g.gf[GI][i], ty = g.gf[GI][n + i];
+        const float tx = g.gf[GI][i], ty = g.gf[GI][a.n + i];
         with_cpad<G>(g, GI, [&](auto c) {
           sample_quad<decltype(c)::value>(row, tx, ty, np, acc);
         });
       }
     } else if (kind == 0) {
       with_cpad<G>(g, GI, [&](auto c) {
-        sample_block<decltype(c)::value>(g, GI, u, v, np, acc);
+        sample_block<decltype(c)::value, PAIR>(g, GI, a, i, u, v, np, acc);
       });
     } else {
       int x0i, y0i;
@@ -283,22 +323,6 @@ __device__ __forceinline__ void sample_group(const ShadeGroups& g, int i,
     });
   }
 }
-
-struct ShadeArgs {
-  const float *u, *v, *wx, *wy, *wz, *nx, *ny, *nz, *tgx, *tgy, *tgz;
-  const uint8_t* valid;    // the bool plane's bytes
-  const float* vis_plane;  // or NULL
-  const float* lp;         // (max(L, 1), 16) light rows
-  int n_lights;
-  const float* view_pos;
-  const int* nm_enable;
-  int quantize;           // the G-buffer's fp16 round trip
-  const float* exposure;       // tail: NULL when tonemap is 0
-  const int* tm_enable;
-  int quantize_hdr, tonemap;
-  int n;
-  float *out_r, *out_g, *out_b;
-};
 
 // The per-pixel input planes at pixel i.
 struct PixelPlanes {
@@ -325,7 +349,7 @@ __device__ __forceinline__ PixelPlanes load_pixel(const ShadeArgs& a,
 
 // Surface of covered pixel i from its planes: the groups' samples into the
 // slots, the normal map, the G-buffer's fp16 round trip; ``ao`` out.
-template <int S0, int S1, int S2, int S3>
+template <int PAIR, int S0, int S1, int S2, int S3>
 __device__ __forceinline__ void sampled_surface(const ShadeGroups& g,
                                                 const ShadeArgs& a, int i,
                                                 const PixelPlanes& p,
@@ -334,10 +358,10 @@ __device__ __forceinline__ void sampled_surface(const ShadeGroups& g,
                                                 float& ao) {
   float slots[N_SLOTS];
   static_for<0, N_SLOTS>([&](auto k) { slots[decltype(k)::value] = 0.f; });
-  sample_group<S0, 0>(g, i, a.n, p.u, p.v, slots);
-  sample_group<S1, 1>(g, i, a.n, p.u, p.v, slots);
-  sample_group<S2, 2>(g, i, a.n, p.u, p.v, slots);
-  sample_group<S3, 3>(g, i, a.n, p.u, p.v, slots);
+  sample_group<S0, 0, PAIR>(g, a, i, p.u, p.v, slots);
+  sample_group<S1, 1, PAIR>(g, a, i, p.u, p.v, slots);
+  sample_group<S2, 2, PAIR>(g, a, i, p.u, p.v, slots);
+  sample_group<S3, 3, PAIR>(g, a, i, p.u, p.v, slots);
 
   // Normal map (gbuffer.frag): N = TBN * (2*tap - 1), B = cross(N, T).
   const float* nrm = p.n;
@@ -371,7 +395,7 @@ __device__ __forceinline__ void sampled_surface(const ShadeGroups& g,
 
 // The block's pixels, grid-stride; RESIDENT: the lights fit the tile and
 // are staged (for_light_tiles).
-template <bool RESIDENT, int S0, int S1, int S2, int S3>
+template <bool RESIDENT, int PAIR, int S0, int S1, int S2, int S3>
 __device__ __forceinline__ void shade_pixels(const ShadeGroups& g,
                                              const ShadeArgs& a,
                                              PreparedLight* tile) {
@@ -391,8 +415,8 @@ __device__ __forceinline__ void shade_pixels(const ShadeGroups& g,
     Surface s;
     float ao = 0.f;
     if (hit)
-      sampled_surface<S0, S1, S2, S3>(g, a, i, load_pixel(a, i), vp, nm_on,
-                                      s, ao);
+      sampled_surface<PAIR, S0, S1, S2, S3>(g, a, i, load_pixel(a, i), vp,
+                                            nm_on, s, ao);
     float lo[3] = {0.f, 0.f, 0.f};
     for_light_tiles<RESIDENT>(a.lp, a.n_lights, tile,
                               [&](const PreparedLight* lights, int count) {
@@ -414,34 +438,46 @@ __device__ __forceinline__ void shade_pixels(const ShadeGroups& g,
 }
 
 // Four blocks a multiprocessor (at most 64 registers) for the fixed
-// layouts; the generic instantiation takes one, so that ptxas can go past
-// 64 registers there instead of spilling. RESIDENT and the tiled light path
-// are separate kernels, so that neither's registers constrain the other.
-template <bool RESIDENT, int S0, int S1, int S2, int S3>
-__global__ void __launch_bounds__(SHADE_THREADS, S0 == GEN ? 1 : 4)
+// layouts at pair level 0, two (128) at pair levels 1 and 2, whose group
+// anchor adds the members' footprints; the generic instantiation takes
+// one, so that ptxas can go past 64 registers there instead of spilling.
+// RESIDENT and the tiled light path are separate kernels, so that
+// neither's registers constrain the other.
+template <bool RESIDENT, int PAIR, int S0, int S1, int S2, int S3>
+__global__ void __launch_bounds__(SHADE_THREADS,
+                                  S0 == GEN ? 1 : (PAIR ? 2 : 4))
 shade_kernel(const __grid_constant__ ShadeGroups g,
              const __grid_constant__ ShadeArgs a) {
   __shared__ PreparedLight tile[LIGHT_TILE];
   if constexpr (RESIDENT) stage_lights(a.lp, a.n_lights, tile);
-  shade_pixels<RESIDENT, S0, S1, S2, S3>(g, a, tile);
+  shade_pixels<RESIDENT, PAIR, S0, S1, S2, S3>(g, a, tile);
 }
 
-template <bool RESIDENT, int S0, int S1, int S2, int S3>
+template <bool RESIDENT, int PAIR, int S0, int S1, int S2, int S3>
 cudaError_t launch_shade(const ShadeGroups& g, const ShadeArgs& a,
                          cudaStream_t stream) {
   static int wave[MAX_DEVICES];
-  auto kernel = shade_kernel<RESIDENT, S0, S1, S2, S3>;
+  auto kernel = shade_kernel<RESIDENT, PAIR, S0, S1, S2, S3>;
   const int blocks = resident_grid(kernel, SHADE_THREADS, a.n, wave);
   kernel<<<blocks, SHADE_THREADS, 0, stream>>>(g, a);
   return cudaGetLastError();
 }
 
-template <int S0, int S1, int S2, int S3>
+template <int PAIR, int S0, int S1, int S2, int S3>
 cudaError_t launch_layout(const ShadeGroups& g, const ShadeArgs& a,
                           cudaStream_t stream) {
   if (a.n_lights <= LIGHT_TILE)
-    return launch_shade<true, S0, S1, S2, S3>(g, a, stream);
-  return launch_shade<false, S0, S1, S2, S3>(g, a, stream);
+    return launch_shade<true, PAIR, S0, S1, S2, S3>(g, a, stream);
+  return launch_shade<false, PAIR, S0, S1, S2, S3>(g, a, stream);
+}
+
+// Layout S0..S3 at the call's pair level.
+template <int S0, int S1, int S2, int S3>
+cudaError_t launch_pair(int pair, const ShadeGroups& g, const ShadeArgs& a,
+                        cudaStream_t stream) {
+  if (pair == 1) return launch_layout<1, S0, S1, S2, S3>(g, a, stream);
+  if (pair == 2) return launch_layout<2, S0, S1, S2, S3>(g, a, stream);
+  return launch_layout<0, S0, S1, S2, S3>(g, a, stream);
 }
 
 // Group k's layout as the fixed instantiations spell it, or GEN where it
@@ -477,7 +513,9 @@ extern "C" int bb_shade_layout(const ShadeGroups* g) {
 }
 
 // generic: run the generic instantiation whatever the layout (tests and
-// measurement).
+// measurement). pair: the pair level of the block-table groups (0, 1, 2;
+// the mip layout runs at 0 only), npx the pixels a tile and tile_w its row
+// width.
 extern "C" int bb_shade(const ShadeGroups* g, const float* u, const float* v,
                         const float* wx, const float* wy, const float* wz,
                         const float* nx, const float* ny, const float* nz,
@@ -487,7 +525,8 @@ extern "C" int bb_shade(const ShadeGroups* g, const float* u, const float* v,
                         const float* view_pos, const int* nm_enable,
                         int quantize,
                         const float* exposure, const int* tm_enable,
-                        int quantize_hdr, int tonemap, int generic, int n,
+                        int quantize_hdr, int tonemap, int generic,
+                        int pair, int npx, int tile_w, int n,
                         float* out_r, float* out_g, float* out_b,
                         void* stream) {
   using namespace bb;
@@ -495,16 +534,18 @@ extern "C" int bb_shade(const ShadeGroups* g, const float* u, const float* v,
   const ShadeArgs a{u, v, wx, wy, wz, nx, ny, nz, tgx, tgy, tgz, valid,
                     vis_plane, lparams, n_lights, view_pos, nm_enable,
                     quantize, exposure, tm_enable,
-                    quantize_hdr, tonemap, n, out_r, out_g, out_b};
+                    quantize_hdr, tonemap, n, npx, tile_w,
+                    out_r, out_g, out_b};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (generic ? 0 : shade_layout(*g)) {
     case 1:
-      return (int)launch_layout<QUAD_ALB_NRM_H, BLOCK_MRA, NONE, NONE>(*g, a,
-                                                                        s);
+      return (int)launch_pair<QUAD_ALB_NRM_H, BLOCK_MRA, NONE, NONE>(
+          pair, *g, a, s);
     case 2:
-      return (int)launch_layout<MIP_ALB, ROUTED_NRM_MRAH, NONE, NONE>(*g, a,
-                                                                       s);
+      if (pair != 0) return (int)cudaErrorInvalidValue;
+      return (int)launch_layout<0, MIP_ALB, ROUTED_NRM_MRAH, NONE, NONE>(
+          *g, a, s);
     default:
-      return (int)launch_layout<GEN, GEN, GEN, GEN>(*g, a, s);
+      return (int)launch_pair<GEN, GEN, GEN, GEN>(pair, *g, a, s);
   }
 }

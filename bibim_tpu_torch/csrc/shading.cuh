@@ -160,6 +160,65 @@ __device__ __forceinline__ int floor_mod(int a, int b) {
   return r < 0 ? r + b : r;
 }
 
+// Pair-rate block sampling (texture_quad.pair_window, the reference's
+// block_prep(pair_rows)): pixel i of an (NT, npx) plane belongs to a group
+// of 2 x RX pixels (rows r, r + 1; columns c, c + RX - 1 from an even c).
+// The group anchors one 5x5 texel window at the min top-left tap of its
+// covered members per axis (of all members where none is covered), and
+// each pixel blends its own footprint relative to that window, its taps
+// clamped to the window edge (tx / ty exactly 0 or 1 outside it, so the
+// 4-live-tap blend of blend_block stays the 25-tap sum's bits). The
+// members' coverage and uv are read straight from the planes: a member's
+// uv only where it is covered, or where pixel i itself is not (then the
+// group may be uncovered and anchor at the min over all). ``valid`` NULL:
+// every pixel covered. Returns the anchor's block-row index; (ui, vi) is
+// pixel i's uv.
+template <int RX>
+__device__ __forceinline__ int pair_block_footprint(
+    const float* __restrict__ u, const float* __restrict__ v,
+    const uint8_t* __restrict__ valid, int i, int npx, int tile_w, int h,
+    int w, float ui, float vi, int* lx, int* ly, float* tx, float* ty) {
+  int x0i, y0i;
+  footprint(ui, vi, h, w, &x0i, &y0i, tx, ty);
+  const int t = i / npx, p = i - t * npx;
+  const int r = p / tile_w, c = p - r * tile_w;
+  const int g0 = t * npx + (r & ~1) * tile_w + (RX == 2 ? (c & ~1) : c);
+  const bool own = valid == nullptr || valid[i] != 0;
+  int mx_cov = 1 << 30, my_cov = 1 << 30;
+  int mx_all = 1 << 30, my_all = 1 << 30;
+  bool any = false;
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+#pragma unroll
+    for (int b = 0; b < RX; ++b) {
+      const int m = g0 + a * tile_w + b;
+      const bool cov = valid == nullptr || valid[m] != 0;
+      if (!(cov || !own)) continue;
+      int xm = x0i, ym = y0i;
+      if (m != i) {
+        float txm, tym;
+        footprint(__ldg(u + m), __ldg(v + m), h, w, &xm, &ym, &txm, &tym);
+      }
+      if (cov) {
+        mx_cov = min(mx_cov, xm);
+        my_cov = min(my_cov, ym);
+        any = true;
+      }
+      mx_all = min(mx_all, xm);
+      my_all = min(my_all, ym);
+    }
+  }
+  const int xr = any ? mx_cov : mx_all, yr = any ? my_cov : my_all;
+  const int bx = xr / 4, by = yr / 4;  // xr, yr >= 0
+  const int cx = floor_mod(x0i - bx * 4 + w / 2, w) - w / 2;
+  const int cy = floor_mod(y0i - by * 4 + h / 2, h) - h / 2;
+  *lx = min(max(cx, 0), 3);
+  *ly = min(max(cy, 0), 3);
+  if (cx < 0 || cx > 3) *tx = cx < 0 ? 0.f : 1.f;
+  if (cy < 0 || cy > 3) *ty = cy < 0 ? 0.f : 1.f;
+  return by * (w / 4) + bx;
+}
+
 // torch.maximum: NaN if either is NaN.
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || a > b) ? a : b;

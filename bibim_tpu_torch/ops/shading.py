@@ -2,9 +2,11 @@
 ``ops/shading_pallas``).
 
 K2, fused sampled shade (replaces ``shade_sampled_pallas`` and its
-``block_prep`` / ``small_prep`` glue, per-pixel sampling): one pass from
+``block_prep`` / ``small_prep`` glue, at pair levels 0, 1 and 2): one pass
+from
 material tables to masked HDR planes — bilinear samples of every size
-group (block tables and quad tables, rows read by index), tangent-space
+group (block tables, per pixel or one row a 2×1 / 2×2 pixel group, and
+quad tables, rows read by index), tangent-space
 normal map, the deferred G-buffer miss mask and RGBA16F (fp16) round trip,
 the GGX light loop with the optional shadow visibility plane, and the
 0.03·albedo·ao ambient term; optionally (``quantize_hdr``, ``tonemap``)
@@ -44,6 +46,7 @@ from bibim_tpu_torch.scene.lights import Lights, pack_lights
 
 # Row alignment the kernels' word loads need (16-byte quad-row vectors).
 _TABLE_ALIGN = 16
+_MIP_GROUPS = (tq.MipBlockMulti, tq.MipQuadMulti)
 
 
 def q16(x: torch.Tensor) -> torch.Tensor:
@@ -77,11 +80,12 @@ def sampled_groups_supported(tables) -> bool:
         for t in tables)
 
 
-def _sample_groups_plain(tables, u, v, mat_id, tile_h, tile_w) -> dict:
+def _sample_groups_plain(tables, u, v, mat_id, tile_h, tile_w, pair,
+                         valid) -> dict:
     slots = {}
     for t in tables:
         if isinstance(t, tq.BlockTable):
-            slots.update(tq.sample_table_block(t, u, v))
+            slots.update(tq.sample_table_block(t, u, v, pair, valid, tile_w))
         elif isinstance(t, tq.QuadTable):
             slots.update(tq.sample_table_small_plain(t, u, v))
         elif isinstance(t, tq.MipBlockMulti):
@@ -100,13 +104,15 @@ def shade_sampled_plain(tables, u, v, world, normal, tangent, valid,
                         vis_light: int = -1, mat_id=None,
                         tile_h: int = 8, tile_w: int = 128,
                         quantize_hdr: bool = False, tonemap: bool = False,
-                        enable_tone_mapping=None, exposure=None):
+                        enable_tone_mapping=None, exposure=None,
+                        pair: int = 0):
     """Plain version of K2 → (r, g, b) masked HDR planes (LDR after
     :func:`hdr_tail` with ``quantize_hdr`` / ``tonemap``)."""
     if not sampled_groups_supported(tables):
         raise NotImplementedError("shade_sampled: material groups "
                                   f"{[type(t).__name__ for t in tables]}")
-    slots = _sample_groups_plain(tables, u, v, mat_id, tile_h, tile_w)
+    slots = _sample_groups_plain(tables, u, v, mat_id, tile_h, tile_w, pair,
+                                 valid)
     zero = torch.zeros_like(u)
     for s in tq.SLOTS:
         slots.setdefault(s, zero)
@@ -225,7 +231,7 @@ def shade_sampled(tables, u, v, world, normal, tangent, valid,
                   mat_id=None, tile_h: int = 8, tile_w: int = 128,
                   quantize_hdr: bool = False, tonemap: bool = False,
                   enable_tone_mapping=None, exposure=None,
-                  generic: bool = False):
+                  generic: bool = False, pair: int = 0):
     """K2 wrapper. ``tables``: a binding :func:`sampled_groups_supported`
     accepts; pixel args (NT, tile_h·tile_w) float32 planes, ``valid``
     bool; ``view_pos`` (3,) float32; ``enable_normal_map`` a 0-dim int
@@ -235,8 +241,10 @@ def shade_sampled(tables, u, v, world, normal, tangent, valid,
     ``tonemap`` (with the 0-dim ``enable_tone_mapping`` and ``exposure``)
     run :func:`hdr_tail` in the kernel; ``generic`` runs the kernel's
     generic instantiation in place of the one compiled for the binding's
-    group layout, if there is one (tests and measurement; same output).
-    Returns (r, g, b)."""
+    group layout, if there is one (tests and measurement; same output);
+    ``pair`` 1 / 2 samples the block tables at that pair level
+    (``texture_quad.pair_window``, anchored by ``valid``), launches that
+    also count in ``pair_launches``. Returns (r, g, b)."""
     dev = u.device
     shape = u.shape
     planes = [u, v, *world, *normal, *tangent]
@@ -253,13 +261,17 @@ def shade_sampled(tables, u, v, world, normal, tangent, valid,
             u.ndim != 2 or u.shape[1] != tile_h * tile_w):
         raise ValueError("shade_sampled: mip groups need (NT, "
                          "tile_h·tile_w) tiled planes")
+    if pair and any(isinstance(t, _MIP_GROUPS) for t in tables):
+        raise ValueError("shade_sampled: mip groups sample per pixel "
+                         "(pair level 0)")
+    tq.check_pair_planes("shade_sampled", pair, u, valid, tile_w)
     if dev.type == "cpu":
         return shade_sampled_plain(tables, u, v, world, normal, tangent,
                                    valid, lights, view_pos,
                                    enable_normal_map, quantize,
                                    vis_plane, vis_light, mat_id, tile_h,
                                    tile_w, quantize_hdr, tonemap,
-                                   enable_tone_mapping, exposure)
+                                   enable_tone_mapping, exposure, pair)
     if dev.type != "cuda":
         raise RuntimeError(f"shade_sampled: unsupported device {dev}")
     groups, keep = _groups(tables, u, v, mat_id, tile_h, tile_w)
@@ -276,14 +288,18 @@ def shade_sampled(tables, u, v, world, normal, tangent, valid,
         ctypes.byref(groups), *(p(t) for t in planes[:11]), p(valid),
         _optional_ptr(vis_plane), p(lparams), lights.num_lights, p(vp),
         p(nm), int(quantize), _optional_ptr(expo), _optional_ptr(tm),
-        int(quantize_hdr), int(tonemap), int(generic), n, p(out[0]),
-        p(out[1]), p(out[2]), _build.stream_ptr(dev))
+        int(quantize_hdr), int(tonemap), int(generic), int(pair),
+        u.shape[-1] if u.ndim else 1, tile_w, n, p(out[0]), p(out[1]),
+        p(out[2]), _build.stream_ptr(dev))
     _build.check(err, "shade")
     shade_sampled.launches += 1
+    if pair:
+        shade_sampled.pair_launches += 1
     return out[0], out[1], out[2]
 
 
 shade_sampled.launches = 0
+shade_sampled.pair_launches = 0
 
 
 def shade_tonemap_plain(world, normal, albedo, metallic, roughness, ao,

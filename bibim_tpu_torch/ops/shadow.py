@@ -102,28 +102,52 @@ def shadow_factor(shadow: ShadowMap, world, bias: float = 2e-3):
 
 def shadow_factor_compact(shadow: ShadowMap, world, valid,
                           query_tile_cap: int, bias: float = 2e-3,
-                          pair: bool = False):
+                          pair: bool = False, tile_w: int = 128):
     """:func:`shadow_factor` with the PCF row read compacted to the tiles
     whose covered pixels land inside the light frustum (at most
     ``query_tile_cap``; the rest resolve lit). Returns ``(vis, dropped
     tiles)``; a footprint bigger than the cap is a non-zero drop count.
-    ``pair=True`` (the reference's lossy pair-rate PCF) is not ported."""
+
+    ``pair`` (pair_visibility, lossy): PCF at pair rate — one row read a
+    vertically adjacent pixel pair, at its even member if that one is
+    covered and inside the frustum or the odd one is not, else at the odd
+    one; both share that visibility, and a member outside the frustum
+    still resolves lit."""
     from bibim_tpu_torch.ops import fused
 
-    if pair:
-        raise NotImplementedError("pair-rate PCF (pair_visibility) is not "
-                                  "ported")
     cx, cy, cz = _light_clip(shadow, world)
     nt = cx.shape[0]
+
+    def pcf(cxc, cyc, czc, vc):
+        if not pair:
+            return _pcf(shadow, cxc, cyc, czc, bias)
+        ntc, npx = cxc.shape
+        hp = npx // tile_w // 2
+
+        def g(p):
+            return p.reshape(ntc, hp, 2, tile_w)
+
+        inside = _inside_frustum(cxc, cyc, czc)
+        pref = g(inside & vc)
+        use_even = pref[:, :, 0, :] | ~pref[:, :, 1, :]
+
+        def rep(p):
+            pg = g(p)
+            return torch.where(use_even, pg[:, :, 0, :], pg[:, :, 1, :])
+
+        vr = _pcf(shadow, rep(cxc), rep(cyc), rep(czc), bias)
+        vis = vr[:, :, None, :].expand(ntc, hp, 2, tile_w).reshape(ntc, npx)
+        return torch.where(inside, vis, torch.ones_like(vis))
+
     if query_tile_cap >= nt:
-        return (_pcf(shadow, cx, cy, cz, bias),
+        return (pcf(cx, cy, cz, valid),
                 torch.zeros((), dtype=torch.int32, device=cx.device))
     live = (_inside_frustum(cx, cy, cz) & valid).any(dim=1)
     ids, dropped = fused._compact_tile_list(live, query_tile_cap)
     ids = ids.long()
     vis = torch.ones_like(cx)
     # Dead slots repeat the first listed tile: idempotent under the write.
-    vis[ids] = _pcf(shadow, cx[ids], cy[ids], cz[ids], bias)
+    vis[ids] = pcf(cx[ids], cy[ids], cz[ids], valid[ids])
     return vis, dropped
 
 

@@ -1,5 +1,5 @@
 """Material tables and their plain samplers (port of
-``bibim_tpu.ops.texture_quad``, per-pixel sampling only).
+``bibim_tpu.ops.texture_quad``, per-pixel and pair-rate sampling).
 
 All maps of one resolution pack into one table ("size group"):
 
@@ -15,8 +15,11 @@ reads these rows by index. The standalone samplers here are two kernels
 and their plain versions:
 
 - K6, :func:`sample_table_block_kernel` (csrc/sample.cu, replaces
-  ``sample_table_block_pallas`` at pair_rows=0); plain version
-  :func:`sample_table_block`;
+  ``sample_table_block_pallas``, per pixel and at pair rate); plain
+  version :func:`sample_table_block`. At pair rate (pair_sampling 1 / 2)
+  each 2×1 / 2×2 pixel group reads one block row, anchored at
+  :func:`pair_window`; :func:`escape_tiles` flags the tiles where that is
+  not bit-exact;
 - K7, :func:`sample_rows_small` / :func:`sample_table_small`
   (csrc/sample.cu, replaces ``sample_rows_small_pallas`` /
   ``sample_table_small_pallas``); plain versions
@@ -196,20 +199,114 @@ def sample_table_xla(table: QuadTable, u, v) -> dict:
             for k, slot in enumerate(table.present)}
 
 
-def sample_table_block(table: BlockTable, u, v) -> dict:
+def pair_factors(pair_rows) -> tuple:
+    """(ry, rx) pixel-group factors of a pair_sampling level: 2×1 groups
+    at level 1, 2×2 at level 2."""
+    return 2, (2 if int(pair_rows) >= 2 else 1)
+
+
+def _rep_min(p, vp):
+    """Per-group window anchor of one axis: the min top-left tap over the
+    group's covered members, or over all members where none is covered.
+    ``p`` / ``vp``: (nt, hp, ry, wp, rx) tap / coverage planes → (nt, hp,
+    wp)."""
+    mn_cov = torch.where(vp, p, torch.full_like(p, 1 << 30)).amin(dim=(2, 4))
+    return torch.where(vp.any(dim=(2, 4)), mn_cov, p.amin(dim=(2, 4)))
+
+
+def pair_window(h: int, w: int, u, v, valid, pair_rows, tile_w: int = 128):
+    """Group-rate block sampling of (NT, NPX) planes at a pair_sampling
+    level (the JAX package's ``block_prep(pair_rows=)``): each group
+    anchors one (B+1)² texel window at ``_rep_min`` of its members'
+    top-left taps. Returns per pixel the anchor's block-row index and the
+    top-left tap (cx, cy) relative to the anchor block, REPEAT-wrapped
+    into [-w/2, w/2), with the footprint's fractions (tx, ty); a pixel is
+    inside the window where 0 ≤ cx, cy ≤ B-1. ``valid`` None: every pixel
+    covered."""
+    nt, npx = u.shape
+    b = BLOCK_B
+    ry, rx = pair_factors(pair_rows)
+    hp, wp = npx // tile_w // ry, tile_w // rx
+    if hp * ry * tile_w != npx or wp * rx != tile_w:
+        raise ValueError("pair sampling needs (NT, tile_h·tile_w) planes "
+                         "with an even tile_h")
+    x0i, y0i, tx, ty = _footprint_ints(u, v, h, w)
+    if valid is None:
+        valid = torch.ones(u.shape, dtype=torch.bool, device=u.device)
+
+    def groups(p):
+        return p.reshape(nt, hp, ry, wp, rx)
+
+    def full(p):  # (nt, hp, wp) group plane → every member's pixel
+        return p[:, :, None, :, None].expand(nt, hp, ry, wp, rx).reshape(
+            nt, npx)
+
+    vp = groups(valid)
+    xr = _rep_min(groups(x0i), vp)
+    yr = _rep_min(groups(y0i), vp)
+    row = full((yr // b) * (w // b) + xr // b)
+    cx = torch.remainder(x0i - full((xr // b) * b) + w // 2, w) - w // 2
+    cy = torch.remainder(y0i - full((yr // b) * b) + h // 2, h) - h // 2
+    return row, cx, cy, tx, ty
+
+
+def _in_window(c):
+    return (c >= 0) & (c <= BLOCK_B - 1)
+
+
+def escape_tiles_hw(h: int, w: int, u, v, valid, pair_rows,
+                    tile_w: int = 128) -> torch.Tensor:
+    """(NT,) flags of the tiles where a covered pixel's footprint leaves
+    its group's window at ``pair_rows`` (:func:`pair_window`, the
+    sampler's own integer math): elsewhere group-rate sampling is
+    bit-exact. From a table's (height, width) alone."""
+    _, cx, cy, _, _ = pair_window(h, w, u, v, valid, pair_rows, tile_w)
+    return (valid & ~(_in_window(cx) & _in_window(cy))).any(dim=1)
+
+
+def escape_tiles(table: BlockTable, u, v, valid, pair_rows,
+                 tile_w: int = 128) -> torch.Tensor:
+    """:func:`escape_tiles_hw` of a bound block table."""
+    return escape_tiles_hw(table.height, table.width, u, v, valid,
+                           pair_rows, tile_w)
+
+
+def _block_taps(table: BlockTable, u, v, pair_rows, valid, tile_w):
+    """Flat (row index, lx, ly, tx, ty) of each pixel's 25-tap blend: its
+    own block at pair level 0, else the group anchor's block with the
+    taps clamped to the window edge (tx / ty exactly 0 or 1 there)."""
+    b = BLOCK_B
+    if not pair_rows:
+        x0i, y0i, tx, ty = _footprint_ints(u.reshape(-1), v.reshape(-1),
+                                           table.height, table.width)
+        row = (y0i // b) * (table.width // b) + x0i // b
+        return row, x0i % b, y0i % b, tx, ty
+    row, cx, cy, tx, ty = pair_window(table.height, table.width, u, v,
+                                      valid, pair_rows, tile_w)
+
+    def clamp_frac(c, f):
+        edge = torch.where(c < 0, torch.zeros_like(f), torch.ones_like(f))
+        return torch.where(_in_window(c), f, edge)
+
+    return (row.reshape(-1), torch.clamp(cx, 0, b - 1).reshape(-1),
+            torch.clamp(cy, 0, b - 1).reshape(-1),
+            clamp_frac(cx, tx).reshape(-1), clamp_frac(cy, ty).reshape(-1))
+
+
+def sample_table_block(table: BlockTable, u, v, pair_rows: int = 0,
+                       valid=None, tile_w: int = 128) -> dict:
     """One block-row read per pixel + the 25-tap (j, i) row-major blend;
-    dead taps add exact zeros, so this equals the quad-table sampler."""
+    dead taps add exact zeros, so this equals the quad-table sampler.
+    ``pair_rows`` 1 / 2: group-rate sampling (:func:`_block_taps`) of
+    (NT, tile_h·tile_w) planes, ``valid`` the coverage that anchors each
+    group's window (None: all)."""
     shape = u.shape
     b = BLOCK_B
     s = b + 1
-    nbx = table.width // b
     cpad = _ceil4(len(table.present))
-    x0i, y0i, tx, ty = _footprint_ints(u.reshape(-1), v.reshape(-1),
-                                       table.height, table.width)
-    q = table.blocks[((y0i // b) * nbx + (x0i // b)).long()]
+    row, lx, ly, tx, ty = _block_taps(table, u, v, pair_rows, valid, tile_w)
+    q = table.blocks[row.long()]
     qt = q.T.to(torch.float32) * _INV255  # (row_bytes, N)
-    lx = x0i % b
-    ly = y0i % b
     one_m_tx = 1.0 - tx
     one_m_ty = 1.0 - ty
     zero = torch.zeros_like(tx)
@@ -243,11 +340,34 @@ def _check_table(fn: str, tab: torch.Tensor, device) -> None:
                          f"tensor on {device}")
 
 
-def sample_table_block_kernel(table: BlockTable, u, v) -> dict:
+def check_pair_planes(fn: str, pair_rows, u, valid, tile_w: int) -> None:
+    """The planes a pair-rate sample takes: (NT, tile_h·tile_w) with an
+    even tile_h (and an even tile_w at level 2); ``valid`` None or a
+    contiguous bool plane of their shape and device."""
+    if pair_rows not in (0, 1, 2):
+        raise ValueError(f"{fn}: pair level {pair_rows} is not 0, 1 or 2")
+    if not pair_rows:
+        return
+    ry, rx = pair_factors(pair_rows)
+    if (u.ndim != 2 or tile_w % rx or u.shape[1] % (ry * tile_w)):
+        raise ValueError(f"{fn}: pair level {pair_rows} needs (NT, "
+                         "tile_h·tile_w) planes with an even tile_h")
+    if valid is not None and (
+            valid.dtype != torch.bool or valid.shape != u.shape
+            or valid.device != u.device or not valid.is_contiguous()):
+        raise ValueError(f"{fn}: valid must be a contiguous bool plane of "
+                         "the uv planes' shape")
+
+
+def sample_table_block_kernel(table: BlockTable, u, v, pair_rows: int = 0,
+                              valid=None, tile_w: int = 128) -> dict:
     """K6 wrapper (csrc/sample.cu): slot → plane sampled at planar uv;
     the same contract as :func:`sample_table_block`, which it runs only
-    for CPU tensors."""
+    for CPU tensors. Launches at pair level 1 / 2 also count in
+    ``pair_launches``."""
     _check_uv("sample_table_block_kernel", u, v)
+    check_pair_planes("sample_table_block_kernel", pair_rows, u, valid,
+                      tile_w)
     dev = u.device
     tab = table.blocks
     _check_table("sample_table_block_kernel", tab, dev)
@@ -258,22 +378,27 @@ def sample_table_block_kernel(table: BlockTable, u, v) -> dict:
     if tab.shape[1] < (BLOCK_B + 1) ** 2 * cpad or n_out > len(SLOTS):
         raise ValueError("block table rows too short for their slots")
     if dev.type == "cpu":
-        return sample_table_block(table, u, v)
+        return sample_table_block(table, u, v, pair_rows, valid, tile_w)
     if dev.type != "cuda":
         raise RuntimeError(f"sample_table_block_kernel: unsupported device "
                            f"{dev}")
     out = torch.empty((n_out,) + tuple(u.shape), dtype=torch.float32,
                       device=dev)
     p = _build.ptr
+    npx = u.shape[-1] if u.ndim else 1
     err = _build.library().bb_sample_block(
         p(tab), tab.shape[1], table.height, table.width, cpad, n_out, p(u),
-        p(v), u.numel(), p(out), _build.stream_ptr(dev))
+        p(v), None if valid is None else p(valid), int(pair_rows), npx,
+        tile_w, u.numel(), p(out), _build.stream_ptr(dev))
     _build.check(err, "sample_block")
     sample_table_block_kernel.launches += 1
+    if pair_rows:
+        sample_table_block_kernel.pair_launches += 1
     return {slot: out[k] for k, slot in enumerate(table.present)}
 
 
 sample_table_block_kernel.launches = 0
+sample_table_block_kernel.pair_launches = 0
 
 
 def sample_rows_small_plain(quads: torch.Tensor, idx, tx, ty,
@@ -355,7 +480,8 @@ def _fill_slots(out: dict, like) -> dict:
     return out
 
 
-def sample_material(tables: tuple, u, v, kernels=None) -> dict:
+def sample_material(tables: tuple, u, v, kernels=None, pair_rows: int = 0,
+                    valid=None, tile_w: int = 128) -> dict:
     """Every SLOTS entry sampled at planar uv (missing slots are 0).
 
     ``kernels`` (``pipeline.Kernels``, or anything with ``sample_block``
@@ -365,13 +491,16 @@ def sample_material(tables: tuple, u, v, kernels=None) -> dict:
     to ``kernels.sample_small`` (K7, rows by footprint index), bigger ones
     to :func:`sample_table_xla`. ``kernels=None`` is its
     ``use_pallas=False`` form: :func:`sample_table_block` and
-    :func:`sample_table_xla`."""
+    :func:`sample_table_xla`. ``pair_rows`` / ``valid`` / ``tile_w``:
+    group-rate sampling of the block tables (quad tables always sample
+    per pixel)."""
     out = {}
     for table in tables:
         if isinstance(table, BlockTable):
             fn = sample_table_block if kernels is None \
                 else kernels.sample_block
-            out.update(fn(table, u, v))
+            out.update(fn(table, u, v, pair_rows=pair_rows, valid=valid,
+                          tile_w=tile_w) if pair_rows else fn(table, u, v))
         elif (kernels is not None
               and table.height * table.width <= SMALL_ROWS):
             idx, tx, ty = _footprint(u, v, table.height, table.width)

@@ -1,6 +1,7 @@
-"""The frame function (port of ``bibim_tpu.pipeline.framegraph``, the
+"""The frame function (port of ``bibim_tpu.pipeline.framegraph``: the
 deferred PBR branch with shadows, IBL, trilinear mip bindings with
-per-batch material routing, and the G-buffer views).
+per-batch material routing, pair-rate sampling and PCF, and the G-buffer
+views; and the flat-shaded branch).
 
 Stages of :func:`render_frame`:
 
@@ -12,9 +13,14 @@ Stages of :func:`render_frame`:
    shadow map's grid, depth plane only) and the screen-side PCF
    visibility of the shadow-casting light (``ops.shadow``);
 5. shading, either
+   - ``shading="flat"``: the raster's colour Lambert-lit in view space
+     (``shade_flat_planar``), no material and no compaction; or
    - without IBL: the sampled shade (K2) — materials (block, quad,
      mip-block and material-routed small groups), normal map, fp16
-     G-buffer, GGX with the visibility plane; or
+     G-buffer, GGX with the visibility plane; with ``pair_sampling`` the
+     block tables sample at group rate on the tiles where that is exact
+     (:func:`_sampled_ldr`: escape flags, a clean and an exact K2 pass,
+     scattered back by slot), or everywhere with ``pair_lossy``; or
    - with IBL, a G-buffer view, or a binding K2 cannot sample: the
      G-buffer planes sampled through the block-table (K6), small-table
      (K7) and mip-block (K8) samplers, then the split-sum IBL ambient
@@ -28,9 +34,9 @@ Stages of :func:`render_frame`:
 
 The main pass takes the reference's raster schedule variants: early-z
 (K9, every pass), the group window (K10) and fine subtiles (K11);
-``merged_coverage`` is accepted and has no counterpart. Settings outside the port (forward lighting,
-pair sampling and pair visibility, anisotropic taps, TBN, flat
-main-frame shading) raise NotImplementedError.
+``merged_coverage`` is accepted and has no counterpart. Settings outside
+the port (forward lighting, anisotropic taps, TBN, the XLA raster, the
+legacy geometry) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -183,7 +189,8 @@ class Kernels(NamedTuple):
     sort: Callable  # K3
     shade: Callable  # K2
     shade_gbuffer: Callable  # K5
-    sample_block: Callable  # K6: (BlockTable, u, v) → slot planes
+    # K6: (BlockTable, u, v[, pair_rows=, valid=, tile_w=]) → slot planes
+    sample_block: Callable
     # K7: (quads, idx, tx, ty, present) → slot planes
     sample_small: Callable
     # K8: (MipBlockMulti, mat_id, u, v, tile_h, tile_w) → slot planes
@@ -218,14 +225,14 @@ def _is_mip_binding(materials) -> bool:
 def check_supported(settings: RenderSettings, materials) -> None:
     """Raise NotImplementedError for any setting outside this slice."""
     s = settings
+    flat = s.shading == "flat"
     checks = [
-        (not s.deferred, "deferred=False (forward lighting)"),
-        (s.shading != "pbr", f"shading={s.shading!r}"),
+        (not s.deferred and not flat, "deferred=False (forward lighting)"),
+        (s.shading not in ("pbr", "flat"), f"shading={s.shading!r}"),
         (s.show_tbn, "show_tbn"),
         (s.aniso_taps != 1, f"aniso_taps={s.aniso_taps}"),
-        (bool(s.pair_sampling), f"pair_sampling={s.pair_sampling}"),
-        (s.pair_lossy, "pair_lossy"),
-        (s.pair_visibility, "pair_visibility"),
+        (s.pair_sampling not in (0, 1, 2),
+         f"pair_sampling={s.pair_sampling}"),
         (s.raster != "auto", f"raster={s.raster!r}"),
         (s.geometry == "legacy", "geometry='legacy'"),
         (not s.sequential_tris, "sequential_tris=False"),
@@ -233,7 +240,7 @@ def check_supported(settings: RenderSettings, materials) -> None:
          f"outputs={s.outputs!r}"),
     ]
     bad = [msg for cond, msg in checks if cond]
-    if not (isinstance(materials, tuple) and materials and (
+    if not flat and not (isinstance(materials, tuple) and materials and (
             all(isinstance(t, _TABLES) for t in materials)
             or all(isinstance(t, _MIP_TABLES) for t in materials))):
         bad.append("materials other than a tuple of QuadTable/BlockTable "
@@ -245,11 +252,14 @@ def check_supported(settings: RenderSettings, materials) -> None:
 
 def _prunable_fields(settings: RenderSettings) -> tuple:
     """Raster output planes the production frame never reads: none for
-    "full" or a G-buffer view; the material-id plane only without
-    per-batch material ids."""
+    "full" or a G-buffer view; all but colour and normal for a flat frame;
+    the material-id plane only without per-batch material ids."""
     if (settings.outputs == "full"
             or settings.gbuffer_viz != GBufferViz.RENDERED_SCENE):
         return ()
+    if settings.shading == "flat":  # colour and normal only
+        keep = ("idf", "nx", "ny", "nz", "cr", "cg", "cb")
+        return tuple(f for f in fused._OUT_FIELDS if f not in keep)
     drop = ("depth", "b0", "b1", "cr", "cg", "cb")
     return drop if settings.batch_material_ids is not None \
         else drop + ("matf",)
@@ -304,6 +314,51 @@ def _compact_ids(mask: torch.Tensor, k: int, sentinel: int):
     return ids.long(), over
 
 
+def _effective_pair(materials, settings: RenderSettings) -> int:
+    """The pair level the sampled shade runs: mip bindings sample per
+    pixel (their LOD comes from screen-space uv differences)."""
+    pair = int(settings.pair_sampling)
+    if pair and any(isinstance(t, _MIP_TABLES) for t in materials):
+        pair = 0
+    return pair
+
+
+def _routes(materials, settings: RenderSettings) -> bool:
+    """True where the sampled shade routes tiles between a group-rate and
+    an exact pass (pair sampling on a block table, not lossy)."""
+    return (isinstance(materials, tuple) and not settings.pair_lossy
+            and any(isinstance(t, tq.BlockTable) for t in materials)
+            and _effective_pair(materials, settings) > 0)
+
+
+def _escape_flags(materials, px, pair: int, tile_w: int) -> torch.Tensor:
+    """(NT,) tiles where a covered pixel escapes its group's window in any
+    block table (``texture_quad.escape_tiles``)."""
+    u, v = px.uv
+    valid = px.tri_id >= 0
+    flags = None
+    for t in materials:
+        if isinstance(t, tq.BlockTable):
+            f = tq.escape_tiles(t, u, v, valid, pair, tile_w)
+            flags = f if flags is None else flags | f
+    return flags
+
+
+def _route_slots(flags: torch.Tensor, q_cap: int, e_cap: int):
+    """The router's slot partition: clean tiles (no escape) to the
+    group-rate pass up to ``q_cap`` (the clean tiles beyond it to the
+    exact pass), the rest to the exact pass up to ``e_cap``; sentinel
+    slots at NT. Returns (clean ids, exact ids, exact-pass overflow)."""
+    nt = flags.shape[0]
+    q_cap, e_cap = min(int(q_cap), nt), min(int(e_cap), nt)
+    clean = ~flags
+    rank = torch.cumsum(clean.to(torch.int32), 0) - 1
+    over_q = clean & (rank >= q_cap)
+    clean_ids, _ = _compact_ids(clean & ~over_q, q_cap, nt)
+    esc_ids, esc_over = _compact_ids(flags | over_q, e_cap, nt)
+    return clean_ids, esc_ids, esc_over
+
+
 def _map_pixels(px: fused.FusedPixels, fn) -> fused.FusedPixels:
     def go(x):
         if isinstance(x, tuple):
@@ -318,12 +373,26 @@ def _tile_diag(dropped, device) -> fused.BinDiag:
     return fused.BinDiag(z, z, z, dropped.to(torch.int32))
 
 
+def _slot_rows(p: torch.Tensor, ids, fill=0) -> torch.Tensor:
+    """Tiles ``ids`` of a per-tile plane; the sentinel id NT reads
+    ``fill``."""
+    return torch.cat([p, torch.full_like(p[:1], fill)])[ids].contiguous()
+
+
+def _slot_pixels(px: fused.FusedPixels, ids) -> fused.FusedPixels:
+    """The pixels' tiles ``ids``; the sentinel id NT reads a dead tile
+    (tri_id -1, every other plane 0)."""
+    return _map_pixels(px, lambda p: _slot_rows(
+        p, ids, -1 if p is px.tri_id else 0))
+
+
 def _materialize_gbuffer_planes(px, materials, view_block,
                                 settings: RenderSettings,
                                 kernels: Kernels | None = None):
     """G-buffer planes: material samples (through ``kernels``' K6/K7/K8,
     or the plain XLA-order samplers with None; mip bindings routed per
-    pixel by the material-id plane) + normal map + mask + fp16."""
+    pixel by the material-id plane; block tables at group rate under
+    ``pair_lossy``) + normal map + mask + fp16."""
     valid = px.tri_id >= 0
     u, v = px.uv
     if _is_mip_binding(materials):
@@ -331,7 +400,12 @@ def _materialize_gbuffer_planes(px, materials, view_block,
             materials, px.mat_id, u, v, settings.tile_h, settings.tile_w,
             kernels)
     else:
-        slots = tq.sample_material(materials, u, v, kernels)
+        # Group-rate block sampling here only in the lossy mode: this path
+        # does not route tiles.
+        slots = tq.sample_material(
+            materials, u, v, kernels,
+            pair_rows=settings.pair_sampling if settings.pair_lossy else 0,
+            valid=valid, tile_w=settings.tile_w)
     albedo = (slots["alb_r"], slots["alb_g"], slots["alb_b"])
     nmap = (slots["nrm_x"], slots["nrm_y"], slots["nrm_z"])
     normal = apply_normal_map(px.normal, px.tangent, nmap,
@@ -411,12 +485,11 @@ def _world_bounds_planar(world, ranges=None):
             torch.stack([bound(k, torch.max) for k in range(3)]))
 
 
-def _shadow_map_planar(psoup: PlanarSoup, lights: Lights,
-                       settings: RenderSettings, kernels: Kernels,
-                       fit_ranges=None):
-    """Depth-only light pass through the frame's raster (K1, every plane
-    but depth dropped) → (ShadowMap, BinDiag of the pass)."""
-    size = settings.shadow_size
+def _light_clip_planar(psoup: PlanarSoup, lights: Lights,
+                       settings: RenderSettings, fit_ranges=None):
+    """The shadow-casting light's frustum (fit to the scene, its XY to
+    ``fit_ranges`` where given) and the corner planes in its clip space.
+    Returns (light view-projection, clip planes)."""
     d = lights.dir[settings.shadow_light]
     wmin, wmax = _world_bounds_planar(psoup.world)
     fmin = fmax = None
@@ -428,6 +501,17 @@ def _shadow_map_planar(psoup: PlanarSoup, lights: Lights,
         tuple(lvp[m, 0] * w[0][c] + lvp[m, 1] * w[1][c]
               + lvp[m, 2] * w[2][c] + lvp[m, 3] for c in range(3))
         for m in range(4))
+    return lvp, clip_l
+
+
+def _shadow_map_planar(psoup: PlanarSoup, lights: Lights,
+                       settings: RenderSettings, kernels: Kernels,
+                       fit_ranges=None):
+    """Depth-only light pass through the frame's raster (K1, every plane
+    but depth dropped) → (ShadowMap, BinDiag of the pass)."""
+    size = settings.shadow_size
+    lvp, clip_l = _light_clip_planar(psoup, lights, settings, fit_ranges)
+    w = psoup.world
     setup_l = triangle_setup_planar(clip_l, size, size)
     zero = torch.zeros_like(w[0][0])
     z3 = ((zero,) * 3,) * 3
@@ -448,11 +532,16 @@ def _shadow_map_planar(psoup: PlanarSoup, lights: Lights,
 def _pcf_vis(smap: sh.ShadowMap, px, settings: RenderSettings, sh_diag):
     """Screen-side PCF visibility; compacted to the frustum footprint's
     tiles when ``shadow_query_tile_cap`` is set (dropped footprint tiles
-    add to the shadow pass's BinDiag)."""
-    if settings.shadow_query_tile_cap is not None:
+    add to the shadow pass's BinDiag), at pair rate with
+    ``pair_visibility``."""
+    if (settings.shadow_query_tile_cap is not None
+            or settings.pair_visibility):
+        cap = settings.shadow_query_tile_cap
         vis, dropped = sh.shadow_factor_compact(
-            smap, px.world, px.tri_id >= 0, settings.shadow_query_tile_cap,
-            settings.shadow_bias)
+            smap, px.world, px.tri_id >= 0,
+            px.tri_id.shape[0] if cap is None else cap,
+            settings.shadow_bias, pair=settings.pair_visibility,
+            tile_w=settings.tile_w)
         return vis, sh_diag._replace(
             dropped_tiles=sh_diag.dropped_tiles + dropped)
     return sh.shadow_factor(smap, px.world, settings.shadow_bias), sh_diag
@@ -640,23 +729,84 @@ def _composite_gizmo(ldr3_img, view, proj, overlay: OverlayResources,
     return tuple(out), gz_diag
 
 
-def _ldr_planes(ldr3, compact_ids, nt_full: int) -> torch.Tensor:
-    """The shaded LDR planes as one (3, NT, NPX) tensor that the overlay
-    composites write in place, and nothing else reads: the shading
-    kernel's own output where the three planes are its views, else their
-    stack; with live-tile compaction (``compact_ids``, dead slots at
-    ``nt_full``), scattered into the first NT tiles of a zeroed
-    (3, NT + 1, NPX) buffer."""
+def _as_planes(ldr3) -> torch.Tensor:
+    """Three LDR planes as one (3, NT, NPX) tensor: the shading kernel's
+    own output where they are its views (or the tensor itself), else
+    their stack."""
+    if isinstance(ldr3, torch.Tensor):
+        return ldr3
     base = ldr3[0]._base
     own = (base is not None and base.dim() == 3 and base.shape[0] == 3
+           and base.shape[1:] == ldr3[0].shape
            and all(c._base is base and c.data_ptr() == base[i].data_ptr()
                    for i, c in enumerate(ldr3)))
-    planes = base if own else torch.stack(ldr3)
+    return base if own else torch.stack(ldr3)
+
+
+def _scatter_slots(planes: torch.Tensor, ids, nt: int,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """(3, K, NPX) ``planes`` of slots ``ids`` (sentinel NT) into a zeroed
+    (3, NT + 1, NPX) buffer, or into ``out``; returns the buffer."""
+    if out is None:
+        out = planes.new_zeros((3, nt + 1, planes.shape[2]))
+    out[:, ids] = planes
+    return out
+
+
+def _ldr_planes(ldr3, compact_ids, nt_full: int) -> torch.Tensor:
+    """The shaded LDR planes as one (3, NT, NPX) tensor that the overlay
+    composites write in place, and nothing else reads
+    (:func:`_as_planes`); with live-tile compaction (``compact_ids``,
+    dead slots at ``nt_full``), scattered into the first NT tiles of a
+    zeroed (3, NT + 1, NPX) buffer."""
+    planes = _as_planes(ldr3)
     if compact_ids is None:
         return planes
-    full = planes.new_zeros((3, nt_full + 1, planes.shape[2]))
-    full[:, compact_ids] = planes
-    return full[:, :nt_full]
+    return _scatter_slots(planes, compact_ids, nt_full)[:, :nt_full]
+
+
+def _sampled_ldr(px, materials, lights: Lights, view_block: ViewBlock,
+                 frame_params: FrameParams, settings: RenderSettings,
+                 kernels: Kernels, light_vis, diags: list):
+    """LDR planes of the sampled shade (K2 with the fp16 + tone-map tail).
+
+    With ``pair_sampling`` (and a block table, not lossy) the tiles route:
+    those with no escaping pixel (:func:`_escape_flags`) run K2 at the
+    pair level, the rest K2 per pixel, each pass on its compacted slots
+    (``sample_route_caps`` = (clean cap, exact cap); clean tiles past
+    their cap run exact, exact tiles past theirs add to
+    ``BinDiag.dropped_tiles``), and the LDR planes scatter back by slot
+    (the tail is per pixel, so this equals scattering HDR). The frame is
+    then bit-equal to pair level 0. ``pair_lossy``: one unrouted pass at
+    the pair level."""
+    pair = _effective_pair(materials, settings)
+
+    def shade(p, lv, level):
+        return kernels.shade(
+            materials, p.uv[0], p.uv[1], p.world, p.normal, p.tangent,
+            p.tri_id >= 0, lights, view_block.view_pos,
+            view_block.enable_normal_map, quantize=settings.quantize_fp16,
+            vis_plane=_vis_plane(lv, settings),
+            vis_light=settings.shadow_light, mat_id=p.mat_id,
+            tile_h=settings.tile_h, tile_w=settings.tile_w,
+            quantize_hdr=settings.quantize_fp16, tonemap=True,
+            enable_tone_mapping=frame_params.enable_tone_mapping,
+            exposure=frame_params.exposure, pair=level)
+
+    if not _routes(materials, settings):
+        return shade(px, light_vis, pair)
+    flags = _escape_flags(materials, px, pair, settings.tile_w)
+    nt = flags.shape[0]
+    q_cap, e_cap = settings.sample_route_caps or (nt, nt)
+    clean_ids, esc_ids, esc_over = _route_slots(flags, q_cap, e_cap)
+    diags.append(_tile_diag(esc_over, flags.device))
+    out = None
+    for ids, level in ((clean_ids, pair), (esc_ids, 0)):
+        lv = None if light_vis is None else {
+            k: _slot_rows(p, ids) for k, p in light_vis.items()}
+        ldr = shade(_slot_pixels(px, ids), lv, level)
+        out = _scatter_slots(_as_planes(ldr), ids, nt, out)
+    return out[:, :nt]
 
 
 def _assemble_and_raster(scene: SceneData, view_block: ViewBlock,
@@ -701,9 +851,28 @@ def render_frame(scene: SceneData, view_block: ViewBlock,
 
     nt_full = px.tri_id.shape[0]
     compact_ids = None
+    flat = settings.shading == "flat"
     viz = settings.gbuffer_viz != GBufferViz.RENDERED_SCENE
     can_compact = (settings.live_tile_cap is not None
-                   and settings.live_tile_cap < nt_full and not viz)
+                   and settings.live_tile_cap < nt_full and not viz
+                   and not flat)
+    if (settings.outputs == "full" and settings.sample_route_caps
+            and not flat and _routes(materials, settings)):
+        # Debug frames shade through the plain chain but still report
+        # whether the production router's caps would overflow: escape
+        # tiles past the exact cap, with the clean tiles past the clean
+        # cap that fall through to it.
+        flags = _escape_flags(materials, px,
+                              _effective_pair(materials, settings),
+                              settings.tile_w)
+        nt_prod = (min(settings.live_tile_cap, nt_full) if can_compact
+                   else nt_full)
+        q_cap, e_cap = settings.sample_route_caps
+        esc_n = flags.sum(dtype=torch.int32)
+        over_q = torch.clamp(nt_prod - esc_n - min(int(q_cap), nt_prod),
+                             min=0)
+        diags.append(_tile_diag(torch.clamp(
+            esc_n + over_q - min(int(e_cap), nt_prod), min=0), dev))
     if can_compact:
         live = (px.tri_id >= 0).any(dim=1)
         if settings.outputs == "full":
@@ -717,17 +886,13 @@ def render_frame(scene: SceneData, view_block: ViewBlock,
                                                 nt_full)
             diags.append(_tile_diag(dropped, dev))
 
-            def sub(p):
-                fill = -1 if p is px.tri_id else 0
-                pad = torch.full_like(p[:1], fill)
-                return torch.cat([p, pad])[compact_ids].contiguous()
-
-            px = _map_pixels(px, sub)
+            px = _slot_pixels(px, compact_ids)
 
     valid = px.tri_id >= 0
     gb = {}
     light_vis = None
-    if settings.enable_shadows and scene.lights.num_lights > 0:
+    if (settings.enable_shadows and scene.lights.num_lights > 0
+            and not flat):
         vis_plane, sh_diag = _shadow_vis_any(psoup, px, scene, settings,
                                              kernels)
         light_vis = {settings.shadow_light: vis_plane}
@@ -735,19 +900,17 @@ def render_frame(scene: SceneData, view_block: ViewBlock,
 
     ldr3 = None
     production = settings.outputs != "full"
-    if (production and not settings.enable_ibl and not viz
+    if flat:
+        # Unlit flat colour, Lambert in view space (gizmo.frag's model):
+        # BASELINE config 1 and colour-only meshes.
+        hdr3 = shade_flat_planar(px.color, px.normal, view_block.view[:3, :3])
+        zero = torch.zeros_like(hdr3[0])
+        hdr3 = tuple(torch.where(valid, c, zero) for c in hdr3)
+    elif (production and not settings.enable_ibl and not viz
             and sampled_groups_supported(materials)):
-        # K2 with the frame's fp16 + tone-map tail as its epilogue.
-        ldr3 = kernels.shade(
-            materials, px.uv[0], px.uv[1], px.world, px.normal, px.tangent,
-            valid, scene.lights, view_block.view_pos,
-            view_block.enable_normal_map, quantize=settings.quantize_fp16,
-            vis_plane=_vis_plane(light_vis, settings),
-            vis_light=settings.shadow_light, mat_id=px.mat_id,
-            tile_h=settings.tile_h, tile_w=settings.tile_w,
-            quantize_hdr=settings.quantize_fp16, tonemap=True,
-            enable_tone_mapping=frame_params.enable_tone_mapping,
-            exposure=frame_params.exposure)
+        ldr3 = _sampled_ldr(px, materials, scene.lights, view_block,
+                            frame_params, settings, kernels, light_vis,
+                            diags)
     else:
         # The production frame samples through K6/K7/K8 and shades on K5;
         # "full" keeps the plain chain.

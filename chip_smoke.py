@@ -8,14 +8,22 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    and, per kernel instantiation, ptxas's registers, stack frame and spill
    bytes (every K2, K4, K5, K8, K9, K10 and K11 instantiation must have a
    0-byte stack frame and no spills);
-2. builds the frames from repository-only inputs: the ShaderBall scene's
+2. the 512×512 flat-shaded frame (BASELINE config 1: GizmoScene on a
+   coloured 360-triangle stand-in for gizmo.obj, the gizmo camera, no
+   lights, bench.py's default capacities): K1 and K3 against their plain
+   versions, then the frame with the counters reset just before;
+3. builds the frames from repository-only inputs: the ShaderBall scene's
    structure (100× ground plane at y=-10, the three ShaderBall lights, the
    default camera) with a ~10k-triangle UV sphere at the ball's instance
    transform standing in for ShaderBall.fbx, and seeded random materials
    bound like the headline frame — 2048² metallic / roughness / ao as one
    block table, 16² albedo / normal / height as one quad table; light
-   spheres on, gizmo off (gizmo.obj is not in the repository);
-3. the 1920×1080 deferred PBR path (BASELINE config 3): checks K1 raster,
+   spheres on, gizmo off (gizmo.obj is not in the repository); configs
+   3, 4 and 5 take their capacities from ``autotune_settings(...,
+   pair_sampling=2, margin=1.05, materials=, overlay=)`` per view, as
+   bench.py does, and print the probe's escape and covered tiles and the
+   derived pair level and route caps;
+4. the 1920×1080 deferred PBR path (BASELINE config 3): checks K1 raster,
    K2 sampled shade (with and without a shadow visibility plane), K3 pair
    sort and K4 overlay against their plain PyTorch versions on the inputs
    the frame itself produces and times both (median of CUDA-event
@@ -39,7 +47,7 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    HUD frame (the first yaw with the app's stats line burned in,
    ``show_hud``) with the counters reset again: it must be bit-equal to
    the HUD-off frame outside the text rows, its glyph pixels white;
-4. the 3840×2160 shadows + IBL path (BASELINE config 5: shadow map of the
+5. the 3840×2160 shadows + IBL path (BASELINE config 5: shadow map of the
    ball at 1024², analytic IBL from the procedural sky): checks K1 (the
    4K main pass and the 1024² shadow pass), K3 (every sort), K4 (with
    its launch line), K5
@@ -47,7 +55,17 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    their plain versions on that path's inputs and times both; renders 3
    frames with the counters reset just before, the shadow pass's K1
    launches counted apart;
-5. the 1280×720 textured-cube path (BASELINE config 2: two cubes,
+6. pair-rate sampling: a routed close-up of the config-3 stand-in (its
+   ground plane from 1 unit above, the block maps magnified, so the
+   probe keeps pair level 2 on), a 1080p ``pair_lossy`` frame (K2 at
+   level 2), a config-5 ``pair_lossy`` frame (K6 at level 2 on the
+   G-buffer path) and a config-5 ``pair_visibility`` frame: every K2 and
+   K6 launch at a pair level against its plain version (K6 bit-equal, K2
+   within ``_assert_close``) and timed; the four frames with the counters
+   reset just before (K2's and K6's pair launches counted apart), each
+   against the all-plain render, the routed frame ``torch.equal`` to its
+   pair-0 frame and profiled against it (device ms, launches);
+7. the 1280×720 textured-cube path (BASELINE config 2: two cubes,
    trilinear mip-block albedos from seeded 1024² / 2048² stand-ins, two
    materials routed by batch): renders the bench frame at three camera
    positions and the ALBEDO and MRHA G-buffer views of the first; checks
@@ -59,7 +77,7 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    frames again
    with the counters reset just before, and prints per view a histogram of
    the selected mip level and the share of pixels blending two levels;
-6. the 1920×1080 instanced path (BASELINE config 4: 64 instances of the
+8. the 1920×1080 instanced path (BASELINE config 4: 64 instances of the
    stand-in ball, 640,002 triangles before culling): three views (the
    bench camera, orbits to yaw -25 and yaw -45: 16-, 32- and 64-instance
    buckets), each culled on the host and autotuned three ways — default
@@ -80,10 +98,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    settings; a fine-bin frame may differ from them only at masked-key
    ties and where the default winner's bounding box misses the pixel
    (``c4_fine_vs_default``);
-7. checks, on every frame, zero capacity drops (shadow pass included),
+9. checks, on every frame, zero capacity drops (shadow pass included),
    coverage, that the image is not background, and the frame against the
    all-plain render of the same frame at the golden-image bound;
-8. prints the GPU's ``nvidia-smi`` name/power-limit line, one JSON line of
+10. prints the GPU's ``nvidia-smi`` name/power-limit line, one JSON line of
    kernel results (per kernel and path: launches on the main path and the
    frames they cover, error against the plain version, wrapper and plain
    times, the bound of the bytes and operations the call needs on an H100
@@ -107,8 +125,16 @@ WIDTH, HEIGHT = 1920, 1080
 # Yaw 0 faces the ball; at -75 the ball is out of view and the spot-lit
 # point light's sphere (4, 2, 0) is in it.
 YAWS = (0.0, -25.0, -50.0, -75.0)
-# Explicit capacities for this frame (validated: any overflow is reported
-# in BinDiag and fails check_bin_diag).
+# Capacities: configs 3, 4 and 5 take them from autotune_settings at the
+# bench's margin, each view its own (bench.py:196-199, :468-470, :555-565;
+# validated: any overflow is reported in BinDiag and fails
+# check_bin_diag), asking for pair sampling, which the escape-tile probe
+# keeps or turns off.
+MARGIN = 1.05
+BASE3 = dict(pair_sampling=2)
+# Explicit capacities of the same frames, which the GPU tools
+# (tools/torch_profile.py, shade_variants.py, raster_variants.py) render
+# so that their profiles stay comparable across changes.
 CAPS = dict(
     max_candidates=512, raster_passes=1, overflow_cap=64, span_cap=16,
     span_mid_cap=4096, pair_budget=262144, live_tile_cap=1536,
@@ -121,6 +147,7 @@ C5_WIDTH, C5_HEIGHT = 3840, 2160
 # -75: the ball is out of view and a light sphere in it, so K4
 # composites pixels on this path too.
 C5_YAWS = (0.0, -25.0, -75.0)
+BASE5 = dict(span_cap=32, pair_sampling=2)
 C5_CAPS = dict(
     max_candidates=128, raster_passes=1, overflow_cap=64, span_cap=32,
     span_mid_cap=8192, pair_budget=262144, live_tile_cap=4096,
@@ -128,6 +155,22 @@ C5_CAPS = dict(
     overlay_max_tiles=1024, shadow_size=1024, shadow_candidates=256,
     shadow_passes=1, shadow_tile_cap=1024,
 )
+# The derived settings each view prints.
+DERIVED_KEYS = (
+    "pair_sampling", "sample_route_caps", "max_candidates", "raster_passes",
+    "live_tile_cap", "raster_tile_cap", "span_cap", "span_mid_cap",
+    "overflow_cap", "pair_budget", "overlay_candidates", "overlay_max_tiles",
+    "overlay_overflow_cap", "shadow_candidates", "shadow_passes",
+    "shadow_tile_cap", "shadow_query_tile_cap")
+# BASELINE config 1 (bench.py bench_gizmo): gizmo.obj flat-shaded at
+# 512x512 from the gizmo camera, no lights, tone map off; a coloured
+# stand-in for gizmo.obj (not in the repository).
+C1_SIZE = 512
+# The routed frame: the config-3 stand-in from 1 unit above its ground
+# plane, looking down steeply, where the 2048² block maps are magnified
+# (20 texels a unit, 20-45 pixels a texel) and most tiles sample
+# bit-exactly at pair level 2, so the probe keeps routing on.
+CLOSE_UP_POS, CLOSE_UP_PITCH = (0.0, -9.0, 0.0), -70.0
 # BASELINE config 2 (bench.py bench_cube): two textured cubes, trilinear
 # mip-block albedos, materials by batch, 1280x720, no light spheres or
 # gizmo. Seeded stand-ins for uv_debug.png / texture.jpg (not in the
@@ -147,8 +190,8 @@ C2_CAPS = dict(
     raster_tile_cap=384,
 )
 # BASELINE config 4 (bench.py bench_instanced): 64 instances, 1080p, no
-# light spheres, no gizmo, autotuned at the bench's margin; pair sampling
-# is not ported (base pair_sampling=0). Views: the bench camera (14 of 64
+# light spheres, no gizmo, autotuned at the bench's margin with base
+# pair_sampling=2 and the materials. Views: the bench camera (14 of 64
 # instances in view: bucket 16), orbits to yaw -25 (28: bucket 32) and to
 # yaw -45 (60: bucket 64, 640,002 triangles, so the early-z pair key has no
 # room in 31 bits and sorts as int64 with a 16-bit depth bucket).
@@ -170,6 +213,13 @@ COVER_CH = 15  # coverage floats a raster kernel reads per candidate
 RESOLVE_OPS = 100
 SAMPLE_TAP_OPS = 8  # per tap and output channel (4 weights, 4 fma)
 LIGHT_OPS = 80  # GGX per light and pixel
+# Live taps per pixel and channel of each sampler: a block row's 25 taps
+# hold 4 of non-zero weight (the kernels blend only those), a quad 4, a
+# mip-block group 8 (two levels). K2's block groups: 3 block channels and
+# 7 quad channels.
+SAMPLER_TAPS = {"sample_block": 4, "sample_small": 4, "sample_mip_block": 8}
+K2_BLOCK_TAP_CHANNELS = (SAMPLER_TAPS["sample_block"] * 3
+                         + SAMPLER_TAPS["sample_small"] * 7)
 KERNEL_INFO = {
     "raster": ("K1 raster", "bibim_tpu_torch/csrc/raster.cu",
                "bibim_tpu/ops/fused.py:670"),
@@ -421,6 +471,22 @@ def view_block(yaw: float, proj, dev):
         enable_normal_map=torch.tensor(0, dtype=torch.int32, device=dev))
 
 
+def derive(scene, vb, base, mats, overlay, what: str):
+    """``autotune_settings`` as bench.py calls it (margin 1.05, the
+    material binding and the overlay resources), printed: the probe's
+    escape and covered tiles and the derived capacities."""
+    from bibim_tpu_torch.pipeline.autotune import autotune_settings
+
+    t0 = time.perf_counter()
+    s, probe = autotune_settings(scene, vb, base, margin=MARGIN,
+                                 materials=mats, overlay=overlay)
+    print(f"{what}: autotune {(time.perf_counter() - t0) * 1e3:.0f} ms; "
+          f"probe escape_tiles {probe.escape_tiles} of covered_tiles "
+          f"{probe.covered_tiles} ({probe.n_tiles} tiles); derived "
+          + json.dumps({k: getattr(s, k) for k in DERIVED_KEYS}))
+    return s
+
+
 def shadow_fields() -> tuple:
     """The planes the shadow pass's K1 writes (it drops ``_SHADOW_DROP``);
     they tell its raster calls from the main pass's."""
@@ -647,11 +713,15 @@ def raster_bytes(name: str, args, out, window_share: float = 1.0) -> int:
                + tensor_bytes(out))
 
 
-def table_rows(table, u, v, mat_id, tile_h: int, tile_w: int):
+def table_rows(table, u, v, mat_id, tile_h: int, tile_w: int, pair: int = 0,
+               valid=None):
     """The row of material table ``table`` each pixel reads (its layout's
-    footprint, as the samplers compute it)."""
+    footprint, as the samplers compute it; a block table at pair level
+    ``pair``: its group's anchor row, one a group)."""
     from bibim_tpu_torch.ops import texture_quad as tq
 
+    if isinstance(table, tq.BlockTable) and pair:
+        return tq._block_taps(table, u, v, pair, valid, tile_w)[0]
     if isinstance(table, tq.BlockTable):
         x0, y0, _, _ = tq._footprint_ints(u, v, table.height, table.width)
         return (y0 // tq.BLOCK_B) * (table.width // tq.BLOCK_B) \
@@ -671,12 +741,15 @@ def rows_bytes(tab, rows) -> int:
     return n_distinct(r) * tab.shape[1]
 
 
-def tables_bytes(tables, u, v, mat_id, tile_h, tile_w, mask=None) -> int:
+def tables_bytes(tables, u, v, mat_id, tile_h, tile_w, mask=None,
+                 pair: int = 0, valid=None) -> int:
     """Bytes of the distinct table rows the pixels of ``mask`` (default:
-    all) read, over every table of a material binding."""
+    all) read, over every table of a material binding (block tables at
+    pair level ``pair``, anchored by ``valid``)."""
     total = 0
     for t in tables:
-        rows = table_rows(t, u, v, mat_id, tile_h, tile_w).reshape(-1)
+        rows = table_rows(t, u, v, mat_id, tile_h, tile_w, pair,
+                          valid).reshape(-1)
         if mask is not None:
             rows = rows[mask.reshape(-1)]
         total += rows_bytes(t.blocks if hasattr(t, "blocks") else t.quads,
@@ -1336,7 +1409,7 @@ def shade_bound(args, kw, out, tap_channels: int,
         n_planes = 11 + (routed and kw.get("mat_id") is not None)
         tabs = tables_bytes(tables, args[1], args[2], kw.get("mat_id"),
                             kw.get("tile_h", 8), kw.get("tile_w", 128),
-                            valid)
+                            valid, kw.get("pair", 0), valid)
     else:
         n_planes, tabs = 12, 0
         opt += list(kw.get("ambient") or ())
@@ -1438,11 +1511,11 @@ def check_kernels(calls: dict, comps: list) -> dict:
     if torch.equal(got[0], shade_sampled(*args, **hdr_kw)[0]):
         raise AssertionError("K2: the visibility plane changed nothing")
     out = shade_sampled(*args, **kw)
-    # 25-tap block rows × 3 channels and 4-tap quads × 7 channels.
+    # Block rows × 3 channels and quads × 7 channels.
     res["shade"] = dict(max_abs_err=max(errs + [vis_err]),
                         vis_max_abs_err=vis_err,
                         pixels=int(args[1].numel()), library_ms=None,
-                        **shade_bound(args, kw, out, 25 * 3 + 4 * 7),
+                        **shade_bound(args, kw, out, K2_BLOCK_TAP_CHANNELS),
                         **shade_times(shade_sampled, shade_sampled_plain,
                                       args, kw, hdr_kw),
                         vis_ms=cuda_ms(lambda: shade_sampled(*args,
@@ -1500,18 +1573,16 @@ def check_kernels_c5(calls: dict, comps: list) -> dict:
     # K6 and K7: bit-equal to their plain versions.
     res["sample_block"] = check_sampler(
         calls["sample_block"][0], tq.sample_table_block_kernel,
-        tq.sample_table_block, "sample_block", 25)
+        tq.sample_table_block, "sample_block",
+        SAMPLER_TAPS["sample_block"])
     res["sample_small"] = check_sampler(
         calls["sample_small"][0], tq.sample_rows_small,
-        tq.sample_rows_small_plain, "sample_small", 4)
+        tq.sample_rows_small_plain, "sample_small",
+        SAMPLER_TAPS["sample_small"])
     return res
 
 
-SAMPLER_TAPS = {"sample_block": 25, "sample_small": 4,
-                "sample_mip_block": 8}
-
-
-def sampler_bytes(args, out) -> int:
+def sampler_bytes(args, out, kw=None) -> int:
     """Bytes a sampler call (K6, K7, K8) must move: every pixel's inputs
     (uv and the material ids; K7: its row index and fractions), the
     distinct table rows the pixels read, the output planes."""
@@ -1519,19 +1590,23 @@ def sampler_bytes(args, out) -> int:
 
     from bibim_tpu_torch.ops import texture_quad as tq
 
+    kw = kw or {}
     if isinstance(args[0], torch.Tensor):  # K7: (quads, idx, tx, ty, ..)
         idx = args[1]
         return rows_bytes(args[0], idx) + 12 * idx.numel() \
             + tensor_bytes(out)
+    pair, valid = kw.get("pair_rows", 0), kw.get("valid")
     if isinstance(args[0], tq.BlockTable):  # K6: (table, u, v)
         table, u, v = args[:3]
-        mat_id, tile = None, (8, 128)
+        mat_id, tile = None, (8, kw.get("tile_w", 128))
     else:  # K8: (table, mat_id, u, v, tile_h, tile_w)
         table, mat_id, u, v = args[:4]
         tile = tuple(args[4:6]) or (8, 128)
     n_planes = 2 + (mat_id is not None)
-    return (tables_bytes((table,), u, v, mat_id, *tile)
-            + 4 * n_planes * u.numel() + tensor_bytes(out))
+    return (tables_bytes((table,), u, v, mat_id, *tile, pair=pair,
+                         valid=valid)
+            + (4 * n_planes + (valid is not None)) * u.numel()
+            + tensor_bytes(out))
 
 
 def check_sampler(call, kern, plain, name: str, taps: int) -> dict:
@@ -1555,7 +1630,7 @@ def check_sampler(call, kern, plain, name: str, taps: int) -> dict:
     return dict(max_abs_err=0.0, pixels=int(plane.numel()),
                 table=list(table.shape), slots=len(want), library_ms=None,
                 whole_tensor_bytes=tensor_bytes(args, kw, got),
-                **bound(sampler_bytes(args, got), ops),
+                **bound(sampler_bytes(args, got, kw), ops),
                 ms=cuda_ms(lambda: kern(*args, **kw)),
                 plain_ms=cuda_ms(lambda: plain(*args, **kw)))
 
@@ -1631,21 +1706,23 @@ def run_config5(dev, smi: str, name: str):
     from bibim_tpu_torch.ops.sort import sort_keys
     from bibim_tpu_torch.pipeline import KERNELS, PLAIN, render_frame
 
-    scene, mats, overlay, proj, fp, settings = build_inputs(
-        dev, C5_WIDTH, C5_HEIGHT, C5_CAPS, enable_shadows=True,
+    scene, mats, overlay, proj, fp, base = build_inputs(
+        dev, C5_WIDTH, C5_HEIGHT, BASE5, enable_shadows=True,
         shadow_fit_batches=(0,), enable_ibl=True)
     ibl = make_ibl_sh(device=dev)
     print(f"config-5 frame: {C5_WIDTH}x{C5_HEIGHT}, shadows (map "
-          f"{settings.shadow_size}², fit to batch 0), analytic IBL "
+          f"{base.shadow_size}², fit to batch 0), analytic IBL "
           "(procedural sky), light spheres on, gizmo off")
-    print("config-5 capacities: " + json.dumps(C5_CAPS))
+    vbs = [view_block(y, proj, dev) for y in C5_YAWS]
+    yaw_settings = [derive(scene, vb, base, mats, overlay,
+                           f"config-5 yaw {y}")
+                    for y, vb in zip(C5_YAWS, vbs)]
 
     calls: dict = {}
     comps: list = []
     with capture_composites(comps):
-        for yaw in C5_YAWS:
-            render_frame(scene, view_block(yaw, proj, dev), fp, mats,
-                         overlay, settings, ibl=ibl,
+        for vb, settings in zip(vbs, yaw_settings):
+            render_frame(scene, vb, fp, mats, overlay, settings, ibl=ibl,
                          kernels=capture_kernels(KERNELS, calls))
     torch.cuda.synchronize()
     kres = check_kernels_c5(calls, comps)
@@ -1653,7 +1730,6 @@ def run_config5(dev, smi: str, name: str):
         print(f"kernel {k}: " + json.dumps(v))
     del calls, comps
 
-    vbs = [view_block(y, proj, dev) for y in C5_YAWS]
     counters = (fused.raster_tiles, shade_sampled, sort_keys,
                 fused.overlay_tiles, shade_tonemap,
                 tq.sample_table_block_kernel, tq.sample_rows_small)
@@ -1675,7 +1751,7 @@ def run_config5(dev, smi: str, name: str):
 
     counted = KERNELS._replace(raster=raster_counted)
     outs, frame_ms = [], []
-    for vb in vbs:
+    for vb, settings in zip(vbs, yaw_settings):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = render_frame(scene, vb, fp, mats, overlay, settings, ibl=ibl,
@@ -1699,7 +1775,8 @@ def run_config5(dev, smi: str, name: str):
             raise AssertionError(f"kernel {k} was not launched by the "
                                  "config-5 frame")
 
-    for i, ((out, cov), vb) in enumerate(zip(outs, vbs)):
+    for i, ((out, cov), vb, settings) in enumerate(zip(outs, vbs,
+                                                        yaw_settings)):
         ref = render_frame(scene, vb, fp, mats, overlay, settings, ibl=ibl,
                            kernels=PLAIN)["image"]
         summary = check_frame(i, out, cov, ref, (C5_HEIGHT, C5_WIDTH, 3),
@@ -1709,7 +1786,8 @@ def run_config5(dev, smi: str, name: str):
     print(f"config-5 frame time median: {statistics.median(frame_ms):.2f} "
           f"ms (host clock around render_frame + synchronize, {name}, "
           f"{smi})")
-    return kres, launches
+    return kres, launches, (scene, mats, overlay, fp, ibl, vbs[0],
+                            yaw_settings[0])
 
 
 def cube_inputs(dev, caps=C2_CAPS):
@@ -1819,16 +1897,17 @@ def check_kernels_c2(calls: dict) -> dict:
         tails_equal=check_tails(calls, "config-2"))
     for call in calls["sample_mip_block"][1:]:
         check_sampler(call, tq.sample_mip_block_kernel, tq.sample_mip_block,
-                      "K8", 8)
+                      "K8", SAMPLER_TAPS["sample_mip_block"])
     args = calls["sample_mip_block"][0][0]
     res["sample_mip_block"] = dict(
         check_sampler(calls["sample_mip_block"][0],
                       tq.sample_mip_block_kernel, tq.sample_mip_block, "K8",
-                      8),
+                      SAMPLER_TAPS["sample_mip_block"]),
         rho_stress=check_mip_stress(args[0], args[2].device))
     res["sample_small"] = check_sampler(
         calls["sample_small"][0], tq.sample_rows_small,
-        tq.sample_rows_small_plain, "K7 routed", 4)
+        tq.sample_rows_small_plain, "K7 routed",
+        SAMPLER_TAPS["sample_small"])
     return res
 
 
@@ -2069,7 +2148,7 @@ def c4_frames(dev, modes=C4_MODES):
         exposure=torch.tensor(1.0, dtype=torch.float32, device=dev))
     base = RenderSettings(width=WIDTH, height=HEIGHT, outputs="image+diag",
                           show_gizmo=False, show_lights=False,
-                          pair_sampling=0)
+                          pair_sampling=2)
     full = scene.scene_data()
     t_all = sum(int(b.positions.shape[0]) // 3 * int(b.model.shape[0])
                 for b in full.batches)
@@ -2096,7 +2175,7 @@ def c4_frames(dev, modes=C4_MODES):
             t0 = time.perf_counter()
             s, probe = autotune_settings(
                 data, vb, dataclasses.replace(base, **extra),
-                margin=C4_MARGIN)
+                margin=C4_MARGIN, materials=mats)
             tune_ms = (time.perf_counter() - t0) * 1e3
             cands = dense_cap_candidates(s, probe, margin=C4_MARGIN)
             picks = None
@@ -2105,10 +2184,11 @@ def c4_frames(dev, modes=C4_MODES):
                 picks = [{"dense_tile_cap": sx.dense_tile_cap,
                           "device_ms": ms} for ms, sx in results]
             derived = {k: getattr(s, k) for k in (
-                "max_candidates", "raster_passes", "merged_coverage",
-                "dense_tile_cap", "raster_tile_cap", "live_tile_cap",
-                "span_cap", "span_mid_cap", "overflow_cap", "pair_budget",
-                "early_z", "fine_bins")}
+                "pair_sampling", "sample_route_caps", "max_candidates",
+                "raster_passes", "merged_coverage", "dense_tile_cap",
+                "raster_tile_cap", "live_tile_cap", "span_cap",
+                "span_mid_cap", "overflow_cap", "pair_budget", "early_z",
+                "fine_bins")}
             print(f"config-4 view {view_def[0]}, {mode}: autotune "
                   f"{tune_ms:.0f} ms; probe " + json.dumps(probe._asdict())
                   + "; derived " + json.dumps(derived)
@@ -2163,7 +2243,7 @@ def run_config4(dev, smi: str, name: str):
     err = assert_shade_close(got, want, "K2 (config 4)")
     kres["shade"] = dict(
         max_abs_err=err, pixels=int(args[1].numel()), library_ms=None,
-        **shade_bound(args, kw, got, 25 * 3 + 4 * 7),
+        **shade_bound(args, kw, got, K2_BLOCK_TAP_CHANNELS),
         **shade_times(shade_sampled, PLAIN.shade, args, kw,
                       dict(kw, quantize_hdr=False, tonemap=False)),
         tails_equal=check_tails(calls, "config-4"))
@@ -2293,6 +2373,320 @@ def run_config4(dev, smi: str, name: str):
     return kres, launches
 
 
+def gizmo_standin():
+    """A coloured stand-in for gizmo.obj: three bars along the axes (red
+    x, green y, blue z) from a grey ball, turned so that the camera sees
+    all three, 360 triangles (gizmo.obj has 363)."""
+    import numpy as np
+
+    from bibim_tpu_torch.scene.meshgen import (
+        Mesh,
+        generate_cube_mesh,
+        generate_uv_sphere_mesh,
+    )
+
+    parts = [(generate_uv_sphere_mesh(1.5, 18, 10), np.eye(3), np.zeros(3),
+              (0.6, 0.6, 0.6))]
+    for axis, color in enumerate(((1, 0.2, 0.2), (0.2, 1, 0.2),
+                                  (0.2, 0.2, 1))):
+        scale = np.full(3, 0.6)
+        scale[axis] = 6.0
+        shift = np.zeros(3)
+        shift[axis] = 3.0
+        parts.append((generate_cube_mesh(1.0), np.diag(scale), shift, color))
+    a, b = np.radians(25.0), np.radians(35.0)
+    rot = (np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)],
+                     [0, np.sin(a), np.cos(a)]])
+           @ np.array([[np.cos(b), 0, np.sin(b)], [0, 1, 0],
+                       [-np.sin(b), 0, np.cos(b)]]))
+    pos, nrm, uvs, tan, col, idx = [], [], [], [], [], []
+    base = 0
+    for mesh, scale, shift, color in parts:
+        pos.append((mesh.positions @ scale + shift) @ rot.T)
+        nrm.append(mesh.normals @ rot.T)
+        tan.append(mesh.tangents @ rot.T)
+        uvs.append(mesh.uvs)
+        col.append(np.tile(np.float32(color), (len(mesh.positions), 1)))
+        idx.append(mesh.indices + base)
+        base += len(mesh.positions)
+    f32 = np.float32
+    return Mesh(positions=np.concatenate(pos).astype(f32),
+                uvs=np.concatenate(uvs).astype(f32),
+                normals=np.concatenate(nrm).astype(f32),
+                tangents=np.concatenate(tan).astype(f32),
+                indices=np.concatenate(idx).astype(np.int32),
+                colors=np.concatenate(col).astype(f32))
+
+
+def run_config1(dev, smi: str, name: str):
+    """BASELINE config 1: the flat-shaded 512² frame of GizmoScene on the
+    stand-in mesh (K1 and K3 only: no material, no light) on bench.py's
+    settings (bench_gizmo: the default capacities); its K1 and K3 calls
+    against their plain versions, then the frame with the counters reset
+    just before, against the all-plain render."""
+    import numpy as np
+    import torch
+
+    from bibim_tpu_torch import math3d as m3
+    from bibim_tpu_torch.ops import fused
+    from bibim_tpu_torch.ops.sort import sort_keys
+    from bibim_tpu_torch.pipeline import (
+        KERNELS,
+        PLAIN,
+        FrameParams,
+        RenderSettings,
+        ViewBlock,
+        render_frame,
+    )
+    from bibim_tpu_torch.scene.camera import FreeLookCamera
+    from bibim_tpu_torch.scene.gizmoscene import (
+        GIZMO_CAMERA_DISTANCE,
+        GIZMO_FOV_DEGREES,
+        GizmoScene,
+    )
+
+    # No device argument: GizmoScene builds on the card.
+    scene = GizmoScene(mesh=gizmo_standin()).scene_data()
+    if scene.batches[0].positions.device.type != "cuda":
+        raise AssertionError("GizmoScene() built on "
+                             f"{scene.batches[0].positions.device}")
+    cam = FreeLookCamera(pos=np.float32([0.0, 0.0, -GIZMO_CAMERA_DISTANCE]))
+    vb = ViewBlock(
+        view=torch.as_tensor(cam.get_view_matrix(), device=dev),
+        proj=m3.perspective(GIZMO_FOV_DEGREES, 1.0, 0.1, 1000.0, device=dev),
+        view_pos=torch.as_tensor(cam.pos, device=dev),
+        enable_normal_map=torch.tensor(0, dtype=torch.int32, device=dev))
+    fp = FrameParams(
+        enable_tone_mapping=torch.tensor(0, dtype=torch.int32, device=dev),
+        exposure=torch.tensor(1.0, dtype=torch.float32, device=dev))
+    tris = int(scene.batches[0].positions.shape[0]) // 3
+    print(f"config-1 frame: {C1_SIZE}x{C1_SIZE}, flat shading, the gizmo "
+          f"camera, a {tris}-triangle coloured stand-in for gizmo.obj, no "
+          "lights, tone map off")
+    s = RenderSettings(width=C1_SIZE, height=C1_SIZE, shading="flat",
+                       show_lights=False, show_gizmo=False,
+                       outputs="image+diag")
+
+    calls: dict = {}
+    render_frame(scene, vb, fp, None, None, s,
+                 kernels=capture_kernels(KERNELS, calls))
+    torch.cuda.synchronize()
+    kres = {"raster": check_raster(calls["raster"][0]),
+            "sort": check_sorts(calls["sort"])}
+    for k, v in kres.items():
+        print(f"kernel {k} (config 1): " + json.dumps(v))
+    del calls
+
+    for fn in (fused.raster_tiles, sort_keys):
+        fn.launches = 0
+    sort_keys.device_launches = 0
+    cover: list = []
+
+    def raster_counted(*args, **kw):
+        zk, f = KERNELS.raster(*args, **kw)
+        cover.append(f[args[11].index("idf")] >= 0.5)
+        return zk, f
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = render_frame(scene, vb, fp, None, None, s,
+                       kernels=KERNELS._replace(raster=raster_counted))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {"raster": fused.raster_tiles.launches,
+                "sort": sort_keys.launches}
+    print("config-1 main-path launches: " + json.dumps(launches))
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the "
+                                 "config-1 frame")
+    ref = render_frame(scene, vb, fp, None, None, s, kernels=PLAIN)["image"]
+    summary = check_frame(0, out, cover[0], ref, (C1_SIZE, C1_SIZE, 3),
+                          "config-1")
+    colours = len(torch.unique(out["image"].reshape(-1, 3), dim=0))
+    print(f"config-1 frame: {ms:.2f} ms ({name}, {smi}), {colours} "
+          "colours, " + summary)
+    return kres, launches
+
+
+def routed_view(proj, dev):
+    """The routed frame's close-up view (CLOSE_UP_POS, CLOSE_UP_PITCH)."""
+    import numpy as np
+    import torch
+
+    from bibim_tpu_torch.pipeline import ViewBlock
+    from bibim_tpu_torch.scene.camera import FreeLookCamera
+
+    cam = FreeLookCamera(pos=np.float32(CLOSE_UP_POS), pitch=CLOSE_UP_PITCH)
+    return ViewBlock(
+        view=torch.as_tensor(cam.get_view_matrix(), device=dev), proj=proj,
+        view_pos=torch.as_tensor(cam.pos, device=dev),
+        enable_normal_map=torch.tensor(0, dtype=torch.int32, device=dev))
+
+
+def check_shade_pairs(calls: list) -> dict:
+    """Every captured K2 call at a pair level against its plain version
+    (``assert_shade_close``; the fused tail against the torch tail,
+    ``torch.equal``), each timed: wrapper, kernel and plain ms, the
+    kernel at pair level 0 on the same inputs, and the bound, whose bytes
+    count one block row a group."""
+    import torch
+
+    from bibim_tpu_torch.ops.shading import shade_sampled, shade_sampled_plain
+
+    res = []
+    for args, kw, _ in calls:
+        got = shade_sampled(*args, **kw)
+        want = shade_sampled_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = assert_shade_close(got, want, f"K2 pair level {kw['pair']}")
+        hdr_kw = dict(kw, quantize_hdr=False, tonemap=False)
+        valid = args[6]
+        live = valid.any(dim=1)
+        res.append(dict(
+            max_abs_err=err, pair=kw["pair"], slots=int(valid.shape[0]),
+            live_slots=int(live.sum()), pixels=int(valid.numel()),
+            library_ms=None,
+            **shade_bound(args, kw, got, K2_BLOCK_TAP_CHANNELS),
+            **shade_times(shade_sampled, shade_sampled_plain, args, kw,
+                          hdr_kw),
+            level0_kernel_ms=device_ms(
+                lambda: shade_sampled(*args, **dict(kw, pair=0)), 20,
+                "bb::shade_kernel")))
+    tails = check_tails({"shade": calls}, "pair-level K2")
+    return dict(res[0], calls=res, tails_equal=tails)
+
+
+def run_pair_paths(dev, smi: str, name: str, c3, c5):
+    """Pair-rate sampling and PCF on the H100: the routed close-up (K2 at
+    pair level 2 on the clean tiles, per pixel on the rest, torch.equal
+    to its pair-0 frame), the 1080p pair_lossy frame (K2 at level 2), the
+    config-5 pair_lossy frame (K6 at level 2 on the G-buffer path) and the
+    config-5 pair_visibility frame. Every K2 and K6 launch at a pair
+    level against its plain version; then the four frames with the
+    counters reset just before, each against the all-plain render, and
+    the routed frame against its exact frame in device ms and launches."""
+    import dataclasses
+
+    import torch
+
+    from bibim_tpu_torch.ops import fused
+    from bibim_tpu_torch.ops import texture_quad as tq
+    from bibim_tpu_torch.ops.shading import shade_sampled, shade_tonemap
+    from bibim_tpu_torch.ops.sort import sort_keys
+    from bibim_tpu_torch.pipeline import KERNELS, PLAIN, render_frame
+
+    scene, mats, overlay, proj, fp, base3, s3 = c3
+    scene5, mats5, overlay5, fp5, ibl, vb5, s5 = c5
+    vb_close = routed_view(proj, dev)
+    s_route = derive(scene, vb_close, base3, mats, overlay,
+                     "routed close-up")
+    if not s_route.pair_sampling or s_route.sample_route_caps is None:
+        raise AssertionError("the close-up's probe turned routing off")
+    s_exact = dataclasses.replace(s_route, pair_sampling=0,
+                                  sample_route_caps=None)
+    lossy = dict(pair_sampling=2, pair_lossy=True)
+    frames = [
+        ("routed close-up", scene, vb_close, mats, overlay, s_route, None,
+         fp),
+        ("1080p pair_lossy", scene, view_block(YAWS[0], proj, dev), mats,
+         overlay, dataclasses.replace(s3, **lossy), None, fp),
+        ("config-5 pair_lossy", scene5, vb5, mats5, overlay5,
+         dataclasses.replace(s5, **lossy), ibl, fp5),
+        ("config-5 pair_visibility", scene5, vb5, mats5, overlay5,
+         dataclasses.replace(s5, pair_visibility=True), ibl, fp5),
+    ]
+    calls: dict = {}
+    for _, sc, vb, m, ov, st, ib, f in frames:
+        render_frame(sc, vb, f, m, ov, st, ibl=ib,
+                     kernels=capture_kernels(KERNELS, calls))
+    torch.cuda.synchronize()
+    k2 = [c for c in calls["shade"] if c[1].get("pair")]
+    k6 = [c for c in calls["sample_block"] if c[1].get("pair_rows")]
+    if not k2 or not k6:
+        raise AssertionError(f"{len(k2)} K2 and {len(k6)} K6 launches at a "
+                             "pair level")
+    kres = {"shade_pair": check_shade_pairs(k2),
+            "sample_block_pair": [check_sampler(
+                c, tq.sample_table_block_kernel, tq.sample_table_block,
+                "sample_block", SAMPLER_TAPS["sample_block"])
+                for c in k6]}
+    for r, (args, kw, _) in zip(kres["sample_block_pair"], k6):
+        r["kernel_ms"] = device_ms(
+            lambda: tq.sample_table_block_kernel(*args, **kw), 20,
+            "sample_block_pair_kernel")
+        r["level0_kernel_ms"] = device_ms(
+            lambda: tq.sample_table_block_kernel(*args), 20,
+            "sample_block_kernel")
+    kres["sample_block_pair"] = dict(kres["sample_block_pair"][0],
+                                     calls=kres["sample_block_pair"])
+    for k, v in kres.items():
+        print(f"kernel {k}: " + json.dumps(v))
+    del calls, k2, k6
+
+    counters = (fused.raster_tiles, sort_keys, fused.overlay_tiles,
+                shade_sampled, shade_tonemap, tq.sample_table_block_kernel,
+                tq.sample_rows_small)
+    for fn in counters:
+        fn.launches = 0
+    shade_sampled.pair_launches = 0
+    tq.sample_table_block_kernel.pair_launches = 0
+    sort_keys.device_launches = 0
+    cover: list = []
+
+    def raster_counted(*args, **kw):  # the main pass runs first
+        zk, f = KERNELS.raster(*args, **kw)
+        cover.append(f[args[11].index("idf")] >= 0.5)
+        return zk, f
+
+    counted = KERNELS._replace(raster=raster_counted)
+    outs = []
+    for what, sc, vb, m, ov, st, ib, f in frames:
+        cover.clear()
+        outs.append((render_frame(sc, vb, f, m, ov, st, ibl=ib,
+                                  kernels=counted), cover[0]))
+    torch.cuda.synchronize()
+    launches = {"raster": fused.raster_tiles.launches,
+                "sort": sort_keys.launches,
+                "overlay": fused.overlay_tiles.launches,
+                "shade": shade_sampled.launches,
+                "shade_pair": shade_sampled.pair_launches,
+                "shade_gbuffer": shade_tonemap.launches,
+                "sample_block": tq.sample_table_block_kernel.launches,
+                "sample_block_pair":
+                    tq.sample_table_block_kernel.pair_launches,
+                "sample_small": tq.sample_rows_small.launches}
+    print("pair-path launches (4 frames): " + json.dumps(launches))
+    print(k3_device_line("pair-path main path:"))
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the "
+                                 "pair-path frames")
+
+    exact = render_frame(scene, vb_close, fp, mats, overlay, s_exact)
+    if not torch.equal(outs[0][0]["image"], exact["image"]):
+        raise AssertionError("the routed frame differs from its pair-0 "
+                             "frame")
+    for i, ((out, cov), (what, sc, vb, m, ov, st, ib, f)) in enumerate(
+            zip(outs, frames)):
+        ref = render_frame(sc, vb, f, m, ov, st, ibl=ib,
+                           kernels=PLAIN)["image"]
+        summary = check_frame(i, out, cov, ref, tuple(out["image"].shape),
+                              what)
+        print(f"pair-path frame {i}: {what}, " + summary)
+    print("routed close-up: torch.equal to its pair-0 frame")
+
+    # Routed against exact, in turns exact, routed, routed, exact.
+    prof = {}
+    for label, st in (("exact", s_exact), ("routed", s_route),
+                      ("routed", s_route), ("exact", s_exact)):
+        prof.setdefault(label, []).append(device_profile(
+            lambda: render_frame(scene, vb_close, fp, mats, overlay, st)))
+    print(f"routed close-up vs its exact frame ({name}, {smi}): "
+          + json.dumps(prof))
+    return kres, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2346,22 +2740,26 @@ def main() -> int:
                                  "stack frame and no spills: "
                                  + json.dumps(kern))
 
-    scene, mats, overlay, proj, fp, settings = build_inputs(dev)
+    kres1, launches1 = run_config1(dev, smi, name)
+
+    scene, mats, overlay, proj, fp, base = build_inputs(dev, caps=BASE3)
     t = sum(int(b.positions.shape[0]) // 3 * int(b.model.shape[0])
             for b in scene.batches)
     print(f"smoke frame: {WIDTH}x{HEIGHT}, {t} triangles, lights "
           f"{scene.lights.num_lights}, materials "
           f"{[(type(m).__name__, m.height, m.width) for m in mats]}; gizmo "
           "off: gizmo.obj is not in the repository")
-    print("capacities: " + json.dumps(CAPS))
+    vbs = [view_block(y, proj, dev) for y in YAWS]
+    yaw_settings = [derive(scene, vb, base, mats, overlay, f"1080p yaw {y}")
+                    for y, vb in zip(YAWS, vbs)]
+    settings = yaw_settings[0]
 
     # Kernel phases on the inputs the smoke frames produce.
     calls: dict = {}
     comps: list = []
     with capture_composites(comps):
-        for yaw in YAWS:
-            render_frame(scene, view_block(yaw, proj, dev), fp, mats,
-                         overlay, settings,
+        for vb, s in zip(vbs, yaw_settings):
+            render_frame(scene, vb, fp, mats, overlay, s,
                          kernels=capture_kernels(KERNELS, calls))
     torch.cuda.synchronize()
     kres = check_kernels(calls, comps)
@@ -2370,7 +2768,7 @@ def main() -> int:
 
     # The group-window frame: group_pair_cap from the port's probe of the
     # first view (derive_settings' rule), the other capacities as above.
-    vb0 = view_block(YAWS[0], proj, dev)
+    vb0 = vbs[0]
     probe = probe_frame_caps(scene, vb0, settings)
     gw_cap = derive_settings(dataclasses.replace(
         settings, group_pair_cap=settings.max_candidates),
@@ -2411,8 +2809,8 @@ def main() -> int:
     # Main path: counters to 0, the four frames through render_frame; then
     # counters to 0 again and the group-window frame in its own window;
     # then the HUD frame in a third.
-    frames = [(f"yaw {y}", view_block(y, proj, dev), settings, None)
-              for y in YAWS]
+    frames = [(f"yaw {y}", vb, s, None)
+              for y, vb, s in zip(YAWS, vbs, yaw_settings)]
     frames.append((f"yaw {YAWS[0]}, group window", vb0, settings_gw, None))
     frames.append((f"yaw {YAWS[0]}, HUD", vb0, settings_hud, hud))
     counters = {"raster": fused.raster_tiles, "shade": shade_sampled,
@@ -2473,18 +2871,26 @@ def main() -> int:
           f"{frame_ms[-1]:.2f} ms")
     del outs
 
-    kres5, launches5 = run_config5(dev, smi, name)
+    kres5, launches5, c5 = run_config5(dev, smi, name)
+    kres_p, launches_p = run_pair_paths(
+        dev, smi, name, (scene, mats, overlay, proj, fp, base, settings), c5)
     kres2, launches2 = run_config2(dev, smi, name)
     kres4, launches4 = run_config4(dev, smi, name)
 
-    # One row per kernel and path: K1-K4 on the 1080p path's 4 frames, K10
-    # on its group-window frame, every kernel the config-5 path runs (K1
-    # twice: main and shadow pass), every kernel of the config-2 path (K2
-    # with the mip groups, K8, K7 routed), then the config-4 path (K1, K3,
-    # K2, K9, K11). ``frames``: the main-path frames its launches count.
+    # One row per kernel and path: K1 and K3 on the config-1 frame, K1-K4
+    # on the 1080p path's 4 frames, K10 on its group-window frame, every
+    # kernel the config-5 path runs (K1 twice: main and shadow pass), K2
+    # and K6 at pair level 2 on the pair-path frames that launch them (their
+    # pair launches: K2 on the routed close-up and the 1080p lossy frame,
+    # K6 on the config-5 lossy frame),
+    # every kernel of the config-2 path (K2 with the mip groups, K8, K7
+    # routed), then the config-4 path (K1, K3, K2, K9, K11). ``frames``:
+    # the main-path frames its launches count.
     n2, n4 = len(C2_CAMERA_Z) + len(C2_VIEWS), len(C4_VIEWS) * len(C4_MODES)
-    rows = [(k, KERNEL_INFO[k][0] + ", 1080p", kres[k], launches[k],
-             1 if k == "raster_gw" else len(YAWS)) for k in kres]
+    rows = [(k, KERNEL_INFO[k][0] + ", config-1 512² flat", kres1[k],
+             launches1[k], 1) for k in kres1]
+    rows += [(k, KERNEL_INFO[k][0] + ", 1080p", kres[k], launches[k],
+              1 if k == "raster_gw" else len(YAWS)) for k in kres]
     rows.append(("overlay", KERNEL_INFO["overlay"][0] + ", 1080p HUD frame",
                  kres_hud, windows[2]["overlay"], 1))
     rows += [(k, KERNEL_INFO[k][0] + ", config-5 4K", kres5[k],
@@ -2492,6 +2898,13 @@ def main() -> int:
     rows.append(("raster", KERNEL_INFO["raster"][0]
                  + ", config-5 shadow pass", kres5["raster_shadow_pass"],
                  launches5["raster_shadow_pass"], len(C5_YAWS)))
+    rows.append(("shade", KERNEL_INFO["shade"][0] + ", pair level 2: "
+                 "routed close-up clean tiles and 1080p pair_lossy",
+                 kres_p["shade_pair"], launches_p["shade_pair"], 2))
+    rows.append(("sample_block", KERNEL_INFO["sample_block"][0]
+                 + ", pair level 2: config-5 pair_lossy",
+                 kres_p["sample_block_pair"],
+                 launches_p["sample_block_pair"], 1))
     rows += [(k, KERNEL_INFO[k][0] + ", config-2 720p cubes", kres2[k],
               launches2[k], n2) for k in kres2]
     rows += [(k, KERNEL_INFO[k][0] + ", config-4 1080p x64", kres4[k],

@@ -110,15 +110,14 @@ def test_output_modes(inputs):
 
 
 @pytest.mark.parametrize("change", [
-    dict(deferred=False), dict(shading="flat"),
+    dict(deferred=False),
     # Shadows, IBL, the G-buffer views and per-batch material ids are
     # ported (deferred); these still raise for the setting beside them
-    # (pair-rate PCF, forward lighting).
+    # (forward lighting).
     dict(gbuffer_viz=1, deferred=False),
     dict(show_tbn=True),
-    dict(enable_shadows=True, pair_visibility=True),
-    dict(enable_ibl=True, deferred=False), dict(pair_visibility=True),
-    dict(aniso_taps=2), dict(pair_sampling=2), dict(raster="xla"),
+    dict(enable_ibl=True, deferred=False),
+    dict(aniso_taps=2), dict(raster="xla"),
     dict(geometry="legacy"), dict(batch_material_ids=(0, 1), deferred=False),
 ], ids=lambda c: next(iter(c)))
 def test_unsupported_settings_raise(inputs, change):

@@ -420,18 +420,6 @@ def test_autotune_matches_jax(inst):
     assert [r[1] for r in res] == list(cands)
 
 
-@pytest.mark.parametrize("extra", [
-    dict(pair_sampling=2), dict(enable_shadows=True),
-    dict(show_lights=True)],
-    ids=["pair_sampling", "shadows", "light_spheres"])
-def test_autotune_unported_parts_raise(inst, extra):
-    _, _, pscene, pvb = inst
-    assert pscene.lights.num_lights > 0
-    with pytest.raises(NotImplementedError):
-        pat.autotune_settings(pscene, pvb,
-                              RenderSettings(**dict(_BASE, **extra)))
-
-
 # ---------------------------------------------------------------------------
 # The config-4-like frame
 # ---------------------------------------------------------------------------

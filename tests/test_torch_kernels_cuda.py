@@ -8,6 +8,8 @@ also runs on a machine that has only PyTorch:
         tests/test_torch_kernels_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -373,6 +375,61 @@ def test_shade_kernel_matches_plain(dev, frame, deferred, with_vis):
         if with_vis:
             plain = shade_sampled(*args, quantize=deferred)
             assert not torch.equal(got[0], plain[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", [1, 2], ids=["pairs", "quads"])
+@pytest.mark.parametrize("generic", [False, True],
+                         ids=["layout", "generic"])
+def test_shade_kernel_pair_matches_plain(dev, frame, pair, generic):
+    """K2 at a pair level (the block table read once a 2×1 / 2×2 group)
+    against its plain version, with NaN planes at the misses (K2 reads a
+    member's uv only where it is covered); the generic instantiation gives
+    the layout's bits; level 0 still gives its own."""
+    _, _, _, mats = frame
+    lights = shaderball_lights(dev)
+    p = _planes(dev, 11)
+    valid = p(0, 1) > 0.3
+    nan = torch.full_like(valid, float("nan"), dtype=torch.float32)
+    u, v = (torch.where(valid, p(-2, 3), nan) for _ in range(2))
+    world = (p(-5, 5), p(-5, 5), p(-5, 5))
+    normal = (p(-1, 1), p(-1, 1), p(-1, 1))
+    tangent = (p(-1, 1), p(-1, 1), p(-1, 1))
+    args = (mats, u, v, world, normal, tangent, valid, lights,
+            torch.tensor([0.0, 1.0, -3.0], device=dev),
+            torch.tensor(1, device=dev))
+    before = shade_sampled.pair_launches
+    got = shade_sampled(*args, pair=pair, generic=generic)
+    want = shade_sampled_plain(*args, pair=pair)
+    torch.cuda.synchronize()
+    assert shade_sampled.pair_launches == before + 1
+    _assert_close_rel(got, want)
+    fixed = shade_sampled(*args, pair=pair)
+    assert all(torch.equal(a, b) for a, b in zip(got, fixed))
+    level0 = shade_sampled(*args)
+    assert not torch.equal(level0[0], got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", [1, 2], ids=["pairs", "quads"])
+def test_sample_block_kernel_pair_bit_equal(dev, frame, pair):
+    """K6 at a pair level equals its plain version, with a coverage plane
+    (dead groups anchor at the min over all members) and without."""
+    _, _, _, mats = frame
+    block = next(t for t in mats if isinstance(t, tq.BlockTable))
+    p = _planes(dev, 13, (12, 1024))
+    u, v = p(-2, 3), p(-2, 3)
+    valid = p(0, 1) > 0.5
+    valid.view(12, 8, 128)[:, 2:4, 10:60] = False
+    for val in (valid, None):
+        before = tq.sample_table_block_kernel.pair_launches
+        got = tq.sample_table_block_kernel(block, u, v, pair_rows=pair,
+                                           valid=val)
+        want = tq.sample_table_block(block, u, v, pair_rows=pair, valid=val)
+        torch.cuda.synchronize()
+        assert tq.sample_table_block_kernel.pair_launches == before + 1
+        for slot in want:
+            assert torch.equal(got[slot], want[slot]), slot
 
 
 @pytest.mark.cuda
@@ -794,7 +851,12 @@ def test_overlay_kernel_hud_bit_equal(dev, frame, text):
          shadow_tile_cap=256, shadow_query_tile_cap=120),
     dict(enable_ibl=True),
     dict(enable_shadows=True, shadow_fit_batches=(0,), enable_ibl=True),
-], ids=["deferred", "shadows", "ibl", "shadows_ibl"])
+    dict(pair_sampling=2, pair_lossy=True),
+    dict(pair_sampling=2, pair_lossy=True, enable_ibl=True),
+    dict(enable_shadows=True, shadow_fit_batches=(0,),
+         pair_visibility=True),
+], ids=["deferred", "shadows", "ibl", "shadows_ibl", "lossy", "lossy_ibl",
+        "pair_visibility"])
 def test_frame_kernels_vs_plain(dev, frame, stretch):
     from bibim_tpu_torch.ops.ibl import make_ibl_sh
 
@@ -821,6 +883,27 @@ def test_frame_kernels_vs_plain(dev, frame, stretch):
     d = (out["image"].int() - ref["image"].int()).abs()
     assert int(d.max()) <= 2
     assert float((d > 0).any(dim=-1).float().mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", [1, 2], ids=["pairs", "quads"])
+def test_routed_frame_equals_exact_frame(dev, frame, pair):
+    """The routed frame (a K2 pass at the pair level on the clean tiles,
+    one per pixel on the rest) equals the pair-0 frame bit for bit."""
+    scene, vb, fp, mats = frame
+    s = RenderSettings(width=W, height=H, outputs="image+diag",
+                       show_gizmo=False, show_lights=False,
+                       max_candidates=256, live_tile_cap=120,
+                       raster_tile_cap=128, span_mid_cap=1024)
+    routed = dataclasses.replace(s, pair_sampling=pair,
+                                 sample_route_caps=(120, 120))
+    before = shade_sampled.pair_launches
+    out = render_frame(scene, vb, fp, mats, None, routed)
+    ref = render_frame(scene, vb, fp, mats, None, s)
+    torch.cuda.synchronize()
+    assert shade_sampled.pair_launches == before + 1
+    assert int(out["bin_diag"].dropped_tiles) == 0
+    assert torch.equal(out["image"], ref["image"])
 
 
 _VARIANT_FN = {"earlyz": "raster_tiles_earlyz", "group_pair_cap":

@@ -187,7 +187,8 @@ _DEVICE_ENTRY_POINTS = [
     "scene.shaderball.ShaderBallScene", "scene.shaderball.shaderball_lights",
     "scene.shaderball.ground_plane_batch", "scene.triangle.TriangleScene",
     "scene.cube.CubeScene", "scene.cube.cube_material_tables",
-    "scene.cube.cube_scene_materials", "scene.lights.make_lights",
+    "scene.cube.cube_scene_materials", "scene.gizmoscene.GizmoScene",
+    "scene.lights.make_lights",
     "scene.scene.batch_from_mesh",
     "pipeline.framegraph.material_quads_from_set",
     "pipeline.framegraph.make_overlay_resources",

@@ -121,9 +121,15 @@ def test_shadow_factor_compact_matches_jax(cap):
     _assert_vis_close(got.numpy(), want)
     if cap == 3:
         assert int(drop) > 0
-    with pytest.raises(NotImplementedError):
-        sh.shadow_factor_compact(pmap, tuple(map(cases.t, world)),
-                                 cases.t(valid), cap, pair=True)
+    # Pair-rate PCF (pair_visibility) on the same inputs.
+    want, jdrop = jsh.shadow_factor_compact(
+        jmap, tuple(map(jnp.asarray, world)), jnp.asarray(valid), cap,
+        2e-3, pair=True)
+    got, drop = sh.shadow_factor_compact(
+        pmap, tuple(map(cases.t, world)), cases.t(valid), cap, 2e-3,
+        pair=True)
+    assert int(drop) == int(jdrop)
+    _assert_vis_close(got.numpy(), want)
 
 
 @pytest.fixture(scope="module")
