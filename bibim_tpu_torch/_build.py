@@ -183,15 +183,15 @@ def _declare(lib) -> None:
         # groups, u, v, world×3, normal×3, tangent×3, valid, vis (or
         # NULL), lights, n_lights, view_pos, nm_enable, quantize, exposure
         # and tonemap enable (or NULL), quantize_hdr, tonemap, generic,
-        # pair level, pixels a tile, tile width, n, out r/g/b, stream
+        # pair level, tile width, n, out r/g/b, stream
         "bb_shade": [ctypes.POINTER(Groups)] + [p] * 14
-                    + [i, p, p, i, p, p, i, i, i, i, i, i, i, p, p, p, p],
+                    + [i, p, p, i, p, p, i, i, i, i, i, i, p, p, p, p],
         # world×3, normal×3, albedo×3, metallic, roughness, ao, valid,
         # vis (or NULL), ambient×3 (or NULL), lights, n_lights, view_pos,
         # exposure, tonemap enable, quantize, tonemap, n, out r/g/b, stream
         "bb_shade_gbuffer": [p] * 18 + [i, p, p, p, i, i, i, p, p, p, p],
         # blocks, row_bytes, h, w, cpad, n_out, u, v, valid (or NULL),
-        # pair level, pixels a tile, tile width, n, out, stream
+        # pair level, tile width, n, slot plane stride, out, stream
         "bb_sample_block": [p, i, i, i, i, i, p, p, p, i, i, i, i, p, p],
         # quads, rows, cpad, n_out, idx, tx, ty, n, out, stream
         "bb_sample_small": [p, i, i, i, p, p, p, i, p, p],

@@ -49,10 +49,11 @@
 // level 0's instantiations are what they were. The TPU kernel takes the
 // group-rate rows in a member-major pixel order and expands them by lane
 // concatenation (its `expand` path) because Mosaic cannot shuffle lanes;
-// here each thread reads its group's members' coverage and uv from the
-// planes, computes the group's integer anchor (shading.cuh
-// pair_block_footprint) and reads the anchor's row, which the group's
-// threads share; the pixel order does not change.
+// here a group sits in one warp (shading.cuh pair_pixel): each covered
+// lane computes its own footprint once, the group's integer anchor is a
+// min over its covered lanes by shuffles (covered_anchor), and the group's
+// lanes read the anchor's row together; the planes' pixel order does not
+// change.
 #include "shading.cuh"
 
 namespace bb {
@@ -87,19 +88,6 @@ constexpr int BLOCK_MRA = layout_spec(0, 0x1C0);
 // Config 2: the albedo mip-block rows and the routed 4x4 neutral maps.
 constexpr int MIP_ALB = layout_spec(2, 0x007);
 constexpr int ROUTED_NRM_MRAH = layout_spec(3, 0x3F8);
-
-template <int V>
-struct IC {
-  static constexpr int value = V;
-};
-
-template <int B, int E, class F>
-__device__ __forceinline__ void static_for(F&& f) {
-  if constexpr (B < E) {
-    f(IC<B>{});
-    static_for<B + 1, E>(f);
-  }
-}
 
 // Group GI of layout S: compile-time constants where S is fixed, the
 // ShadeGroups fields otherwise.
@@ -152,51 +140,21 @@ struct ShadeArgs {
   const int* tm_enable;
   int quantize_hdr, tonemap;
   int n;
-  int npx, tile_w;  // pixels a tile and its row width (pair levels)
+  int tile_w;  // a tile row's width (pair levels)
   float *out_r, *out_g, *out_b;
 };
 
-// NW aligned 4-byte words from p (16-byte vectors where NW allows).
-template <int NW>
-__device__ __forceinline__ void load_words(const uint8_t* p,
-                                           uint32_t (&w)[NW]) {
-  if constexpr (NW % 4 == 0) {
-    static_for<0, NW / 4>([&](auto q) {
-      constexpr int Q = decltype(q)::value;
-      const uint4 x = __ldg(reinterpret_cast<const uint4*>(p) + Q);
-      w[4 * Q] = x.x;
-      w[4 * Q + 1] = x.y;
-      w[4 * Q + 2] = x.z;
-      w[4 * Q + 3] = x.w;
-    });
-  } else if constexpr (NW == 2) {
-    const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
-    w[0] = x.x;
-    w[1] = x.y;
-  } else {
-    static_for<0, NW>([&](auto q) {
-      w[decltype(q)::value] =
-          __ldg(reinterpret_cast<const uint32_t*>(p) + decltype(q)::value);
-    });
-  }
-}
-
-// Byte B of a word array, as tap() converts it: byte * (1/255).
-template <int B, int NW>
-__device__ __forceinline__ float word_tap(const uint32_t (&w)[NW]) {
-  return (float)((w[B >> 2] >> (8 * (B & 3))) & 0xffu) * INV255;
-}
-
 // Channels J < np of a block-table row (kind 0, channel stride CPAD): the
-// 4 live taps of the 5x5 neighbourhood, blend_block's order. PAIR 0: the
+// 4 live taps of the 5x5 neighbourhood, blend_block's order (sample.cu
+// blend_block_words, kept inline here for level 0's SASS). PAIR 0: the
 // pixel's own block; 1 / 2: its group's anchor block, the taps relative to
-// it (pair_block_footprint).
+// it (shading.cuh covered_anchor over the covered lanes ``covered``, which
+// all reach this call).
 template <int CPAD, int PAIR>
 __device__ __forceinline__ void sample_block(const ShadeGroups& g, int gi,
-                                             const ShadeArgs& a, int i,
-                                             float u, float v, int np,
+                                             float u, float v,
+                                             unsigned covered, int np,
                                              float (&acc)[N_SLOTS]) {
-  constexpr int NW = CPAD / 4;
   const int h = g.h[gi], w = g.w[gi];
   int r, lx, ly;
   float tx, ty;
@@ -207,10 +165,17 @@ __device__ __forceinline__ void sample_block(const ShadeGroups& g, int gi,
     lx = x0i % 4;
     ly = y0i % 4;
   } else {
-    r = pair_block_footprint<PAIR == 2 ? 2 : 1>(
-        a.u, a.v, a.valid, i, a.npx, a.tile_w, h, w, u, v, &lx, &ly, &tx,
-        &ty);
+    int x0i, y0i, xr, yr;
+    footprint<true>(u, v, h, w, &x0i, &y0i, &tx, &ty);
+    covered_anchor<PAIR>(covered, x0i, y0i, &xr, &yr);
+    const BlockTap t = window_tap(x0i, y0i, tx, ty, xr, yr, h, w);
+    r = t.r;
+    lx = t.lx;
+    ly = t.ly;
+    tx = t.tx;
+    ty = t.ty;
   }
+  constexpr int NW = CPAD / 4;
   const uint8_t* row = g.tab[gi] + (size_t)r * g.row_bytes[gi];
   const int t00 = (ly * 5 + lx) * CPAD;
   uint32_t q00[NW], q01[NW], q10[NW], q11[NW];
@@ -270,11 +235,12 @@ __device__ __forceinline__ void with_cpad(const ShadeGroups& g, int gi,
 }
 
 // Samples of group GI (layout S, pair level PAIR) at pixel i into the
-// slots.
+// slots; ``covered``: the warp's covered lanes (pair levels).
 template <int S, int GI, int PAIR>
 __device__ __forceinline__ void sample_group(const ShadeGroups& g,
                                              const ShadeArgs& a, int i,
                                              float u, float v,
+                                             unsigned covered,
                                              float (&slots)[N_SLOTS]) {
   if constexpr (S != NONE) {
     using G = Grp<S, GI>;
@@ -305,7 +271,8 @@ __device__ __forceinline__ void sample_group(const ShadeGroups& g,
       }
     } else if (kind == 0) {
       with_cpad<G>(g, GI, [&](auto c) {
-        sample_block<decltype(c)::value, PAIR>(g, GI, a, i, u, v, np, acc);
+        sample_block<decltype(c)::value, PAIR>(g, GI, u, v, covered, np,
+                                               acc);
       });
     } else {
       int x0i, y0i;
@@ -348,20 +315,22 @@ __device__ __forceinline__ PixelPlanes load_pixel(const ShadeArgs& a,
 }
 
 // Surface of covered pixel i from its planes: the groups' samples into the
-// slots, the normal map, the G-buffer's fp16 round trip; ``ao`` out.
+// slots (``covered``: the warp's covered lanes, at a pair level), the
+// normal map, the G-buffer's fp16 round trip; ``ao`` out.
 template <int PAIR, int S0, int S1, int S2, int S3>
 __device__ __forceinline__ void sampled_surface(const ShadeGroups& g,
                                                 const ShadeArgs& a, int i,
+                                                unsigned covered,
                                                 const PixelPlanes& p,
                                                 const float (&vp)[3],
                                                 bool nm_on, Surface& s,
                                                 float& ao) {
   float slots[N_SLOTS];
   static_for<0, N_SLOTS>([&](auto k) { slots[decltype(k)::value] = 0.f; });
-  sample_group<S0, 0, PAIR>(g, a, i, p.u, p.v, slots);
-  sample_group<S1, 1, PAIR>(g, a, i, p.u, p.v, slots);
-  sample_group<S2, 2, PAIR>(g, a, i, p.u, p.v, slots);
-  sample_group<S3, 3, PAIR>(g, a, i, p.u, p.v, slots);
+  sample_group<S0, 0, PAIR>(g, a, i, p.u, p.v, covered, slots);
+  sample_group<S1, 1, PAIR>(g, a, i, p.u, p.v, covered, slots);
+  sample_group<S2, 2, PAIR>(g, a, i, p.u, p.v, covered, slots);
+  sample_group<S3, 3, PAIR>(g, a, i, p.u, p.v, covered, slots);
 
   // Normal map (gbuffer.frag): N = TBN * (2*tap - 1), B = cross(N, T).
   const float* nrm = p.n;
@@ -408,15 +377,19 @@ __device__ __forceinline__ void shade_pixels(const ShadeGroups& g,
   const float miss = hdr_epilogue(0.f, qh, tm_on, expo);
   const int stride = gridDim.x * blockDim.x;
   // The trip count is the block's, not the thread's: for_light_tiles may
-  // synchronise the block.
+  // synchronise the block. At a pair level a thread samples pixel
+  // pair_pixel(base + threadIdx.x), a permutation within each chunk of
+  // 2 * tile_w pixels (n is a multiple of it), which keeps that count.
   for (int base = blockIdx.x * blockDim.x; base < a.n; base += stride) {
-    const int i = base + threadIdx.x;
+    const int i = pair_pixel<PAIR>(base + threadIdx.x, a.tile_w);
     const bool hit = i < a.n && a.valid[i] != 0;
+    const unsigned covered = PAIR ? __ballot_sync(0xffffffffu, hit) : 0u;
     Surface s;
     float ao = 0.f;
     if (hit)
-      sampled_surface<PAIR, S0, S1, S2, S3>(g, a, i, load_pixel(a, i), vp,
-                                            nm_on, s, ao);
+      sampled_surface<PAIR, S0, S1, S2, S3>(g, a, i, covered,
+                                            load_pixel(a, i), vp, nm_on, s,
+                                            ao);
     float lo[3] = {0.f, 0.f, 0.f};
     for_light_tiles<RESIDENT>(a.lp, a.n_lights, tile,
                               [&](const PreparedLight* lights, int count) {
@@ -438,14 +411,13 @@ __device__ __forceinline__ void shade_pixels(const ShadeGroups& g,
 }
 
 // Four blocks a multiprocessor (at most 64 registers) for the fixed
-// layouts at pair level 0, two (128) at pair levels 1 and 2, whose group
-// anchor adds the members' footprints; the generic instantiation takes
-// one, so that ptxas can go past 64 registers there instead of spilling.
-// RESIDENT and the tiled light path are separate kernels, so that
-// neither's registers constrain the other.
+// layouts, at every pair level (a group's anchor is one footprint and a
+// few shuffles where the block row is read); the generic instantiation
+// takes one, so that ptxas can go past 64 registers there instead of
+// spilling. RESIDENT and the tiled light path are separate kernels, so
+// that neither's registers constrain the other.
 template <bool RESIDENT, int PAIR, int S0, int S1, int S2, int S3>
-__global__ void __launch_bounds__(SHADE_THREADS,
-                                  S0 == GEN ? 1 : (PAIR ? 2 : 4))
+__global__ void __launch_bounds__(SHADE_THREADS, S0 == GEN ? 1 : 4)
 shade_kernel(const __grid_constant__ ShadeGroups g,
              const __grid_constant__ ShadeArgs a) {
   __shared__ PreparedLight tile[LIGHT_TILE];
@@ -514,8 +486,8 @@ extern "C" int bb_shade_layout(const ShadeGroups* g) {
 
 // generic: run the generic instantiation whatever the layout (tests and
 // measurement). pair: the pair level of the block-table groups (0, 1, 2;
-// the mip layout runs at 0 only), npx the pixels a tile and tile_w its row
-// width.
+// the mip layout runs at 0 only), tile_w a tile row's width (a multiple of
+// 16; n a multiple of 2 * tile_w at a pair level).
 extern "C" int bb_shade(const ShadeGroups* g, const float* u, const float* v,
                         const float* wx, const float* wy, const float* wz,
                         const float* nx, const float* ny, const float* nz,
@@ -526,7 +498,7 @@ extern "C" int bb_shade(const ShadeGroups* g, const float* u, const float* v,
                         int quantize,
                         const float* exposure, const int* tm_enable,
                         int quantize_hdr, int tonemap, int generic,
-                        int pair, int npx, int tile_w, int n,
+                        int pair, int tile_w, int n,
                         float* out_r, float* out_g, float* out_b,
                         void* stream) {
   using namespace bb;
@@ -534,7 +506,7 @@ extern "C" int bb_shade(const ShadeGroups* g, const float* u, const float* v,
   const ShadeArgs a{u, v, wx, wy, wz, nx, ny, nz, tgx, tgy, tgz, valid,
                     vis_plane, lparams, n_lights, view_pos, nm_enable,
                     quantize, exposure, tm_enable,
-                    quantize_hdr, tonemap, n, npx, tile_w,
+                    quantize_hdr, tonemap, n, tile_w,
                     out_r, out_g, out_b};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (generic ? 0 : shade_layout(*g)) {

@@ -1,11 +1,12 @@
 // Device code shared by the sampled shade (K2, shade.cu), the G-buffer shade
 // (K5, gbuffer_shade.cu) and the standalone samplers (K6 / K7, sample.cu;
 // K8, mip_sample.cu): the bilinear footprint and texel blends of the
-// material tables, the mip-block level and footprint geometry (K8) and
-// trilinear blend, and the GGX light loop.
+// material tables, pair-rate sampling's warp-group anchor (K2 and K6), the
+// mip-block level and footprint geometry (K8) and trilinear blend, and the
+// GGX light loop.
 //
 // Semantics are the reference's (bibim_tpu/ops/texture_quad.py _footprint,
-// _blend, block_blend_acc, mip_block_blend_acc;
+// _blend, block_blend_acc, block_prep(pair_rows), mip_block_blend_acc;
 // bibim_tpu/ops/shading_pallas.py _ggx_light_sum), operation for operation.
 // The library is compiled with -fmad=false, so every a*b+c rounds the
 // product and the sum separately, as the plain PyTorch versions do.
@@ -22,6 +23,20 @@ constexpr int N_SLOTS = 10;  // alb_rgb, nrm_xyz, metallic, roughness, ao, heigh
 constexpr int LIGHT_ROW = 16;  // scene/lights.py pack_lights
 constexpr float PI_F = (float)3.1415926535897932384626433832795;
 constexpr float INV255 = (float)(1.0 / 255.0);
+
+template <int V>
+struct IC {
+  static constexpr int value = V;
+};
+
+// f(IC<B>{}), ..., f(IC<E - 1>{}): a loop whose index is a constant.
+template <int B, int E, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (B < E) {
+    f(IC<B>{});
+    static_for<B + 1, E>(f);
+  }
+}
 
 }  // namespace bb
 
@@ -71,7 +86,22 @@ __device__ __forceinline__ float q16(float x) {
   return __half2float(__float2half_rn(x));
 }
 
+// torch.remainder of int32 (the sign of the divisor, b > 0 here). A texel
+// coordinate lies within one wrap of [0, b) unless uv leaves [-1, 2):
+// those take no division.
+__device__ __forceinline__ int floor_mod(int a, int b) {
+  if ((unsigned)a < (unsigned)b) return a;
+  if (a < 0 && a >= -b) return a + b;
+  if (a >= b && a - b < b) return a - b;
+  const int r = a % b;
+  return r < 0 ? r + b : r;
+}
+
 // Bilinear footprint: REPEAT-wrapped top-left texel and the fractions.
+// FLOOR_MOD wraps with floor_mod: the integers of C's % and its fix-up,
+// without the division in the common case (K2's per-pixel sampling keeps
+// the division, and so its instructions).
+template <bool FLOOR_MOD = false>
 __device__ __forceinline__ void footprint(float u, float v, int h, int w,
                                           int* x0i, int* y0i, float* tx,
                                           float* ty) {
@@ -80,32 +110,49 @@ __device__ __forceinline__ void footprint(float u, float v, int h, int w,
   const float x0 = floorf(fx), y0 = floorf(fy);
   *tx = fx - x0;
   *ty = fy - y0;
-  int xi = ((int)x0) % w;
-  if (xi < 0) xi += w;
-  int yi = ((int)y0) % h;
-  if (yi < 0) yi += h;
-  *x0i = xi;
-  *y0i = yi;
+  if constexpr (FLOOR_MOD) {
+    *x0i = floor_mod((int)x0, w);
+    *y0i = floor_mod((int)y0, h);
+  } else {
+    int xi = ((int)x0) % w;
+    if (xi < 0) xi += w;
+    int yi = ((int)y0) % h;
+    if (yi < 0) yi += h;
+    *x0i = xi;
+    *y0i = yi;
+  }
 }
 
-// Block-table row of the 4x4 block holding texel (x0i, y0i): the 4 live
-// taps of the 25 (the reference's dead taps add exact zeros), summed in the
-// (j, i) row-major order, each weighted wx * wy. Writes n_out channels.
-__device__ __forceinline__ void blend_block(const uint8_t* row, int lx,
-                                            int ly, float tx, float ty,
-                                            int cpad, int n_out, float* out) {
-  const float omtx = 1.f - tx, omty = 1.f - ty;
-  const int t00 = (ly * 5 + lx) * cpad, t01 = t00 + cpad;
-  const int t10 = t00 + 5 * cpad, t11 = t10 + cpad;
-  const float w00 = omtx * omty, w01 = tx * omty;
-  const float w10 = omtx * ty, w11 = tx * ty;
-  for (int k = 0; k < n_out; ++k) {
-    float acc = tap(row, t00 + k) * w00;
-    acc = acc + tap(row, t01 + k) * w01;
-    acc = acc + tap(row, t10 + k) * w10;
-    acc = acc + tap(row, t11 + k) * w11;
-    out[k] = acc;
+// NW aligned 4-byte words from p (16-byte vectors where NW allows), through
+// the read-only path.
+template <int NW>
+__device__ __forceinline__ void load_words(const uint8_t* p,
+                                           uint32_t (&w)[NW]) {
+  if constexpr (NW % 4 == 0) {
+    static_for<0, NW / 4>([&](auto q) {
+      constexpr int Q = decltype(q)::value;
+      const uint4 x = __ldg(reinterpret_cast<const uint4*>(p) + Q);
+      w[4 * Q] = x.x;
+      w[4 * Q + 1] = x.y;
+      w[4 * Q + 2] = x.z;
+      w[4 * Q + 3] = x.w;
+    });
+  } else if constexpr (NW == 2) {
+    const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = x.x;
+    w[1] = x.y;
+  } else {
+    static_for<0, NW>([&](auto q) {
+      w[decltype(q)::value] =
+          __ldg(reinterpret_cast<const uint32_t*>(p) + decltype(q)::value);
+    });
   }
+}
+
+// Byte B of a word array, as tap() converts it: byte * (1/255).
+template <int B, int NW>
+__device__ __forceinline__ float word_tap(const uint32_t (&w)[NW]) {
+  return (float)((w[B >> 2] >> (8 * (B & 3))) & 0xffu) * INV255;
 }
 
 // Quad-table row [t00 | t01 | t10 | t11] x cpad in the _blend order:
@@ -149,74 +196,107 @@ __device__ __forceinline__ int load_mip_geom(const int* gi, const float* gf,
 constexpr int MIP_HEAD = 4, MIP_LEVEL = 8;
 constexpr int MIP_B = 4;  // texels a block edge
 
-// torch.remainder of int32 (the sign of the divisor, b > 0 here). A texel
-// coordinate lies within one wrap of [0, b) unless uv leaves [-1, 2):
-// those take no division.
-__device__ __forceinline__ int floor_mod(int a, int b) {
-  if ((unsigned)a < (unsigned)b) return a;
-  if (a < 0 && a >= -b) return a + b;
-  if (a >= b && a - b < b) return a - b;
-  const int r = a % b;
-  return r < 0 ? r + b : r;
+// Pair-rate block sampling (texture_quad.pair_window, the reference's
+// block_prep(pair_rows)): pixel i of an (NT, tile_h * tile_w) plane belongs
+// to a group of 2 x RX pixels (rows r, r + 1 from an even r; at level 2
+// columns c, c + 1 from an even c). The group anchors one 5x5 texel window
+// at the min top-left tap of its covered members per axis (of all members
+// where none is covered), and each pixel blends its own footprint relative
+// to that window, its taps clamped to the window edge (tx / ty exactly 0 or
+// 1 outside it, so the 4-live-tap blend keeps the 25-tap sum's bits).
+//
+// K2 and K6 hold a group in one warp. A warp covers 2 tile rows x 16
+// columns: in each chunk of 2 * tile_w flat indices (one row pair of a
+// tile; tile_w % 16 == 0) warp k of the chunk takes columns [16k, 16k + 16)
+// of both rows. At level 2 lanes 4m .. 4m + 3 are 2x2 group m (lane bit 0
+// the column, bit 1 the row); at level 1 lanes 2m, 2m + 1 are 2x1 group m
+// (bit 0 the row). A warp's store to a plane is two runs of 16 adjacent
+// pixels, 64 bytes each. pair_pixel is that permutation of each chunk:
+// flat index f (warp aligned, so its low 5 bits are the lane) → the pixel
+// its thread samples (RX 0, per-pixel sampling: f). The planes' pixel
+// order does not change.
+template <int RX>
+__device__ __forceinline__ int pair_pixel(int f, int tile_w) {
+  if constexpr (RX == 0) return f;
+  const int c0 = f - f % (2 * tile_w);
+  const int lane = f & 31;
+  const int col = ((f - c0) >> 5 << 4) +
+                  (RX == 2 ? ((lane >> 2) << 1 | (lane & 1)) : lane >> 1);
+  const int row = RX == 2 ? (lane >> 1) & 1 : lane & 1;
+  return c0 + row * tile_w + col;
 }
 
-// Pair-rate block sampling (texture_quad.pair_window, the reference's
-// block_prep(pair_rows)): pixel i of an (NT, npx) plane belongs to a group
-// of 2 x RX pixels (rows r, r + 1; columns c, c + RX - 1 from an even c).
-// The group anchors one 5x5 texel window at the min top-left tap of its
-// covered members per axis (of all members where none is covered), and
-// each pixel blends its own footprint relative to that window, its taps
-// clamped to the window edge (tx / ty exactly 0 or 1 outside it, so the
-// 4-live-tap blend of blend_block stays the 25-tap sum's bits). The
-// members' coverage and uv are read straight from the planes: a member's
-// uv only where it is covered, or where pixel i itself is not (then the
-// group may be uncovered and anchor at the min over all). ``valid`` NULL:
-// every pixel covered. Returns the anchor's block-row index; (ui, vi) is
-// pixel i's uv.
+// The group's anchor (xr, yr) from each lane's own top-left tap and
+// coverage, reduced over the group's lanes (xor 1, and xor 2 at level 2):
+// per axis the min over the covered members, or where none is covered
+// the min over all members. A member's footprint is a function of its uv
+// alone, so this is the anchor a thread would find from its group's
+// planes itself, also from NaN uv at a miss. Every lane of the warp calls
+// it (K6).
 template <int RX>
-__device__ __forceinline__ int pair_block_footprint(
-    const float* __restrict__ u, const float* __restrict__ v,
-    const uint8_t* __restrict__ valid, int i, int npx, int tile_w, int h,
-    int w, float ui, float vi, int* lx, int* ly, float* tx, float* ty) {
-  int x0i, y0i;
-  footprint(ui, vi, h, w, &x0i, &y0i, tx, ty);
-  const int t = i / npx, p = i - t * npx;
-  const int r = p / tile_w, c = p - r * tile_w;
-  const int g0 = t * npx + (r & ~1) * tile_w + (RX == 2 ? (c & ~1) : c);
-  const bool own = valid == nullptr || valid[i] != 0;
-  int mx_cov = 1 << 30, my_cov = 1 << 30;
-  int mx_all = 1 << 30, my_all = 1 << 30;
-  bool any = false;
+__device__ __forceinline__ void group_anchor(int x0i, int y0i, bool cov,
+                                             int* xr, int* yr) {
+  constexpr int UNCOVERED = 1 << 30;  // above any texel coordinate
+  int cx = cov ? x0i : UNCOVERED, cy = cov ? y0i : UNCOVERED;
+  int ax = x0i, ay = y0i;
 #pragma unroll
-  for (int a = 0; a < 2; ++a) {
+  for (int s = 1; s <= RX; s <<= 1) {
+    cx = min(cx, __shfl_xor_sync(0xffffffffu, cx, s));
+    cy = min(cy, __shfl_xor_sync(0xffffffffu, cy, s));
+    ax = min(ax, __shfl_xor_sync(0xffffffffu, ax, s));
+    ay = min(ay, __shfl_xor_sync(0xffffffffu, ay, s));
+  }
+  const bool any = cx != UNCOVERED;
+  *xr = any ? cx : ax;
+  *yr = any ? cy : ay;
+}
+
+// The anchor of a covered pixel's group where only the covered lanes call
+// it (K2, which samples covered pixels alone; ``covered``: their warp
+// mask, the same in every calling lane): per axis the min top-left tap
+// over the group's members among them, each read straight from its lane
+// (a missing member relays nothing, so no butterfly).
+template <int RX>
+__device__ __forceinline__ void covered_anchor(unsigned covered, int x0i,
+                                               int y0i, int* xr, int* yr) {
+  const int lane = threadIdx.x & 31;
+  int cx = x0i, cy = y0i;
 #pragma unroll
-    for (int b = 0; b < RX; ++b) {
-      const int m = g0 + a * tile_w + b;
-      const bool cov = valid == nullptr || valid[m] != 0;
-      if (!(cov || !own)) continue;
-      int xm = x0i, ym = y0i;
-      if (m != i) {
-        float txm, tym;
-        footprint(__ldg(u + m), __ldg(v + m), h, w, &xm, &ym, &txm, &tym);
-      }
-      if (cov) {
-        mx_cov = min(mx_cov, xm);
-        my_cov = min(my_cov, ym);
-        any = true;
-      }
-      mx_all = min(mx_all, xm);
-      my_all = min(my_all, ym);
+  for (int k = 1; k < 2 * RX; ++k) {  // lane ^ k: the group's other members
+    const int ox = __shfl_sync(covered, x0i, lane ^ k);
+    const int oy = __shfl_sync(covered, y0i, lane ^ k);
+    if (covered >> (lane ^ k) & 1) {
+      cx = min(cx, ox);
+      cy = min(cy, oy);
     }
   }
-  const int xr = any ? mx_cov : mx_all, yr = any ? my_cov : my_all;
-  const int bx = xr / 4, by = yr / 4;  // xr, yr >= 0
+  *xr = cx;
+  *yr = cy;
+}
+
+// A block-table blend's inputs: the row, the tap in it and the fractions.
+struct BlockTap {
+  int r, lx, ly;
+  float tx, ty;
+};
+
+// The pixel with top-left tap (x0i, y0i) and fractions (tx, ty) in the
+// window of anchor (xr, yr) (both >= 0): the anchor's block row, the tap
+// relative to it (REPEAT-wrapped into [-w/2, w/2)) clamped to the window,
+// the fraction 0 or 1 outside it.
+__device__ __forceinline__ BlockTap window_tap(int x0i, int y0i, float tx,
+                                               float ty, int xr, int yr,
+                                               int h, int w) {
+  const int bx = (unsigned)xr / 4, by = (unsigned)yr / 4;
   const int cx = floor_mod(x0i - bx * 4 + w / 2, w) - w / 2;
   const int cy = floor_mod(y0i - by * 4 + h / 2, h) - h / 2;
-  *lx = min(max(cx, 0), 3);
-  *ly = min(max(cy, 0), 3);
-  if (cx < 0 || cx > 3) *tx = cx < 0 ? 0.f : 1.f;
-  if (cy < 0 || cy > 3) *ty = cy < 0 ? 0.f : 1.f;
-  return by * (w / 4) + bx;
+  BlockTap t;
+  t.r = by * (w / 4) + bx;
+  t.lx = min(max(cx, 0), 3);
+  t.ly = min(max(cy, 0), 3);
+  t.tx = (cx < 0 || cx > 3) ? (cx < 0 ? 0.f : 1.f) : tx;
+  t.ty = (cy < 0 || cy > 3) ? (cy < 0 ? 0.f : 1.f) : ty;
+  return t;
 }
 
 // torch.maximum: NaN if either is NaN.

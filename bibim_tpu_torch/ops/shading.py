@@ -288,8 +288,8 @@ def shade_sampled(tables, u, v, world, normal, tangent, valid,
         ctypes.byref(groups), *(p(t) for t in planes[:11]), p(valid),
         _optional_ptr(vis_plane), p(lparams), lights.num_lights, p(vp),
         p(nm), int(quantize), _optional_ptr(expo), _optional_ptr(tm),
-        int(quantize_hdr), int(tonemap), int(generic), int(pair),
-        u.shape[-1] if u.ndim else 1, tile_w, n, p(out[0]), p(out[1]),
+        int(quantize_hdr), int(tonemap), int(generic), int(pair), tile_w,
+        n, p(out[0]), p(out[1]),
         p(out[2]), _build.stream_ptr(dev))
     _build.check(err, "shade")
     shade_sampled.launches += 1

@@ -340,16 +340,24 @@ def _check_table(fn: str, tab: torch.Tensor, device) -> None:
                          f"tensor on {device}")
 
 
+# The kernels' pair-rate warp mapping (csrc/shading.cuh pair_pixel): a
+# warp covers 2 tile rows × 16 columns.
+PAIR_TILE_W = 16
+
+
 def check_pair_planes(fn: str, pair_rows, u, valid, tile_w: int) -> None:
-    """The planes a pair-rate sample takes: (NT, tile_h·tile_w) with an
-    even tile_h (and an even tile_w at level 2); ``valid`` None or a
-    contiguous bool plane of their shape and device."""
+    """The planes a kernel's pair-rate sample takes (K2, K6): (NT,
+    tile_h·tile_w) with an even tile_h and ``tile_w`` a multiple of
+    :data:`PAIR_TILE_W`; ``valid`` None or a contiguous bool plane of
+    their shape and device."""
     if pair_rows not in (0, 1, 2):
         raise ValueError(f"{fn}: pair level {pair_rows} is not 0, 1 or 2")
     if not pair_rows:
         return
-    ry, rx = pair_factors(pair_rows)
-    if (u.ndim != 2 or tile_w % rx or u.shape[1] % (ry * tile_w)):
+    if tile_w % PAIR_TILE_W:
+        raise ValueError(f"{fn}: pair level {pair_rows} needs tile_w a "
+                         f"multiple of {PAIR_TILE_W}, not {tile_w}")
+    if u.ndim != 2 or u.shape[1] % (2 * tile_w):
         raise ValueError(f"{fn}: pair level {pair_rows} needs (NT, "
                          "tile_h·tile_w) planes with an even tile_h")
     if valid is not None and (
@@ -382,19 +390,25 @@ def sample_table_block_kernel(table: BlockTable, u, v, pair_rows: int = 0,
     if dev.type != "cuda":
         raise RuntimeError(f"sample_table_block_kernel: unsupported device "
                            f"{dev}")
-    out = torch.empty((n_out,) + tuple(u.shape), dtype=torch.float32,
-                      device=dev)
+    # 16-byte aligned rows (word taps) and uv planes (vector loads).
+    if any(t.data_ptr() % 16 for t in (tab, u, v)) or tab.shape[1] % 16:
+        raise ValueError("sample_table_block_kernel: the table, its rows "
+                         "and u, v must start on 16-byte boundaries")
+    # Slot planes padded to whole 16-byte vectors (the kernel's stores).
+    n = u.numel()
+    ns = -(-n // 4) * 4
+    out = torch.empty((n_out, ns), dtype=torch.float32, device=dev)
     p = _build.ptr
-    npx = u.shape[-1] if u.ndim else 1
     err = _build.library().bb_sample_block(
         p(tab), tab.shape[1], table.height, table.width, cpad, n_out, p(u),
-        p(v), None if valid is None else p(valid), int(pair_rows), npx,
-        tile_w, u.numel(), p(out), _build.stream_ptr(dev))
+        p(v), None if valid is None else p(valid), int(pair_rows), tile_w,
+        n, ns, p(out), _build.stream_ptr(dev))
     _build.check(err, "sample_block")
     sample_table_block_kernel.launches += 1
     if pair_rows:
         sample_table_block_kernel.pair_launches += 1
-    return {slot: out[k] for k, slot in enumerate(table.present)}
+    return {slot: out[k, :n].view(u.shape)
+            for k, slot in enumerate(table.present)}
 
 
 sample_table_block_kernel.launches = 0

@@ -261,6 +261,19 @@ def nvidia_smi_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+# This run's ptxas usage per kernel instantiation (main fills it).
+PTXAS: dict = {}
+
+
+def ptxas_rows(pattern: str) -> dict:
+    """The ptxas rows (registers, stack, spills) of the instantiations
+    whose name matches ``pattern`` (a regular expression from its
+    start)."""
+    import re
+
+    return {k: v for k, v in PTXAS.items() if re.match(pattern, k)}
+
+
 def ptxas_usage(log: str) -> dict:
     """Per kernel of the library (``bb::`` entry functions, demangled with
     ``c++filt`` where the machine has it): registers, stack frame and
@@ -319,15 +332,16 @@ def profile_window(fn, reps: int, match: str | None = None):
     ``torch.profiler`` (CPU and CUDA activity), after one warm-up, and the
     device microseconds of the events whose name contains ``match`` (all
     device events for None). On the H100 the profiler now and then
-    records no device event for a window (seen in two smoke runs): a
-    window with none of them is profiled again, three times at most."""
+    records no device event for a window (seen in two smoke runs, and
+    three windows in a row once): a window with none of them is profiled
+    again, six times at most."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(6):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -1574,7 +1588,7 @@ def check_kernels_c5(calls: dict, comps: list) -> dict:
     res["sample_block"] = check_sampler(
         calls["sample_block"][0], tq.sample_table_block_kernel,
         tq.sample_table_block, "sample_block",
-        SAMPLER_TAPS["sample_block"])
+        SAMPLER_TAPS["sample_block"], kernel="sample_block_kernel")
     res["sample_small"] = check_sampler(
         calls["sample_small"][0], tq.sample_rows_small,
         tq.sample_rows_small_plain, "sample_small",
@@ -1609,10 +1623,12 @@ def sampler_bytes(args, out, kw=None) -> int:
             + tensor_bytes(out))
 
 
-def check_sampler(call, kern, plain, name: str, taps: int) -> dict:
+def check_sampler(call, kern, plain, name: str, taps: int,
+                  kernel: str | None = None) -> dict:
     """A sampler kernel (K6, K7, K8) on one captured call: every slot
     plane bit-equal to its plain version; both timed. ``taps``: live taps
-    per pixel and channel."""
+    per pixel and channel. ``kernel``: the kernel's name, whose device
+    time a launch (``kernel_ms``) and ptxas rows the result adds."""
     import torch
 
     args, kw, _ = call
@@ -1632,7 +1648,11 @@ def check_sampler(call, kern, plain, name: str, taps: int) -> dict:
                 whole_tensor_bytes=tensor_bytes(args, kw, got),
                 **bound(sampler_bytes(args, got, kw), ops),
                 ms=cuda_ms(lambda: kern(*args, **kw)),
-                plain_ms=cuda_ms(lambda: plain(*args, **kw)))
+                plain_ms=cuda_ms(lambda: plain(*args, **kw)),
+                **({} if kernel is None else dict(
+                    kernel_ms=device_ms(lambda: kern(*args, **kw), 20,
+                                        kernel),
+                    ptxas=ptxas_rows(kernel))))
 
 
 def hud_input(width: int, height: int, yaw: float, fps: float = 60.0):
@@ -2529,7 +2549,8 @@ def check_shade_pairs(calls: list) -> dict:
     (``assert_shade_close``; the fused tail against the torch tail,
     ``torch.equal``), each timed: wrapper, kernel and plain ms, the
     kernel at pair level 0 on the same inputs, and the bound, whose bytes
-    count one block row a group."""
+    count one block row a group; with the ptxas rows of K2's
+    instantiations at that level and at level 0."""
     import torch
 
     from bibim_tpu_torch.ops.shading import shade_sampled, shade_sampled_plain
@@ -2552,7 +2573,9 @@ def check_shade_pairs(calls: list) -> dict:
                           hdr_kw),
             level0_kernel_ms=device_ms(
                 lambda: shade_sampled(*args, **dict(kw, pair=0)), 20,
-                "bb::shade_kernel")))
+                "bb::shade_kernel"),
+            ptxas={lvl: ptxas_rows(rf"shade_kernel<\w+, {lvl},")
+                   for lvl in (kw["pair"], 0)}))
     tails = check_tails({"shade": calls}, "pair-level K2")
     return dict(res[0], calls=res, tails_equal=tails)
 
@@ -2609,15 +2632,14 @@ def run_pair_paths(dev, smi: str, name: str, c3, c5):
     kres = {"shade_pair": check_shade_pairs(k2),
             "sample_block_pair": [check_sampler(
                 c, tq.sample_table_block_kernel, tq.sample_table_block,
-                "sample_block", SAMPLER_TAPS["sample_block"])
+                "sample_block", SAMPLER_TAPS["sample_block"],
+                kernel=f"sample_block_pair_kernel<{c[1]['pair_rows']},")
                 for c in k6]}
     for r, (args, kw, _) in zip(kres["sample_block_pair"], k6):
-        r["kernel_ms"] = device_ms(
-            lambda: tq.sample_table_block_kernel(*args, **kw), 20,
-            "sample_block_pair_kernel")
         r["level0_kernel_ms"] = device_ms(
             lambda: tq.sample_table_block_kernel(*args), 20,
             "sample_block_kernel")
+        r["level0_ptxas"] = ptxas_rows("sample_block_kernel<")
     kres["sample_block_pair"] = dict(kres["sample_block_pair"][0],
                                      calls=kres["sample_block_pair"])
     for k, v in kres.items():
@@ -2726,9 +2748,11 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds or 0.0:.1f} s)")
     usage = ptxas_usage(_build.build_log)
+    PTXAS.update(usage)
     print("ptxas usage: " + json.dumps(usage))
     for what, prefixes, least in (
             ("K2 / K5", ("shade_kernel", "gbuffer_shade_kernel"), 4),
+            ("K6", ("sample_block_kernel", "sample_block_pair_kernel"), 9),
             ("K9 / K11", ("raster_earlyz_kernel", "raster_fine_kernel"), 8),
             ("K4 / K8 / K10", ("overlay_kernel", "mip_block_kernel",
                                "raster_gw_kernel"), 18)):

@@ -104,6 +104,13 @@ def test_wrappers_validate_inputs():
         fused.raster_tiles(rec[:, :60].contiguous(), i1, i1, i1, ids, ids,
                            ids, torch.zeros((2, 16), dtype=torch.int32), 1,
                            2, 8)
+    # The pair-rate warp mapping needs tile rows of a multiple of 16.
+    block = _block_table("cpu", 3, 0)
+    uv = torch.zeros((2, 1024))
+    for pair in (1, 2):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            tq.sample_table_block_kernel(block, uv, uv, pair_rows=pair,
+                                         tile_w=8)
 
 
 @pytest.mark.cuda
@@ -430,6 +437,69 @@ def test_sample_block_kernel_pair_bit_equal(dev, frame, pair):
         assert tq.sample_table_block_kernel.pair_launches == before + 1
         for slot in want:
             assert torch.equal(got[slot], want[slot]), slot
+
+
+def _block_table(dev, n_slots: int, seed: int) -> tq.BlockTable:
+    """A 64² block table of the first ``n_slots`` slots (channel stride
+    4, 8 or 12 for 3, 6 or 10 slots)."""
+    rng = np.random.default_rng(seed)
+    maps = {s: rng.integers(0, 256, (64, 64, 1), dtype=np.uint8)
+            for s in tq.SLOTS[:n_slots]}
+    (table,) = tq.build_quad_tables(maps, block_threshold=1024, device=dev)
+    assert isinstance(table, tq.BlockTable)
+    return table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", [0, 1, 2], ids=["pixels", "pairs", "quads"])
+@pytest.mark.parametrize("n_slots", [3, 6, 10],
+                         ids=["cpad4", "cpad8", "cpad12"])
+def test_sample_block_kernel_bit_equal_every_stride(dev, pair, n_slots):
+    """K6 at each pair level and channel stride equals its plain version
+    bit for bit, with NaN uv at the misses; at level 0 also on pixel
+    counts that are not a multiple of its 4-pixel vectors (the scalar
+    tail, the planes' padded stride)."""
+    table = _block_table(dev, n_slots, 17 + n_slots)
+    shapes = [(12, 1024)] + ([(4093,), (3, 7)] if pair == 0 else [])
+    for shape in shapes:
+        p = _planes(dev, 19, shape)
+        valid = p(0, 1) > 0.3
+        valid.view(-1)[:64] = False  # whole groups of misses
+        nan = torch.full(shape, float("nan"), device=dev)
+        u, v = (torch.where(valid, p(-2, 3), nan) for _ in range(2))
+        kw = dict(pair_rows=pair, valid=valid) if pair else {}
+        got = tq.sample_table_block_kernel(table, u, v, **kw)
+        want = tq.sample_table_block(table, u, v, **kw)
+        torch.cuda.synchronize()
+        assert set(got) == set(want) == set(table.present)
+        for slot in want:
+            assert got[slot].shape == want[slot].shape == shape
+            torch.testing.assert_close(got[slot], want[slot], rtol=0,
+                                       atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_pair_kernels_need_tile_w_multiple_of_16(dev, frame):
+    """K2 and K6 refuse a pair level on tile rows that are not a multiple
+    of 16 (their warp mapping); no other path takes the call."""
+    _, _, _, mats = frame
+    block = next(t for t in mats if isinstance(t, tq.BlockTable))
+    p = _planes(dev, 3)
+    u, v = p(0, 1), p(0, 1)
+    valid = p(0, 1) > 0.3
+    planes = tuple(p(-1, 1) for _ in range(3))
+    before = (tq.sample_table_block_kernel.launches, shade_sampled.launches)
+    for pair in (1, 2):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            tq.sample_table_block_kernel(block, u, v, pair_rows=pair,
+                                         valid=valid, tile_w=8)
+        with pytest.raises(ValueError, match="multiple of 16"):
+            shade_sampled(mats, u, v, planes, planes, planes, valid,
+                          shaderball_lights(dev),
+                          torch.zeros(3, device=dev),
+                          torch.tensor(1, device=dev), pair=pair, tile_w=8)
+    assert (tq.sample_table_block_kernel.launches,
+            shade_sampled.launches) == before
 
 
 @pytest.mark.cuda

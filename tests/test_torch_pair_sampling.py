@@ -219,23 +219,40 @@ def test_shade_pair_matches_pallas_interpret(pair):
     cases.assert_shade_close(want, [g.numpy() for g in got])
 
 
-def _kernel_anchor(u, v, valid, h, w, pair, tile_w=TILE_W):
-    """csrc/shading.cuh ``pair_block_footprint`` replayed as tensor ops in
-    the kernels' thread mapping: thread i of the flat planes finds its
-    group's first member g0 from its tile, row and column; reads each
-    member's coverage and, where that member is covered or pixel i is
-    not, the member's uv; takes the covered (else all) members' min
-    top-left tap per axis; C's truncating int conversion and remainder
-    fix-up. Returns flat (row, lx, ly, tx, ty)."""
-    npx = u.shape[1]
+def _pair_pixel(f, tile_w, pair):
+    """csrc/shading.cuh ``pair_pixel``: the pixel thread ``f`` of a
+    warp-aligned launch samples at a pair level. Within each chunk of
+    2·tile_w indices (a tile's row pair) warp k takes columns [16k,
+    16k+16) of both rows: at level 2 lanes 4m..4m+3 are 2×2 group m (lane
+    bit 0 the column, bit 1 the row), at level 1 lanes 2m, 2m+1 are 2×1
+    group m (bit 0 the row)."""
+    c0 = f - f % (2 * tile_w)
+    lane = f & 31
+    warp_col = (f - c0) >> 5 << 4
+    if pair == 2:
+        col, row = warp_col + ((lane >> 2) << 1 | (lane & 1)), (lane >> 1) & 1
+    else:
+        col, row = warp_col + (lane >> 1), lane & 1
+    return c0 + row * tile_w + col
+
+
+def _kernel_anchor(u, v, valid, h, w, pair, tile_w=TILE_W,
+                   all_members=True):
+    """The kernels' group anchor replayed as tensor ops in their warp
+    mapping (csrc/shading.cuh ``pair_pixel``, ``group_anchor``,
+    ``covered_anchor``, ``window_tap``): thread f samples pixel
+    ``_pair_pixel(f)`` and computes that pixel's footprint once (C's
+    truncating int conversion and remainder fix-up). K6 (``all_members``)
+    reduces its covered top-left tap and its tap over the lanes f ^ 1
+    (and f ^ 2 at level 2) with a min, every lane taking part; a group
+    with no covered member anchors at the all-member min. In K2 only the
+    covered lanes take part: each reads the taps of its group's covered
+    members (lanes f ^ k, k < 2·rx) straight from their lanes. Returns
+    flat (row, lx, ly, tx, ty) in pixel order."""
     uf, vf, vb = u.reshape(-1), v.reshape(-1), valid.reshape(-1)
-    i = torch.arange(uf.numel())
-    t = i // npx
-    p = i - t * npx
-    r = p // tile_w
-    c = p - r * tile_w
-    rx = 2 if pair == 2 else 1
-    g0 = t * npx + (r & ~1) * tile_w + ((c & ~1) if rx == 2 else c)
+    f = torch.arange(uf.numel())
+    i = _pair_pixel(f, tile_w, pair)
+    assert torch.equal(i.sort().values, f)
 
     def footprint(uu, vv):
         fx = uu * w - 0.5
@@ -246,56 +263,95 @@ def _kernel_anchor(u, v, valid, h, w, pair, tile_w=TILE_W):
         return (torch.where(xi < 0, xi + w, xi),
                 torch.where(yi < 0, yi + h, yi), fx - x0, fy - y0)
 
-    x0i, y0i, tx, ty = footprint(uf, vf)
+    x0i, y0i, tx, ty = footprint(uf[i], vf[i])
+    cov = vb[i]
     big = torch.full_like(x0i, 1 << 30)
-    mx_cov, my_cov, mx_all, my_all = big, big, big, big
-    any_cov = torch.zeros_like(vb)
-    for a in range(2):
-        for b in range(rx):
-            m = g0 + a * tile_w + b
-            cov = vb[m]
-            take = cov | ~vb
-            xm, ym, _, _ = footprint(uf[m], vf[m])
-            mx_cov = torch.where(take & cov, torch.minimum(mx_cov, xm),
-                                 mx_cov)
-            my_cov = torch.where(take & cov, torch.minimum(my_cov, ym),
-                                 my_cov)
-            mx_all = torch.where(take, torch.minimum(mx_all, xm), mx_all)
-            my_all = torch.where(take, torch.minimum(my_all, ym), my_all)
-            any_cov = any_cov | (take & cov)
-    bx = torch.where(any_cov, mx_cov, mx_all) // 4
-    by = torch.where(any_cov, my_cov, my_all) // 4
+    if all_members:
+        cx, cy = torch.where(cov, x0i, big), torch.where(cov, y0i, big)
+        ax, ay = x0i, y0i
+        for s in (1, 2) if pair == 2 else (1,):
+            cx, cy = (torch.minimum(cx, cx[f ^ s]),
+                      torch.minimum(cy, cy[f ^ s]))
+            ax, ay = (torch.minimum(ax, ax[f ^ s]),
+                      torch.minimum(ay, ay[f ^ s]))
+        any_cov = cx != big
+    else:
+        cx, cy = x0i, y0i
+        for k in range(1, 4 if pair == 2 else 2):
+            take = cov[f ^ k]
+            cx = torch.where(take, torch.minimum(cx, x0i[f ^ k]), cx)
+            cy = torch.where(take, torch.minimum(cy, y0i[f ^ k]), cy)
+        ax, ay, any_cov = cx, cy, cov
+    bx = torch.where(any_cov, cx, ax) // 4
+    by = torch.where(any_cov, cy, ay) // 4
     cx = torch.remainder(x0i - bx * 4 + w // 2, w) - w // 2
     cy = torch.remainder(y0i - by * 4 + h // 2, h) - h // 2
 
-    def frac(cc, f):
-        out = torch.where(cc < 0, torch.zeros_like(f), torch.ones_like(f))
-        return torch.where((cc < 0) | (cc > 3), out, f)
+    def frac(cc, fr):
+        out = torch.where(cc < 0, torch.zeros_like(fr), torch.ones_like(fr))
+        return torch.where((cc < 0) | (cc > 3), out, fr)
 
-    return (by * (w // 4) + bx, cx.clamp(0, 3), cy.clamp(0, 3),
-            frac(cx, tx), frac(cy, ty))
+    lanes = (by * (w // 4) + bx, cx.clamp(0, 3), cy.clamp(0, 3),
+             frac(cx, tx), frac(cy, ty))
+    pixels = []
+    for x in lanes:
+        out = torch.empty_like(x)
+        out[i] = x
+        pixels.append(out)
+    return tuple(pixels)
 
 
 @LEVELS
 @pytest.mark.parametrize("garbage", [False, True],
                          ids=["finite", "nan_at_misses"])
 def test_kernel_anchor_replay_matches_plain(pair, garbage):
-    """The anchor K2 and K6 compute per thread equals the plain version's
-    group window: at every pixel for finite uv (K6 samples misses too),
-    at covered pixels with NaN uv at the misses (K2 reads a member's uv
-    only where it is covered)."""
+    """The anchor K2 and K6 compute over a group's lanes equals the plain
+    version's group window: K6's (every member's tap offered) at every
+    pixel for finite uv (K6 samples misses too), K2's (covered members
+    only) and K6's at covered pixels with NaN uv at the misses."""
     _, pt = _tables()
     u, v = (cases.t(x) for x in _uv_mixed())
     valid = cases.t(_valid(tuple(u.shape)))
     if garbage:
         u = torch.where(valid, u, torch.full_like(u, float("nan")))
         v = torch.where(valid, v, torch.full_like(v, float("nan")))
-    got = _kernel_anchor(u, v, valid, pt.height, pt.width, pair)
     want = tq._block_taps(pt, u, v, pair, valid, TILE_W)
-    keep = valid.reshape(-1) if garbage else torch.ones_like(
-        valid.reshape(-1))
-    for g, w, name in zip(got, want, ("row", "lx", "ly", "tx", "ty")):
-        assert torch.equal(g[keep], w[keep].to(g.dtype)), name
+    covered = valid.reshape(-1)
+    for all_members, keep in ((True, covered if garbage
+                               else torch.ones_like(covered)),
+                              (False, covered)):
+        got = _kernel_anchor(u, v, valid, pt.height, pt.width, pair,
+                             all_members=all_members)
+        for g, w, name in zip(got, want, ("row", "lx", "ly", "tx", "ty")):
+            assert torch.equal(g[keep], w[keep].to(g.dtype)), (name,
+                                                              all_members)
+
+
+@LEVELS
+@pytest.mark.parametrize("tile_w", [16, 32, 128])
+def test_pair_pixel_permutes_each_chunk(pair, tile_w):
+    """``pair_pixel`` is a bijection on every chunk of 2·tile_w flat
+    indices, holds each 2×1 / 2×2 group in the lanes the anchor's
+    shuffles reach (f ^ 1, f ^ 2 in one warp) and has each warp write
+    two runs of 16 adjacent pixels, one a row (64-byte segments)."""
+    nt, tile_h = 3, 8
+    n = nt * tile_h * tile_w
+    f = torch.arange(n)
+    i = _pair_pixel(f, tile_w, pair)
+    chunk = 2 * tile_w
+    assert torch.equal(i // chunk, f // chunk)
+    assert torch.equal(i.sort().values, f)
+    row, col = (i % (tile_h * tile_w)) // tile_w, i % tile_w
+    group = (i // (tile_h * tile_w), row // 2,
+             col // 2 if pair == 2 else col)
+    for s in (1, 2) if pair == 2 else (1,):
+        for a, b in zip(group, group):
+            assert torch.equal(a, b[f ^ s])
+    warp = i.reshape(-1, 32).sort().values.reshape(-1, 2, 16)  # 2 rows
+    assert torch.equal(warp - warp[:, :, :1],
+                       torch.arange(16).expand_as(warp))
+    assert torch.equal(warp[:, 1, 0] - warp[:, 0, 0],
+                       torch.full_like(warp[:, 0, 0], tile_w))
 
 
 def _partition_jax(flags, q_cap, e_cap):
