@@ -16,11 +16,14 @@ import numpy as np
 import torch
 
 from bibim_tpu_torch.ops import ibl as ibl_ops
+from bibim_tpu_torch.ops import texture as tx
 from bibim_tpu_torch.ops import texture_quad as tq
 from bibim_tpu_torch.pipeline.autotune import CapProbe
 from bibim_tpu_torch.pipeline.framegraph import (
     FrameParams,
     GBufferViz,
+    MaterialMips,
+    MaterialTextures,
     OverlayResources,
     RenderSettings,
     ViewBlock,
@@ -129,6 +132,37 @@ def material_tables(tables, device="cuda") -> tuple:
         else:
             raise NotImplementedError(f"material table {kind}")
     return tuple(out)
+
+
+_TABLE_KINDS = ("QuadTable", "BlockTable", "MipQuadTable", "MipQuadMulti",
+                "MipBlockMulti")
+
+
+def mip_atlas(a, device="cuda") -> tx.MipAtlas:
+    """The JAX package's ``ops.texture.MipAtlas``."""
+    return tx.MipAtlas(
+        texels=tensor(a.texels, device),
+        offsets=tensor(a.offsets, device, torch.int32),
+        heights=tensor(a.heights, device, torch.int32),
+        widths=tensor(a.widths, device, torch.int32),
+        num_levels=int(a.num_levels))
+
+
+def materials(m, device="cuda"):
+    """Any material binding ``render_frame`` takes: ``MaterialTextures``
+    (its six (H, W, 4) u8 maps), ``MaterialMips`` (six MipAtlas), a tuple
+    of tables (:func:`material_tables`, the single-material MipQuadTable
+    binding included) or a tuple of such per-material bindings."""
+    kind = type(m).__name__
+    if kind == "MaterialTextures":
+        return MaterialTextures(*(tensor(getattr(m, f), device)
+                                  for f in MaterialTextures._fields))
+    if kind == "MaterialMips":
+        return MaterialMips(*(mip_atlas(getattr(m, f), device)
+                              for f in MaterialMips._fields))
+    if type(m[0]).__name__ in _TABLE_KINDS:
+        return material_tables(m, device)
+    return tuple(materials(x, device) for x in m)
 
 
 def ibl(j, device="cuda"):

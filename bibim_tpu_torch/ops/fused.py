@@ -124,16 +124,18 @@ def build_record_table_planar(setup: PlanarSetup, soup) -> torch.Tensor:
 
 
 def build_record_table(setup: PlanarSetup, tris: torch.Tensor, uv, normal,
-                       tangent, world, color, mat_id=None) -> torch.Tensor:
+                       tangent, world, color, mat_id=None,
+                       sequential: bool = False) -> torch.Tensor:
     """Records for an indexed mesh: attributes are (V, k) vertex arrays
-    gathered per corner by ``tris`` (T, 3)."""
+    gathered per corner by ``tris`` (T, 3); ``sequential``: ``tris`` is an
+    arange (a de-indexed mesh), the corners a reshape."""
     v = uv.shape[0]
     dev = uv.device
     if mat_id is None:
         mat_id = torch.zeros((v,), dtype=torch.int32, device=dev)
     vert = torch.cat([uv, normal, tangent, world, color,
                       mat_id.to(torch.float32)[:, None]], dim=1)  # (V, 15)
-    va = vert[tris.long()]  # (T, 3, 15)
+    va = vert.reshape(-1, 3, 15) if sequential else vert[tris.long()]
     soup_like = _CornerSoup(
         uv=(tuple(va[:, c, 0] for c in range(3)),
             tuple(va[:, c, 1] for c in range(3))),
@@ -1384,3 +1386,15 @@ def untile(plane: torch.Tensor, width: int, height: int, tiles_x: int,
            .permute(0, 2, 1, 3)
            .reshape(tiles_y * tile_h, tiles_x * tile_w))
     return img[:height, :width]
+
+
+def tile_plane(img: torch.Tensor, tiles_x: int, tiles_y: int, tile_h: int,
+               tile_w: int, fill=0.0) -> torch.Tensor:
+    """(H, W) image → (NT, NPX) tiled-planar, padded to whole tiles with
+    ``fill``."""
+    h, w = img.shape
+    img = torch.nn.functional.pad(
+        img, (0, tiles_x * tile_w - w, 0, tiles_y * tile_h - h), value=fill)
+    return (img.reshape(tiles_y, tile_h, tiles_x, tile_w)
+            .permute(0, 2, 1, 3)
+            .reshape(tiles_y * tiles_x, tile_h * tile_w).contiguous())

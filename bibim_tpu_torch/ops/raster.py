@@ -27,6 +27,14 @@ class PlanarSetup(NamedTuple):
     zub: torch.Tensor | None = None  # conservative NDC-depth upper bound
 
 
+class VisibilityBuffer(NamedTuple):
+    """Per-pixel raster result in image layout (``ops.interpolate``)."""
+
+    tri_id: torch.Tensor  # (H,W) int32, -1 = no coverage
+    bary: torch.Tensor  # (H,W,2) perspective-correct (b0, b1)
+    depth: torch.Tensor  # (H,W) reversed-Z depth (0 = far/clear)
+
+
 def _max3(t):
     return torch.maximum(torch.maximum(t[0], t[1]), t[2])
 
@@ -105,11 +113,13 @@ def triangle_setup_planar(clip: tuple, width: int,
 
 
 def triangle_setup(clip: torch.Tensor, tris: torch.Tensor, width: int,
-                   height: int) -> PlanarSetup:
+                   height: int, sequential: bool = False) -> PlanarSetup:
     """Setup for an indexed mesh: (V,4) clip coordinates + (T,3) corner
-    indices (the gizmo's shared-vertex mesh). Same formulas as
-    :func:`triangle_setup_planar`; returned in the planar layout."""
-    v = clip[tris.long()]  # (T,3,4)
+    indices (shared-vertex batches, the gizmo, the HUD). Same formulas as
+    :func:`triangle_setup_planar`; returned in the planar layout.
+    ``sequential``: ``tris`` is the arange of a de-indexed mesh, so the
+    corners are a reshape of ``clip``, not a gather."""
+    v = clip.reshape(-1, 3, 4) if sequential else clip[tris.long()]
     corner = tuple(tuple(v[:, c, k] for c in range(3)) for k in range(4))
     x, y, z, w = corner
 

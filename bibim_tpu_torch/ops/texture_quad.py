@@ -812,6 +812,19 @@ def _quad_diffs_planar(x, tile_h: int, tile_w: int):
     return dx, dy
 
 
+def aniso_uv_steps(u, v, tile_h: int, tile_w: int):
+    """Per-pixel major-axis uv footprint (du, dv): the longer (in uv) of
+    the pixel quad's two screen-axis uv differences, x on a tie. The
+    frame's N-tap anisotropic sampling averages bilinear taps at
+    uv + t·(du, dv), t = (i + ½)/N − ½."""
+    du_dx, du_dy = _quad_diffs_planar(u, tile_h, tile_w)
+    dv_dx, dv_dy = _quad_diffs_planar(v, tile_h, tile_w)
+    pick_x = (du_dx * du_dx + dv_dx * dv_dx
+              >= du_dy * du_dy + dv_dy * dv_dy)
+    return (torch.where(pick_x, du_dx, du_dy),
+            torch.where(pick_x, dv_dx, dv_dy))
+
+
 def quad_lod_planar(u, v, tile_h: int, tile_w: int, tex_h, tex_w):
     """Per-pixel LOD ≥ 0 from 2×2 pixel-quad uv differences;
     ``tex_h``/``tex_w`` are level-0 sizes (numbers or per-pixel float32

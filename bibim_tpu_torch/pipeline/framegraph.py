@@ -1,46 +1,54 @@
-"""The frame function (port of ``bibim_tpu.pipeline.framegraph``: the
-deferred PBR branch with shadows, IBL, trilinear mip bindings with
-per-batch material routing, pair-rate sampling and PCF, and the G-buffer
-views; and the flat-shaded branch).
+"""The frame function (port of ``bibim_tpu.pipeline.framegraph``).
 
 Stages of :func:`render_frame`:
 
-1. vertex transforms on corner planes (``ops.geometry``), triangle setup
-   and record table;
+1. the vertex stage: corner planes for de-indexed batches
+   (``ops.geometry.assemble_scene_planar``), shared-vertex (T, 3) arrays
+   for hand-built batches or ``geometry="legacy"``
+   (``assemble_scene``); triangle setup and the record table;
 2. binning (pair sort K3) and raster + resolve (K1) of the main pass;
-3. optional live-tile compaction of the shading stage (``live_tile_cap``);
+3. optional live-tile compaction of the shading stage (``live_tile_cap``;
+   not with the image-space bindings or the TBN view);
 4. with ``enable_shadows``: the light-view depth pass (K3 + K1 on the
    shadow map's grid, depth plane only) and the screen-side PCF
    visibility of the shadow-casting light (``ops.shadow``);
 5. shading, either
    - ``shading="flat"``: the raster's colour Lambert-lit in view space
      (``shade_flat_planar``), no material and no compaction; or
-   - without IBL: the sampled shade (K2) — materials (block, quad,
+   - deferred (``deferred=True``) without IBL or anisotropic taps, on a
+     binding K2 samples: the sampled shade (K2) — materials (block, quad,
      mip-block and material-routed small groups), normal map, fp16
      G-buffer, GGX with the visibility plane; with ``pair_sampling`` the
      block tables sample at group rate on the tiles where that is exact
      (:func:`_sampled_ldr`: escape flags, a clean and an exact K2 pass,
      scattered back by slot), or everywhere with ``pair_lossy``; or
-   - with IBL, a G-buffer view, or a binding K2 cannot sample: the
-     G-buffer planes sampled through the block-table (K6), small-table
-     (K7) and mip-block (K8) samplers, then the split-sum IBL ambient
-     (``ops.ibl``) and the G-buffer shade (K5), or for a G-buffer view
-     the raw planes as HDR;
-   then the fp16 HDR round trip and the exposure tone map as torch ops;
+   - deferred otherwise: the G-buffer planes sampled through the
+     block-table (K6), small-table (K7) and mip-block (K8) samplers — N
+     times at ``aniso_taps`` N, averaged — or the image-space samplers
+     (``ops.texture``) of ``MaterialTextures`` / ``MaterialMips``, then
+     the split-sum IBL ambient (``ops.ibl``) and the G-buffer shade (K5),
+     or for a G-buffer view the raw planes as HDR; or
+   - forward (``deferred=False``, :func:`_forward_hdr`): no G-buffer and
+     no fp16 round trip of its planes; K2 at ``quantize=False`` where the
+     deferred frame would take K2, else the sampled planes and K5 (with
+     the IBL ambient from the same planes); a G-buffer view shows cleared
+     planes;
+   then the fp16 HDR round trip and the exposure tone map (the kernels'
+   epilogue, or torch ops);
 6. scatter-back, light spheres through the overlay composite (K4, depth
    tested against the scene's keys), the in-frame HUD text (K4 against a
-   cleared key, ``hud=``), the corner gizmo (K1 in its own viewport),
-   sRGB encode and u8.
+   cleared key, ``hud=``), the TBN lines (``ops.lines``, ``show_tbn``),
+   the corner gizmo (K1 in its own viewport), sRGB encode and u8.
 
 The main pass takes the reference's raster schedule variants: early-z
 (K9, every pass), the group window (K10) and fine subtiles (K11);
-``merged_coverage`` is accepted and has no counterpart. Settings outside
-the port (forward lighting, anisotropic taps, TBN, the XLA raster, the
-legacy geometry) raise NotImplementedError.
+``merged_coverage`` is accepted and has no counterpart. The XLA fallback
+raster (``raster="xla"``) is not ported and raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from enum import IntEnum
 from typing import Callable, NamedTuple
@@ -52,9 +60,17 @@ from bibim_tpu_torch import math3d as m3
 from bibim_tpu_torch.ops import fused
 from bibim_tpu_torch.ops import shadow as sh
 from bibim_tpu_torch.ops import sort as sort_ops
+from bibim_tpu_torch.ops import texture as tx
 from bibim_tpu_torch.ops import texture_quad as tq
-from bibim_tpu_torch.ops.geometry import PlanarSoup, assemble_scene_planar
+from bibim_tpu_torch.ops.geometry import (
+    PlanarSoup,
+    TriangleSoup,
+    assemble_scene,
+    assemble_scene_planar,
+    transform_rows,
+)
 from bibim_tpu_torch.ops.ibl import ibl_ambient
+from bibim_tpu_torch.ops.lines import rasterize_lines
 from bibim_tpu_torch.ops.raster import triangle_setup, triangle_setup_planar
 from bibim_tpu_torch.ops.shading import (
     hdr_tail,
@@ -95,6 +111,30 @@ class ViewBlock(NamedTuple):
 class FrameParams(NamedTuple):
     enable_tone_mapping: torch.Tensor  # 0-dim int32
     exposure: torch.Tensor  # 0-dim float32
+
+
+class MaterialTextures(NamedTuple):
+    """One material's six level-0 maps, (H, W, 4) uint8 each: the
+    image-space binding, sampled bilinear (``ops.texture``)."""
+
+    albedo: torch.Tensor
+    metallic: torch.Tensor
+    roughness: torch.Tensor
+    ao: torch.Tensor
+    normal: torch.Tensor
+    height: torch.Tensor
+
+
+class MaterialMips(NamedTuple):
+    """One material's six maps as ``ops.texture.MipAtlas`` mip chains:
+    the image-space binding, sampled trilinear at the pixel quad's LOD."""
+
+    albedo: tx.MipAtlas
+    metallic: tx.MipAtlas
+    roughness: tx.MipAtlas
+    ao: tx.MipAtlas
+    normal: tx.MipAtlas
+    height: tx.MipAtlas
 
 
 class OverlayResources(NamedTuple):
@@ -216,45 +256,78 @@ PLAIN = Kernels(fused.raster_tiles_plain, fused.overlay_tiles_plain,
 
 _TABLES = (tq.QuadTable, tq.BlockTable)
 _MIP_TABLES = (tq.MipBlockMulti, tq.MipQuadMulti)
+_IMAGE_BINDINGS = (MaterialTextures, MaterialMips)
 
 
-def _is_mip_binding(materials) -> bool:
-    return isinstance(materials[0], _MIP_TABLES)
+def _one_binding(m) -> bool:
+    """One material's binding (or merged mip groups): MaterialTextures,
+    MaterialMips, or a tuple of QuadTable / BlockTable, or of mip groups
+    (MipQuadTable, MipBlockMulti, MipQuadMulti)."""
+    if isinstance(m, _IMAGE_BINDINGS):
+        return True
+    mips = (tq.MipQuadTable,) + _MIP_TABLES
+    return isinstance(m, tuple) and bool(m) and (
+        all(isinstance(t, _TABLES) for t in m)
+        or all(isinstance(t, mips) for t in m))
+
+
+def _per_material(m) -> bool:
+    """A tuple of one-material bindings, chosen per pixel by the winning
+    triangle's batch material id."""
+    return (isinstance(m, (tuple, list)) and not isinstance(m, _IMAGE_BINDINGS)
+            and bool(m) and not _one_binding(m)
+            and all(_one_binding(x) and not isinstance(x[0], _MIP_TABLES)
+                    for x in m))
 
 
 def check_supported(settings: RenderSettings, materials) -> None:
-    """Raise NotImplementedError for any setting outside this slice."""
+    """Raise NotImplementedError for the XLA fallback raster, which the
+    port does not have, and for values no frame takes (the JAX package
+    fails on them too)."""
     s = settings
     flat = s.shading == "flat"
     checks = [
-        (not s.deferred and not flat, "deferred=False (forward lighting)"),
         (s.shading not in ("pbr", "flat"), f"shading={s.shading!r}"),
-        (s.show_tbn, "show_tbn"),
-        (s.aniso_taps != 1, f"aniso_taps={s.aniso_taps}"),
         (s.pair_sampling not in (0, 1, 2),
          f"pair_sampling={s.pair_sampling}"),
-        (s.raster != "auto", f"raster={s.raster!r}"),
-        (s.geometry == "legacy", "geometry='legacy'"),
-        (not s.sequential_tris, "sequential_tris=False"),
+        (s.raster not in ("auto", "pallas"),
+         f"raster={s.raster!r} (the XLA fallback raster)"),
+        (s.geometry not in ("auto", "planar", "legacy"),
+         f"geometry={s.geometry!r}"),
         (s.outputs not in ("image", "image+diag", "full"),
          f"outputs={s.outputs!r}"),
     ]
     bad = [msg for cond, msg in checks if cond]
-    if not flat and not (isinstance(materials, tuple) and materials and (
-            all(isinstance(t, _TABLES) for t in materials)
-            or all(isinstance(t, _MIP_TABLES) for t in materials))):
-        bad.append("materials other than a tuple of QuadTable/BlockTable "
-                   "or of MipBlockMulti/MipQuadMulti")
+    if not flat and not (_one_binding(materials)
+                         or _per_material(materials)):
+        bad.append("materials other than one material's binding "
+                   "(MaterialTextures, MaterialMips, a tuple of QuadTable / "
+                   "BlockTable or of mip tables) or a tuple of such "
+                   "bindings")
     if bad:
         raise NotImplementedError(
-            "not in the ported frame slice: " + ", ".join(bad))
+            "not in the ported frame: " + ", ".join(bad))
+
+
+def _planar_materials(m) -> bool:
+    """True where the binding samples (NT, NPX) planes shape-agnostically
+    (tables); the image-space bindings sample (H, W) images and cannot
+    shade compacted tiles."""
+    if isinstance(m, _IMAGE_BINDINGS):
+        return False
+    if isinstance(m, (tuple, list)) and m:
+        if isinstance(m[0], (tq.MipQuadTable,) + _TABLES + _MIP_TABLES):
+            return True
+        return all(_planar_materials(x) for x in m)
+    return False
 
 
 def _prunable_fields(settings: RenderSettings) -> tuple:
     """Raster output planes the production frame never reads: none for
-    "full" or a G-buffer view; all but colour and normal for a flat frame;
-    the material-id plane only without per-batch material ids."""
-    if (settings.outputs == "full"
+    "full", a G-buffer view or the TBN view (it reads depth); all but
+    colour and normal for a flat frame; the material-id plane only
+    without per-batch material ids."""
+    if (settings.outputs == "full" or settings.show_tbn
             or settings.gbuffer_viz != GBufferViz.RENDERED_SCENE):
         return ()
     if settings.shading == "flat":  # colour and normal only
@@ -386,35 +459,119 @@ def _slot_pixels(px: fused.FusedPixels, ids) -> fused.FusedPixels:
         p, ids, -1 if p is px.tri_id else 0))
 
 
+def _tile(img: torch.Tensor, settings: RenderSettings) -> torch.Tensor:
+    return fused.tile_plane(img, settings.tiles_x, settings.tiles_y,
+                            settings.tile_h, settings.tile_w)
+
+
+def _sample_image_binding(mats, px, settings: RenderSettings) -> dict:
+    """MaterialTextures (bilinear) / MaterialMips (trilinear at the pixel
+    quad's LOD) sampled on the (H, W, 2) uv image, back to planes."""
+    u, v = px.uv
+    uv = torch.stack([_untile(u, settings), _untile(v, settings)], dim=-1)
+    if isinstance(mats, MaterialMips):
+        def tap(atlas):
+            lod = tx.quad_uv_lod(uv, atlas.heights[0], atlas.widths[0])
+            return tx.sample_trilinear(atlas, uv, lod)
+    else:
+        def tap(tex):
+            return tx.sample_bilinear(tex, uv)
+
+    alb = tap(mats.albedo)
+    nrm = tap(mats.normal)
+    out = {"alb_r": alb[..., 0], "alb_g": alb[..., 1], "alb_b": alb[..., 2],
+           "nrm_x": nrm[..., 0], "nrm_y": nrm[..., 1], "nrm_z": nrm[..., 2],
+           "metallic": tap(mats.metallic)[..., 0],
+           "roughness": tap(mats.roughness)[..., 0],
+           "ao": tap(mats.ao)[..., 0], "height": tap(mats.height)[..., 0]}
+    return {k: _tile(img, settings) for k, img in out.items()}
+
+
+def _sample_one_material(mats, px, settings: RenderSettings,
+                         kernels: Kernels | None) -> dict:
+    """One material's binding sampled at the pixels' uv → slot planes:
+    tables through ``kernels``' K6 / K7 (or the plain XLA-order samplers
+    with None; block tables at group rate under ``pair_lossy``), one
+    material's mip tables through K8 / K7 / the quad oracle, the
+    image-space bindings through ``ops.texture``."""
+    if isinstance(mats, _IMAGE_BINDINGS):
+        return _sample_image_binding(mats, px, settings)
+    u, v = px.uv
+    if all(isinstance(t, _TABLES) for t in mats):
+        # Group-rate block sampling here only in the lossy mode: this path
+        # does not route tiles.
+        return tq.sample_material(
+            mats, u, v, kernels,
+            pair_rows=settings.pair_sampling if settings.pair_lossy else 0,
+            valid=px.tri_id >= 0, tile_w=settings.tile_w)
+    return tq.sample_material_mips_multi(mats, None, u, v, settings.tile_h,
+                                         settings.tile_w, kernels)
+
+
+def _sample_materials(materials, px, settings: RenderSettings,
+                      kernels: Kernels | None) -> dict:
+    """Every slot plane of the binding at the pixels' uv. ``aniso_taps``
+    N > 1: the mean of N samples at uv + t·(du, dv) along the pixel's
+    major uv axis (``tq.aniso_uv_steps``), t = (i + ½)/N − ½, summed in
+    tap order, then scaled by 1/N. Merged mip groups route per pixel by
+    the material-id plane; a tuple of one-material bindings selects per
+    pixel by it."""
+    if settings.aniso_taps > 1:
+        n = settings.aniso_taps
+        u, v = px.uv
+        du, dv = tq.aniso_uv_steps(u, v, settings.tile_h, settings.tile_w)
+        s1 = dataclasses.replace(settings, aniso_taps=1)
+
+        def f32(x):  # the JAX package's weakly typed Python scalars
+            return torch.tensor(x, dtype=torch.float32, device=u.device)
+
+        acc = None
+        for i in range(n):
+            t = f32((i + 0.5) / n - 0.5)
+            tap = _sample_materials(
+                materials, px._replace(uv=(u + t * du, v + t * dv)), s1,
+                kernels)
+            acc = tap if acc is None else {k: acc[k] + tap[k] for k in acc}
+        inv = f32(1.0 / n)
+        return {k: acc[k] * inv for k in acc}
+    if isinstance(materials[0], _MIP_TABLES):
+        u, v = px.uv
+        return tq.sample_material_mips_multi(
+            materials, px.mat_id, u, v, settings.tile_h, settings.tile_w,
+            kernels)
+    if not _per_material(materials):
+        return _sample_one_material(materials, px, settings, kernels)
+    out = None
+    for mi, mat in enumerate(materials):
+        smp = _sample_one_material(mat, px, settings, kernels)
+        if out is None:
+            out = smp
+        else:
+            sel = px.mat_id == mi
+            out = {k: torch.where(sel, smp[k], out[k]) for k in out}
+    return out
+
+
 def _materialize_gbuffer_planes(px, materials, view_block,
                                 settings: RenderSettings,
                                 kernels: Kernels | None = None):
-    """G-buffer planes: material samples (through ``kernels``' K6/K7/K8,
-    or the plain XLA-order samplers with None; mip bindings routed per
-    pixel by the material-id plane; block tables at group rate under
-    ``pair_lossy``) + normal map + mask + fp16."""
+    """G-buffer planes: material samples (:func:`_sample_materials`
+    through ``kernels``' samplers, or the plain XLA-order samplers with
+    None) + normal map + mask, and the fp16 round trip of the deferred
+    frame's RGBA16F attachments (the forward frame shades full-precision
+    samples)."""
     valid = px.tri_id >= 0
-    u, v = px.uv
-    if _is_mip_binding(materials):
-        slots = tq.sample_material_mips_multi(
-            materials, px.mat_id, u, v, settings.tile_h, settings.tile_w,
-            kernels)
-    else:
-        # Group-rate block sampling here only in the lossy mode: this path
-        # does not route tiles.
-        slots = tq.sample_material(
-            materials, u, v, kernels,
-            pair_rows=settings.pair_sampling if settings.pair_lossy else 0,
-            valid=valid, tile_w=settings.tile_w)
+    slots = _sample_materials(materials, px, settings, kernels)
     albedo = (slots["alb_r"], slots["alb_g"], slots["alb_b"])
     nmap = (slots["nrm_x"], slots["nrm_y"], slots["nrm_z"])
     normal = apply_normal_map(px.normal, px.tangent, nmap,
                               view_block.enable_normal_map)
     zero = torch.zeros_like(px.depth)
+    quant = settings.quantize_fp16 and settings.deferred
 
     def mq(ch):
         ch = torch.where(valid, ch, zero)
-        return q16(ch) if settings.quantize_fp16 else ch
+        return q16(ch) if quant else ch
 
     g_pos = tuple(mq(c) for c in px.world)
     g_nrm = tuple(mq(c) for c in normal)
@@ -456,20 +613,68 @@ _SHADOW_DROP = tuple(f for f in fused._OUT_FIELDS
                      if f not in ("depth", "idf"))
 
 
-def _shadow_fit_ranges(scene: SceneData, settings: RenderSettings):
-    """(start, end) slices of the concatenated triangle planes of the
-    ``settings.shadow_fit_batches`` batches (None: the fit covers the
-    whole scene)."""
+def _fit_slices(scene: SceneData, settings: RenderSettings, rows):
+    """(start, end) slices of the ``settings.shadow_fit_batches`` batches
+    in the concatenation of ``rows(batch)`` rows per batch and instance
+    (None: the fit covers the whole scene)."""
     if settings.shadow_fit_batches is None:
         return None
     out = []
-    t0 = 0
+    r0 = 0
     for bi, b in enumerate(scene.batches):
-        t1 = t0 + int(b.model.shape[0]) * int(b.indices.shape[0])
+        r1 = r0 + int(b.model.shape[0]) * rows(b)
         if bi in settings.shadow_fit_batches:
-            out.append((t0, t1))
-        t0 = t1
+            out.append((r0, r1))
+        r0 = r1
     return tuple(out)
+
+
+def _shadow_fit_ranges(scene: SceneData, settings: RenderSettings):
+    """Triangle-plane slices of the caster batches (planar soup)."""
+    return _fit_slices(scene, settings, lambda b: int(b.indices.shape[0]))
+
+
+def _shadow_fit_rows(scene: SceneData, settings: RenderSettings):
+    """Vertex-row slices of the caster batches (shared-vertex soup)."""
+    return _fit_slices(scene, settings, lambda b: int(b.positions.shape[0]))
+
+
+def _points(p: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """(N, 3) points through one 4×4 matrix → (N, 4) (w = 1)."""
+    p4 = torch.cat([p, torch.ones_like(p[:, :1])], dim=1)
+    return transform_rows(p4, m[None])[0]
+
+
+def _shadow_map_from_soup(soup: TriangleSoup, lights: Lights,
+                          settings: RenderSettings, kernels: Kernels,
+                          fit_ranges=None):
+    """:func:`_shadow_map_planar` for a shared-vertex soup (``fit_ranges``:
+    vertex-row slices of the casters): the light-space vertices, setup
+    and records of the (T, 3) mesh, the depth pass on K1."""
+    size = settings.shadow_size
+    d = lights.dir[settings.shadow_light]
+    wmin = soup.world.min(dim=0).values
+    wmax = soup.world.max(dim=0).values
+    fmin = fmax = None
+    if fit_ranges:
+        rows = torch.cat([soup.world[s:e] for (s, e) in fit_ranges])
+        fmin, fmax = rows.min(dim=0).values, rows.max(dim=0).values
+    lvp = sh.light_view_proj(d, wmin, wmax, fit_min=fmin, fit_max=fmax)
+    clip_l = _points(soup.world, lvp)
+    seq = settings.sequential_tris
+    setup_l = triangle_setup(clip_l, soup.tris, size, size, sequential=seq)
+    z3 = torch.zeros_like(soup.world)
+    rec_l = fused.build_record_table(setup_l, soup.tris, z3[:, :2], z3, z3,
+                                     z3, z3, sequential=seq)
+    px_l, _, sh_diag = _raster(
+        rec_l, setup_l, size, size, settings, kernels,
+        cap=settings.shadow_candidates,
+        passes=settings.shadow_passes or settings.raster_passes,
+        drop_fields=_SHADOW_DROP, tile_cap=settings.shadow_tile_cap)
+    tiles_x = -(-size // settings.tile_w)
+    depth_img = fused.untile(px_l.depth, size, size, tiles_x,
+                             settings.tile_h, settings.tile_w)
+    return sh.build_shadow_map(depth_img, lvp, size), sh_diag
 
 
 def _world_bounds_planar(world, ranges=None):
@@ -554,13 +759,18 @@ def _shadow_visibility_planar(psoup, px, lights, settings: RenderSettings,
     return _pcf_vis(smap, px, settings, sh_diag)
 
 
-def _shadow_vis_any(psoup, px, scene: SceneData, settings: RenderSettings,
+def _shadow_vis_any(soup, px, scene: SceneData, settings: RenderSettings,
                     kernels: Kernels):
     """Visibility plane of the shadow-casting light and the shadow pass's
-    BinDiag (the port's frame is planar only)."""
-    return _shadow_visibility_planar(psoup, px, scene.lights, settings,
-                                     kernels,
-                                     _shadow_fit_ranges(scene, settings))
+    BinDiag, from the main pass's planar soup or its (T, 3) soup."""
+    if isinstance(soup, PlanarSoup):
+        return _shadow_visibility_planar(soup, px, scene.lights, settings,
+                                         kernels,
+                                         _shadow_fit_ranges(scene, settings))
+    smap, sh_diag = _shadow_map_from_soup(
+        soup, scene.lights, settings, kernels,
+        _shadow_fit_rows(scene, settings))
+    return _pcf_vis(smap, px, settings, sh_diag)
 
 
 def _light_sphere_planar_soup(lights: Lights, overlay: OverlayResources,
@@ -767,8 +977,11 @@ def _ldr_planes(ldr3, compact_ids, nt_full: int) -> torch.Tensor:
 
 def _sampled_ldr(px, materials, lights: Lights, view_block: ViewBlock,
                  frame_params: FrameParams, settings: RenderSettings,
-                 kernels: Kernels, light_vis, diags: list):
-    """LDR planes of the sampled shade (K2 with the fp16 + tone-map tail).
+                 kernels: Kernels, light_vis, diags: list,
+                 gbuffer: bool = True):
+    """LDR planes of the sampled shade (K2 with the fp16 + tone-map tail);
+    ``gbuffer``: the deferred frame's fp16 G-buffer round trip in the
+    kernel (the forward frame shades the raw samples, ``quantize=False``).
 
     With ``pair_sampling`` (and a block table, not lossy) the tiles route:
     those with no escaping pixel (:func:`_escape_flags`) run K2 at the
@@ -785,7 +998,8 @@ def _sampled_ldr(px, materials, lights: Lights, view_block: ViewBlock,
         return kernels.shade(
             materials, p.uv[0], p.uv[1], p.world, p.normal, p.tangent,
             p.tri_id >= 0, lights, view_block.view_pos,
-            view_block.enable_normal_map, quantize=settings.quantize_fp16,
+            view_block.enable_normal_map,
+            quantize=settings.quantize_fp16 and gbuffer,
             vis_plane=_vis_plane(lv, settings),
             vis_light=settings.shadow_light, mat_id=p.mat_id,
             tile_h=settings.tile_h, tile_w=settings.tile_w,
@@ -809,30 +1023,145 @@ def _sampled_ldr(px, materials, lights: Lights, view_block: ViewBlock,
     return out[:, :nt]
 
 
+def _forward_hdr(px, materials, lights: Lights, view_block: ViewBlock,
+                 frame_params: FrameParams, settings: RenderSettings,
+                 kernels: Kernels, light_vis, ibl, production: bool,
+                 diags: list):
+    """Forward lighting: shade the sampled material and the interpolated
+    attributes directly, no G-buffer and no fp16 round trip of its planes.
+    Returns (masked HDR planes, None) for "full" (the plain chain), or
+    (None, LDR planes) for the production frame: K2 at ``quantize=False``
+    with the fp16 + tone-map tail where the deferred frame would run K2
+    (no IBL, one tap, a binding K2 samples), else the sampled planes
+    (K6 / K7 / K8, or the image-space samplers) and K5 with the same
+    tail, the IBL ambient taken from those planes."""
+    ibl_on = settings.enable_ibl and ibl is not None
+    if (production and not ibl_on and settings.aniso_taps == 1
+            and sampled_groups_supported(materials)):
+        return None, _sampled_ldr(px, materials, lights, view_block,
+                                  frame_params, settings, kernels,
+                                  light_vis, diags, gbuffer=False)
+    sampling = kernels if production else None
+    valid = px.tri_id >= 0
+    slots = _sample_materials(materials, px, settings, sampling)
+    albedo = (slots["alb_r"], slots["alb_g"], slots["alb_b"])
+    nmap = (slots["nrm_x"], slots["nrm_y"], slots["nrm_z"])
+    normal = apply_normal_map(px.normal, px.tangent, nmap,
+                              view_block.enable_normal_map)
+    met, rough, ao = slots["metallic"], slots["roughness"], slots["ao"]
+    zero = torch.zeros_like(met)
+    ambient = None
+    if ibl_on:
+        view_dir = tuple(view_block.view_pos[c] - px.world[c]
+                         for c in range(3))
+        ambient = ibl_ambient(ibl, normal, view_dir, albedo, met, rough, ao,
+                              sampling)
+        ambient = tuple(torch.where(valid, a, zero) for a in ambient)
+    if production:
+        return None, kernels.shade_gbuffer(
+            px.world, normal, albedo, met, rough, ao, valid, lights,
+            view_block.view_pos, frame_params.enable_tone_mapping,
+            frame_params.exposure, vis_plane=_vis_plane(light_vis, settings),
+            vis_light=settings.shadow_light, ambient=ambient,
+            quantize=settings.quantize_fp16, tonemap=True)
+    hdr3 = shade_pbr_planar(px.world, normal, albedo, met, rough, ao, lights,
+                            view_block.view_pos, light_vis=light_vis,
+                            ambient=ambient)
+    return tuple(torch.where(valid, c, zero) for c in hdr3), None
+
+
+def _composite_tbn(ldr3_img, soup: TriangleSoup, depth_img, view_proj,
+                   settings: RenderSettings):
+    """The TBN view (tbn.vert/geom/frag): per face, segments from the
+    centroid along the face-averaged tangent (red), bitangent N × T
+    (green) and normal (blue), ``tbn_length`` long, depth-tested against
+    ``depth_img`` without depth write. The three colours draw in three
+    calls, in that order, so blue wins where they overlap."""
+    tris = soup.tris.long()
+    third = torch.tensor(1.0 / 3.0, dtype=torch.float32,
+                         device=soup.world.device)
+
+    def mean3(a):  # (T, 3, k) → (T, k): the corner sum times 1/3
+        return (a[:, 0] + a[:, 1] + a[:, 2]) * third
+
+    centroid = mean3(soup.world[tris])
+
+    def face_avg(attr):
+        vv = mean3(attr[tris])
+        x, y, z = vv[:, 0:1], vv[:, 1:2], vv[:, 2:3]
+        n = torch.sqrt(x * x + y * y + z * z)
+        return vv / torch.clamp(n, min=1e-20)
+
+    bitangent = torch.linalg.cross(soup.normal, soup.tangent, dim=-1)
+    length = settings.tbn_length
+    ends = (((1.0, 0.0, 0.0), centroid + face_avg(soup.tangent) * length),
+            ((0.0, 1.0, 0.0), centroid + face_avg(bitangent) * length),
+            ((0.0, 0.0, 1.0), centroid + face_avg(soup.normal) * length))
+    ldr = torch.stack(ldr3_img, dim=-1)
+    c_clip = _points(centroid, view_proj)
+    for color, end in ends:
+        col = torch.tensor(color, dtype=torch.float32,
+                           device=ldr.device).expand(centroid.shape)
+        ldr = rasterize_lines(c_clip, _points(end, view_proj), col,
+                              depth_img, ldr)
+    return tuple(ldr[..., c] for c in range(3))
+
+
+def _use_planar(scene: SceneData, settings: RenderSettings) -> bool:
+    """The corner-planar vertex stage runs for de-indexed batches (those
+    with corner planes, ``sequential_tris``); hand-built shared-vertex
+    batches and ``geometry="legacy"`` take the (T, 3) path."""
+    if settings.geometry == "legacy":
+        return False
+    ok = settings.sequential_tris and all(
+        b.corner_planes is not None for b in scene.batches)
+    if settings.geometry == "planar" and not ok:
+        raise ValueError("geometry='planar' needs de-indexed batches with "
+                         "corner_planes (build via batch_from_mesh)")
+    return ok
+
+
 def _assemble_and_raster(scene: SceneData, view_block: ViewBlock,
                          settings: RenderSettings, kernels: Kernels):
-    """The main pass: corner-planar vertex stage, setup, records, raster.
-    Returns (pixels, zkey, diag, planar soup)."""
-    psoup = assemble_scene_planar(scene.batches, view_block.view,
-                                  view_block.proj, settings.batch_material_ids)
-    setup = triangle_setup_planar(psoup.clip, settings.width, settings.height)
-    rec = fused.build_record_table_planar(setup, psoup)
-    px, zkey, diag = _raster(rec, setup, settings.width, settings.height,
-                             settings, kernels, main_pass=True)
-    return px, zkey, diag, psoup
+    """The main pass: vertex stage, setup, records, raster. Returns
+    (pixels, zkey, diag, soup): a PlanarSoup, or the TriangleSoup of the
+    (T, 3) path."""
+    w, h = settings.width, settings.height
+    if _use_planar(scene, settings):
+        soup = assemble_scene_planar(scene.batches, view_block.view,
+                                     view_block.proj,
+                                     settings.batch_material_ids)
+        setup = triangle_setup_planar(soup.clip, w, h)
+        rec = fused.build_record_table_planar(setup, soup)
+    else:
+        soup = assemble_scene(scene.batches, view_block.view,
+                              view_block.proj, settings.batch_material_ids)
+        seq = settings.sequential_tris
+        setup = triangle_setup(soup.clip, soup.tris, w, h, sequential=seq)
+        rec = fused.build_record_table(
+            setup, soup.tris, soup.uv, soup.normal, soup.tangent,
+            soup.world, soup.color, soup.mat_id, sequential=seq)
+    px, zkey, diag = _raster(rec, setup, w, h, settings, kernels,
+                             main_pass=True)
+    return px, zkey, diag, soup
 
 
 def render_frame(scene: SceneData, view_block: ViewBlock,
                  frame_params: FrameParams, materials,
                  overlay: OverlayResources | None, settings: RenderSettings,
                  ibl=None, kernels: Kernels = KERNELS, hud=None):
-    """Render one deferred PBR frame.
+    """Render one frame.
 
-    ``settings.outputs``: "image" → {'image': (H,W,3) u8}; "image+diag"
-    adds the summed BinDiag of every raster pass; "full" shades through
-    the plain G-buffer chain (XLA-order samplers, planar GGX) and adds
-    ldr/hdr/depth/tri_id/gbuffer images. ``ibl`` (``ops.ibl.IblSH`` or
-    ``IblMaps``) is the light probe ``settings.enable_ibl`` shades with.
+    ``materials``: one material's binding (a tuple of QuadTable /
+    BlockTable, of mip tables, or ``MaterialTextures`` /
+    ``MaterialMips``) or a tuple of such bindings chosen by
+    ``settings.batch_material_ids``. ``settings.outputs``: "image" →
+    {'image': (H,W,3) u8}; "image+diag" adds the summed BinDiag of every
+    raster pass; "full" shades through the plain chain (XLA-order
+    samplers, planar GGX) and adds ldr/hdr/depth/tri_id/gbuffer images
+    (``gbuffer`` empty on the forward path, which has none). ``ibl``
+    (``ops.ibl.IblSH`` or ``IblMaps``) is the light probe
+    ``settings.enable_ibl`` shades with.
     ``kernels`` selects the kernel entry points (default: the wrappers;
     :data:`PLAIN` renders a reference frame with the plain versions on any
     device). ``hud`` = (``host.hud.HudGeometry``, its text mask) is the
@@ -845,17 +1174,19 @@ def render_frame(scene: SceneData, view_block: ViewBlock,
                          "mesh")
     dev = view_block.view.device
 
-    px, zkey, diag, psoup = _assemble_and_raster(scene, view_block,
-                                                 settings, kernels)
+    px, zkey, diag, soup = _assemble_and_raster(scene, view_block,
+                                                settings, kernels)
     diags = [diag]
 
     nt_full = px.tri_id.shape[0]
     compact_ids = None
     flat = settings.shading == "flat"
     viz = settings.gbuffer_viz != GBufferViz.RENDERED_SCENE
+    # Not for the image-space bindings, which sample (H, W) images.
     can_compact = (settings.live_tile_cap is not None
                    and settings.live_tile_cap < nt_full and not viz
-                   and not flat)
+                   and not settings.show_tbn and not flat
+                   and _planar_materials(materials))
     if (settings.outputs == "full" and settings.sample_route_caps
             and not flat and _routes(materials, settings)):
         # Debug frames shade through the plain chain but still report
@@ -893,7 +1224,7 @@ def render_frame(scene: SceneData, view_block: ViewBlock,
     light_vis = None
     if (settings.enable_shadows and scene.lights.num_lights > 0
             and not flat):
-        vis_plane, sh_diag = _shadow_vis_any(psoup, px, scene, settings,
+        vis_plane, sh_diag = _shadow_vis_any(soup, px, scene, settings,
                                              kernels)
         light_vis = {settings.shadow_light: vis_plane}
         diags.append(sh_diag)
@@ -906,7 +1237,19 @@ def render_frame(scene: SceneData, view_block: ViewBlock,
         hdr3 = shade_flat_planar(px.color, px.normal, view_block.view[:3, :3])
         zero = torch.zeros_like(hdr3[0])
         hdr3 = tuple(torch.where(valid, c, zero) for c in hdr3)
+    elif not settings.deferred:
+        # Forward lighting: no G-buffer exists, so a G-buffer view shows
+        # the cleared attachments.
+        if viz:
+            zero = torch.zeros_like(px.depth)
+            hdr3 = (zero, zero, zero)
+        else:
+            hdr3, ldr3 = _forward_hdr(px, materials, scene.lights,
+                                      view_block, frame_params, settings,
+                                      kernels, light_vis, ibl, production,
+                                      diags)
     elif (production and not settings.enable_ibl and not viz
+            and settings.aniso_taps == 1
             and sampled_groups_supported(materials)):
         ldr3 = _sampled_ldr(px, materials, scene.lights, view_block,
                             frame_params, settings, kernels, light_vis,
@@ -974,6 +1317,12 @@ def render_frame(scene: SceneData, view_block: ViewBlock,
         diags.append(hud_diag)
 
     ldr3_img = tuple(_untile(c, settings) for c in ldr)
+    if settings.show_tbn and overlay is not None:
+        if isinstance(soup, PlanarSoup):  # the lines read (T, 3) face data
+            soup = assemble_scene(scene.batches, view_block.view,
+                                  view_block.proj, settings.batch_material_ids)
+        ldr3_img = _composite_tbn(ldr3_img, soup, _untile(px.depth, settings),
+                                  view_proj, settings)
     if settings.show_gizmo and overlay is not None:
         ldr3_img, gz_diag = _composite_gizmo(
             ldr3_img, view_block.view, view_block.proj, overlay, settings,
@@ -1013,6 +1362,62 @@ def material_quads_from_set(material_set, index: int,
     return tq.build_quad_tables(tq.pack_material_maps(material_set, index),
                                 block_threshold=block_threshold,
                                 device=device)
+
+
+def material_textures_from_set(material_set, index: int,
+                               device="cuda") -> MaterialTextures:
+    """One material's level-0 maps as the image-space binding."""
+    from bibim_tpu_torch.assets.materials import PBRMapType
+
+    def level0(t):
+        return torch.as_tensor(np.ascontiguousarray(
+            material_set.get_pbr_map_or_default(index, t)[0]), device=device)
+
+    return MaterialTextures(
+        albedo=level0(PBRMapType.ALBEDO),
+        metallic=level0(PBRMapType.METALLIC),
+        roughness=level0(PBRMapType.ROUGHNESS), ao=level0(PBRMapType.AO),
+        normal=level0(PBRMapType.NORMAL), height=level0(PBRMapType.HEIGHT))
+
+
+def material_mip_quads_from_set(material_set, index: int,
+                                device="cuda") -> tuple:
+    """One material's mip chains as mip-quad tables (the single-material
+    trilinear binding)."""
+    from bibim_tpu_torch.assets.materials import PBRMapType
+
+    def mips(t):
+        return [np.asarray(m)
+                for m in material_set.get_pbr_map_or_default(index, t)]
+
+    alb = mips(PBRMapType.ALBEDO)
+    nrm = mips(PBRMapType.NORMAL)
+    return tq.build_mip_quad_tables({
+        "alb_r": [m[:, :, 0:1] for m in alb],
+        "alb_g": [m[:, :, 1:2] for m in alb],
+        "alb_b": [m[:, :, 2:3] for m in alb],
+        "nrm_x": [m[:, :, 0:1] for m in nrm],
+        "nrm_y": [m[:, :, 1:2] for m in nrm],
+        "nrm_z": [m[:, :, 2:3] for m in nrm],
+        "metallic": mips(PBRMapType.METALLIC),
+        "roughness": mips(PBRMapType.ROUGHNESS),
+        "ao": mips(PBRMapType.AO), "height": mips(PBRMapType.HEIGHT),
+    }, device=device)
+
+
+def material_mips_from_set(material_set, index: int,
+                           device="cuda") -> MaterialMips:
+    """One material's mip chains as the image-space trilinear binding."""
+    from bibim_tpu_torch.assets.materials import PBRMapType
+
+    def atlas(t):
+        return tx.build_mip_atlas(
+            material_set.get_pbr_map_or_default(index, t), device=device)
+
+    return MaterialMips(
+        albedo=atlas(PBRMapType.ALBEDO), metallic=atlas(PBRMapType.METALLIC),
+        roughness=atlas(PBRMapType.ROUGHNESS), ao=atlas(PBRMapType.AO),
+        normal=atlas(PBRMapType.NORMAL), height=atlas(PBRMapType.HEIGHT))
 
 
 def make_overlay_resources(device="cuda", with_gizmo: bool = True

@@ -1,6 +1,7 @@
 """CubeScene (port of ``bibim_tpu.scene.cube``) — BASELINE config 2:
 two textured unit cubes side by side, one per material, under a
-directional + point light pair, with trilinear mip-block albedos.
+directional + point light pair, with trilinear mip-block albedos (or,
+``with_mips=False``, level-0 ``MaterialTextures``).
 
 Material 0's albedo is uv_debug.png and material 1's texture.jpg; the other
 maps are 4×4 neutral constants. :func:`cube_material_tables` builds the
@@ -14,6 +15,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from bibim_tpu_torch.ops import texture_quad as tq
 from bibim_tpu_torch.scene.lights import LightType, make_lights
@@ -67,14 +69,17 @@ def seeded_albedos(seed: int = 0, sizes=(1024, 2048)) -> tuple:
                  for n in sizes)
 
 
-def cube_material_tables(albedos, layout: str = "block", device="cuda"):
-    """The cube binding from two (H, W, ≥3) u8 albedos: each albedo's mip
-    pyramid (:func:`~bibim_tpu_torch.ops.texture_quad.build_mip_pyramid`)
-    and the 4×4 neutral maps per material, merged across the materials —
-    mip block tables (``layout="block"``, the production binding: one
-    MipBlockMulti for the albedos, one single-level MipQuadMulti for the
-    neutral maps) or paired mip-quad tables (``"quad"``, the oracle
-    form)."""
+def cube_material_tables(albedos, layout: str = "block", device="cuda",
+                         with_mips: bool = True):
+    """The cube binding from two (H, W, ≥3) u8 albedos (the 4×4 neutral
+    maps for the rest). ``with_mips``: each albedo's mip pyramid
+    (:func:`~bibim_tpu_torch.ops.texture_quad.build_mip_pyramid`) and the
+    neutral maps per material, merged across the materials — mip block
+    tables (``layout="block"``, the production binding: one MipBlockMulti
+    for the albedos, one single-level MipQuadMulti for the neutral maps)
+    or paired mip-quad tables (``"quad"``, the oracle form). Without:
+    one ``MaterialTextures`` per material (level-0 bilinear, the
+    reference sampler's parity), chosen per batch."""
     if layout == "block":
         build, merge = tq.build_mip_block_tables, tq.merge_mip_block_materials
     elif layout == "quad":
@@ -86,6 +91,20 @@ def cube_material_tables(albedos, layout: str = "block", device="cuda"):
         return np.tile(np.asarray(rgba, np.uint8), (4, 4, 1))
 
     n_norm = neutral((128, 128, 255, 255))
+    n_metal = neutral((0, 0, 0, 255))
+    n_rough = neutral((180, 180, 180, 255))
+    n_ao = neutral((255, 255, 255, 255))
+    n_height = neutral((0, 0, 0, 255))
+    if not with_mips:
+        from bibim_tpu_torch.pipeline.framegraph import MaterialTextures
+
+        def t(a):
+            return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+        return tuple(MaterialTextures(
+            albedo=t(albedo), metallic=t(n_metal), roughness=t(n_rough),
+            ao=t(n_ao), normal=t(n_norm), height=t(n_height))
+            for albedo in albedos)
     mats = []
     for albedo in albedos:
         alb = tq.build_mip_pyramid(albedo)
@@ -95,15 +114,14 @@ def cube_material_tables(albedos, layout: str = "block", device="cuda"):
             "alb_b": [m[:, :, 2:3] for m in alb],
             "nrm_x": [n_norm[:, :, 0:1]], "nrm_y": [n_norm[:, :, 1:2]],
             "nrm_z": [n_norm[:, :, 2:3]],
-            "metallic": [neutral((0, 0, 0, 255))],
-            "roughness": [neutral((180, 180, 180, 255))],
-            "ao": [neutral((255, 255, 255, 255))],
-            "height": [neutral((0, 0, 0, 255))],
+            "metallic": [n_metal], "roughness": [n_rough], "ao": [n_ao],
+            "height": [n_height],
         }, device=device))
     return merge(tuple(mats))
 
 
-def cube_scene_materials(layout: str = "block", device="cuda"):
+def cube_scene_materials(layout: str = "block", device="cuda",
+                         with_mips: bool = True):
     """:func:`cube_material_tables` of uv_debug.png and texture.jpg from
     the resource root (``config.toml``)."""
     from bibim_tpu_torch.assets.image import load_image_rgba8
@@ -112,4 +130,5 @@ def cube_scene_materials(layout: str = "block", device="cuda"):
     root = get_resource_root()
     return cube_material_tables(
         (load_image_rgba8(root.common("uv_debug.png")),
-         load_image_rgba8(root.common("texture.jpg"))), layout, device)
+         load_image_rgba8(root.common("texture.jpg"))), layout, device,
+        with_mips)

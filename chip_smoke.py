@@ -98,10 +98,22 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    settings; a fine-bin frame may differ from them only at masked-key
    ties and where the default winner's bounding box misses the pixel
    (``c4_fine_vs_default``);
-9. checks, on every frame, zero capacity drops (shadow pass included),
+9. the newest paths (:func:`run_new_paths`): on the config-3 stand-in at
+   1920×1080 the forward frame (settings autotuned as config 3's) beside
+   the deferred one, forward and deferred shadows + analytic IBL, 2 and 4
+   anisotropic taps, the stand-in rebuilt from hand-built shared-vertex
+   batches (the (T, 3) path; ``torch.equal`` to the planar frame) with
+   and without shadows and with the TBN view; the config-2 cubes at
+   1280×720 at 2 taps and on per-material MaterialTextures; a MeshScene
+   frame of a torus OBJ written to a temporary directory. Every K1, K2,
+   K5, K6, K7 and K8 launch of those frames against its plain version
+   (one of each timed, with its kernel-only time), the frames with the
+   counters reset just before, each frame's device ms and launches (by
+   ``torch.profiler``) beside its twin's;
+10. checks, on every frame, zero capacity drops (shadow pass included),
    coverage, that the image is not background, and the frame against the
    all-plain render of the same frame at the golden-image bound;
-10. prints the GPU's ``nvidia-smi`` name/power-limit line, one JSON line of
+11. prints the GPU's ``nvidia-smi`` name/power-limit line, one JSON line of
    kernel results (per kernel and path: launches on the main path and the
    frames they cover, error against the plain version, wrapper and plain
    times, the bound of the bytes and operations the call needs on an H100
@@ -2709,6 +2721,371 @@ def run_pair_paths(dev, smi: str, name: str, c3, c5):
     return kres, launches
 
 
+# The new-path phase: forward lighting, anisotropic taps, the legacy
+# bindings and (T, 3) geometry, the TBN view and MeshScene, on the
+# config-3 stand-in at 1080p and the config-2 cubes at 720p.
+NEW_TAPS = (2, 4)
+SHADOWS = dict(enable_shadows=True, shadow_fit_batches=(0,),
+               shadow_size=1024)
+# The MeshScene stand-in: a torus (R 1, r 0.35) of 96 × 48 quads written
+# as an OBJ with uvs and normals.
+TORUS = (96, 48)
+
+
+def shared_vertex_batch(mesh, model, dev):
+    """A hand-built DrawBatch: the mesh's shared (indexed) vertices, no
+    corner planes, so the frame takes the (T, 3) path."""
+    import numpy as np
+    import torch
+
+    from bibim_tpu_torch.scene.scene import DrawBatch
+
+    model = np.asarray(model, np.float32).reshape(-1, 4, 4)
+    inv = np.linalg.inv(model.astype(np.float64)).astype(np.float32)
+    colors = (mesh.colors if mesh.colors is not None
+              else np.ones_like(mesh.positions))
+
+    def t(a, dtype=np.float32):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype), device=dev)
+
+    return DrawBatch(positions=t(mesh.positions), uvs=t(mesh.uvs),
+                     normals=t(mesh.normals), tangents=t(mesh.tangents),
+                     colors=t(colors), indices=t(mesh.indices, np.int32),
+                     model=t(model), inv_model=t(inv))
+
+
+def shared_vertex_standin(scene, dev):
+    """The config-3 stand-in (the 10,000-triangle ball, the ground plane)
+    as hand-built shared-vertex batches with the same triangles."""
+    from bibim_tpu_torch.scene.meshgen import (
+        generate_plane_mesh,
+        generate_uv_sphere_mesh,
+    )
+    from bibim_tpu_torch.scene.scene import SceneData
+
+    ball = generate_uv_sphere_mesh(100.0, 100, 51)
+    plane = generate_plane_mesh()
+    models = [b.model.cpu().numpy() for b in scene.batches]
+    return SceneData(batches=(shared_vertex_batch(ball, models[0], dev),
+                              shared_vertex_batch(plane, models[1], dev)),
+                     lights=scene.lights)
+
+
+def write_torus_obj(path) -> int:
+    """A torus OBJ (``TORUS`` quads, uvs, normals); returns its triangle
+    count."""
+    import numpy as np
+
+    nu, nv = TORUS
+    a = 2 * np.pi * np.arange(nu) / nu
+    b = 2 * np.pi * np.arange(nv) / nv
+    aa, bb = np.meshgrid(a, b, indexing="ij")
+    x = (1.0 + 0.35 * np.cos(bb)) * np.cos(aa)
+    y = 0.35 * np.sin(bb)
+    z = (1.0 + 0.35 * np.cos(bb)) * np.sin(aa)
+    n = np.stack([np.cos(bb) * np.cos(aa), np.sin(bb),
+                  np.cos(bb) * np.sin(aa)], -1).reshape(-1, 3)
+    lines = [f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}"
+             for p in np.stack([x, y, z], -1).reshape(-1, 3)]
+    lines += [f"vt {u:.6f} {v:.6f}" for u, v in zip(
+        (aa / (2 * np.pi)).reshape(-1) * 4, (bb / (2 * np.pi)).reshape(-1))]
+    lines += [f"vn {q[0]:.6f} {q[1]:.6f} {q[2]:.6f}" for q in n]
+
+    def k(i, j):
+        return (i % nu) * nv + (j % nv) + 1
+
+    for i in range(nu):
+        for j in range(nv):
+            c = [k(i, j), k(i, j + 1), k(i + 1, j + 1), k(i + 1, j)]
+            lines.append("f " + " ".join(f"{q}/{q}/{q}" for q in c))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return 2 * nu * nv
+
+
+def check_new_path_launches(per_frame: list, rows: dict) -> dict:
+    """Every captured K1, K2, K5, K6, K7 and K8 launch of the new-path
+    frames (``per_frame``: each frame's captured calls) against its plain
+    version — K1 zkey and tri_id bit-equal and its attribute planes within
+    1e-3, K6 / K7 / K8 bit-equal, K2 and K5 within ``_assert_close``
+    (their fused fp16 + tone-map tails ``torch.equal`` to the torch tail)
+    — and one timed row per kernel and path for the kernels line: the
+    first launch of the frame ``rows[name]``."""
+    import torch
+
+    from bibim_tpu_torch.ops import texture_quad as tq
+    from bibim_tpu_torch.ops.shading import (
+        shade_sampled,
+        shade_sampled_plain,
+        shade_tonemap,
+        shade_tonemap_plain,
+    )
+
+    shadow = shadow_fields()
+
+    every: dict = {}
+    firsts: list = []
+    for c in per_frame:
+        first: dict = {}
+        for name, xs in c.items():
+            for x in xs:
+                key = ("raster_shadow_pass" if name == "raster"
+                       and tuple(x[0][11]) == shadow else name)
+                every.setdefault(key, []).append(x)
+                first.setdefault(key, x)
+        firsts.append(first)
+    from bibim_tpu_torch.ops import fused
+
+    res = {}
+    for key in ("raster", "raster_shadow_pass"):
+        call = firsts[rows[key]][key]
+        res[key] = check_raster(call, calls=[x for x in every[key]
+                                             if x is not call])
+        args, kw, _ = call
+        res[key]["kernel_ms"] = device_ms(
+            lambda: fused.raster_tiles(*args, **kw), 20, "raster_kernel")
+    for name, kern, plain, kname in (
+            ("shade", shade_sampled, shade_sampled_plain,
+             "bb::shade_kernel"),
+            ("shade_gbuffer", shade_tonemap, shade_tonemap_plain,
+             "bb::gbuffer_shade_kernel")):
+        errs = []
+        for args, kw, _ in every[name]:
+            got, want = kern(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            errs.append(assert_shade_close(got, want, f"new paths {name}"))
+        args, kw, _ = firsts[rows[name]][name]
+        out = kern(*args, **kw)
+        taps = K2_BLOCK_TAP_CHANNELS if name == "shade" else 0
+        res[name] = dict(max_abs_err=max(errs), checked_calls=len(errs),
+                         pixels=int(args[6].numel()), library_ms=None,
+                         **shade_bound(args, kw, out, taps,
+                                       sampled=name == "shade"),
+                         ms=cuda_ms(lambda: kern(*args, **kw)),
+                         plain_ms=cuda_ms(lambda: plain(*args, **kw)),
+                         kernel_ms=device_ms(lambda: kern(*args, **kw), 20,
+                                             kname))
+        if name == "shade":
+            # The forward launch with the deferred frame's fp16 G-buffer,
+            # on the same inputs.
+            res[name]["quantized_kernel_ms"] = device_ms(
+                lambda: kern(*args, **dict(kw, quantize=True)), 20, kname)
+    if firsts[rows["shade"]]["shade"][1].get("quantize") is not False:
+        raise AssertionError("the forward K2 launch quantized its G-buffer")
+    res["shade"]["tails_equal"] = check_tails(every, "new paths")
+    for name, kern, plain, kname in (
+            ("sample_block", tq.sample_table_block_kernel,
+             tq.sample_table_block, "sample_block_kernel"),
+            ("sample_small", tq.sample_rows_small,
+             tq.sample_rows_small_plain, "sample_small_kernel"),
+            ("sample_mip_block", tq.sample_mip_block_kernel,
+             tq.sample_mip_block, "mip_block_kernel")):
+        call = firsts[rows[name]][name]
+        for x in every[name]:
+            if x is call:  # checked by check_sampler below
+                continue
+            args, kw, _ = x
+            got, want = kern(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            for slot in want:
+                if not torch.equal(got[slot], want[slot]):
+                    raise AssertionError(f"new paths {name} slot {slot} "
+                                         "differs from its plain version")
+        res[name] = dict(check_sampler(call, kern, plain, name,
+                                       SAMPLER_TAPS[name], kernel=kname),
+                         checked_calls=len(every[name]))
+    return res
+
+
+def run_new_paths(dev, smi: str, name: str, c3):
+    """The paths this port added last, on repository-only stand-ins: the
+    config-3 stand-in at 1080p forward (settings autotuned as config 3's),
+    forward with shadows and analytic IBL, at 2 and 4 anisotropic taps,
+    on hand-built shared-vertex batches (the (T, 3) path) with and without
+    shadows and with the TBN view; the config-2 cubes at 2 taps and on
+    per-material MaterialTextures; a MeshScene frame of an OBJ written to
+    a temporary directory. Every K1, K2, K5, K6, K7 and K8 launch against
+    its plain version; the frames with the counters reset just before,
+    each against the all-plain render; each new frame's device ms and
+    launches beside its twin's."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+
+    from bibim_tpu_torch.ops import fused
+    from bibim_tpu_torch.ops import texture_quad as tq
+    from bibim_tpu_torch.ops.ibl import make_ibl_sh
+    from bibim_tpu_torch.ops.shading import shade_sampled, shade_tonemap
+    from bibim_tpu_torch.ops.sort import sort_keys
+    from bibim_tpu_torch.pipeline import KERNELS, PLAIN, render_frame
+    from bibim_tpu_torch.scene.cube import cube_material_tables, seeded_albedos
+    from bibim_tpu_torch.scene.meshscene import MeshScene
+
+    scene, mats, overlay, proj, fp, base, settings = c3
+    vb = view_block(YAWS[0], proj, dev)
+    ibl = make_ibl_sh(device=dev)
+    fwd = derive(scene, vb, dataclasses.replace(base, deferred=False), mats,
+                 overlay, "1080p forward")
+    shadowed = derive(scene, vb, dataclasses.replace(base, **SHADOWS), mats,
+                      overlay, "1080p shadows")
+    stretch = dataclasses.replace(shadowed, enable_ibl=True)
+    sv_scene = shared_vertex_standin(scene, dev)
+    legacy = dict(geometry="legacy", sequential_tris=False)
+    c2_scene, c2_mats, c2_proj, _, c2_settings = cube_inputs(dev)
+    c2_vb = cube_view(C2_CAMERA_Z[0], c2_proj, dev)
+    c2_textures = cube_material_tables(seeded_albedos(SEED, C2_ALBEDOS),
+                                       device=dev, with_mips=False)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "torus.obj")
+        n_torus = write_torus_obj(path)
+        mesh_scene = MeshScene(path=path, device=dev).scene_data()
+    mesh_settings = derive(mesh_scene, vb, base, mats, overlay,
+                           "1080p MeshScene")
+    print(f"new paths: forward, shadows + IBL, {NEW_TAPS} taps on the "
+          f"config-3 stand-in ({WIDTH}x{HEIGHT}); its (T, 3) twin "
+          f"({sum(int(b.indices.shape[0]) for b in sv_scene.batches)} "
+          "triangles over shared vertices); config-2 cubes at 2 taps and "
+          f"on MaterialTextures; MeshScene of a {n_torus}-triangle torus "
+          "OBJ")
+
+    c3f = (scene, mats, overlay, vb, None)
+    svf = (sv_scene, mats, overlay, vb, None)
+    c2f = (c2_scene, c2_mats, None, c2_vb, None)
+    # (label, (scene, materials, overlay, view, ibl), settings, twin index)
+    frames = [
+        ("1080p deferred", c3f, settings, None),
+        ("1080p forward", c3f, fwd, 0),
+        ("1080p deferred shadows + IBL", c3f[:4] + (ibl,), stretch, None),
+        ("1080p forward shadows + IBL", c3f[:4] + (ibl,),
+         dataclasses.replace(stretch, deferred=False), 2),
+    ]
+    frames += [(f"1080p {n} taps", c3f, dataclasses.replace(
+        settings, aniso_taps=n), 0) for n in NEW_TAPS]
+    frames += [
+        ("720p cubes mip-block", c2f, c2_settings, None),
+        ("720p cubes 2 taps", c2f, dataclasses.replace(c2_settings,
+                                                       aniso_taps=2), 6),
+        ("720p cubes MaterialTextures", c2f[:1] + (c2_textures,) + c2f[2:],
+         c2_settings, 6),
+        ("1080p shadows", c3f, shadowed, None),
+        ("1080p (T, 3)", svf, dataclasses.replace(settings, **legacy), 0),
+        ("1080p (T, 3) shadows", svf,
+         dataclasses.replace(shadowed, **legacy), 9),
+        ("1080p (T, 3) TBN", svf,
+         dataclasses.replace(settings, show_tbn=True, **legacy), 10),
+        ("1080p MeshScene", (mesh_scene, mats, overlay, vb, None),
+         mesh_settings, None),
+    ]
+
+    def render(i, kernels=KERNELS):
+        _, (sc, m, ov, v, pr), s, _ = frames[i]
+        return render_frame(sc, v, fp, m, ov, s, ibl=pr, kernels=kernels)
+
+    captured = []
+    for i in range(len(frames)):
+        captured.append({})
+        render(i, capture_kernels(KERNELS, captured[-1]))
+    torch.cuda.synchronize()
+    # The launch each kernel's timed row takes: K1 on the (T, 3) main and
+    # shadow passes, K2 forward, K5 forward + IBL, K6 / K7 at 4 taps, K8 on
+    # the cubes at 2 taps.
+    kres = check_new_path_launches(captured, dict(
+        raster=10, raster_shadow_pass=11, shade=1, shade_gbuffer=3,
+        sample_block=5, sample_small=5, sample_mip_block=7))
+    for k, v in kres.items():
+        print(f"kernel {k} (new paths): " + json.dumps(v))
+    del captured
+
+    counters = {"raster": fused.raster_tiles, "sort": sort_keys,
+                "overlay": fused.overlay_tiles, "shade": shade_sampled,
+                "shade_gbuffer": shade_tonemap,
+                "sample_block": tq.sample_table_block_kernel,
+                "sample_small": tq.sample_rows_small,
+                "sample_mip_block": tq.sample_mip_block_kernel}
+    shadow = shadow_fields()
+    cover: list = []
+    shadow_launches = [0]
+
+    def raster_counted(*args, **kw):
+        before = fused.raster_tiles.launches
+        zk, f = KERNELS.raster(*args, **kw)
+        if tuple(args[11]) == shadow:
+            shadow_launches[0] += fused.raster_tiles.launches - before
+        else:
+            cover.append(f[args[11].index("idf")] >= 0.5)
+        return zk, f
+
+    counted = KERNELS._replace(raster=raster_counted)
+    for fn in counters.values():
+        fn.launches = 0
+    outs, frame_ms, per_frame = [], [], []
+    for i in range(len(frames)):
+        before = {k: fn.launches for k, fn in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = render(i, counted)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append((out, cover[0]))
+        cover.clear()
+        per_frame.append({k: fn.launches - before[k]
+                          for k, fn in counters.items()
+                          if fn.launches > before[k]})
+    launches = {k: fn.launches for k, fn in counters.items()}
+    launches["raster"] -= shadow_launches[0]
+    launches["raster_shadow_pass"] = shadow_launches[0]
+    print("new-path launches: " + json.dumps(launches))
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the "
+                                 "new-path frames")
+    for i, (label, _, s, _) in enumerate(frames):
+        want = {"shade": not s.deferred and not s.enable_ibl
+                and s.aniso_taps == 1 and label.startswith("1080p forward"),
+                "shade_gbuffer": s.aniso_taps > 1 or s.enable_ibl
+                or "MaterialTextures" in label}
+        for k, on in want.items():
+            if on and k not in per_frame[i]:
+                raise AssertionError(f"{label}: {k} not launched")
+        if s.aniso_taps > 1:
+            taps = {"sample_block": s.aniso_taps, "sample_small":
+                    s.aniso_taps} if "cubes" not in label else {
+                "sample_mip_block": s.aniso_taps,
+                "sample_small": s.aniso_taps}
+            if any(per_frame[i].get(k) != n for k, n in taps.items()):
+                raise AssertionError(f"{label}: sampler launches "
+                                     f"{per_frame[i]}, want {taps}")
+            if "shade" in per_frame[i]:
+                raise AssertionError(f"{label}: K2 launched at "
+                                     f"{s.aniso_taps} taps")
+
+    profiles = []
+    for i, ((out, cov), (label, (sc, *_), s, twin)) in enumerate(
+            zip(outs, frames)):
+        ref = render(i, PLAIN)["image"]
+        summary = check_frame(i, out, cov, ref,
+                              (s.height, s.width, 3), "new-path")
+        prof = device_profile(lambda i=i: render(i), reps=3)
+        profiles.append(prof)
+        line = (f"new-path frame {i}: {label}, {frame_ms[i]:.2f} ms host, "
+                f"device {prof['device_ms']:.4f} ms, "
+                f"{prof['launches']:.0f} launches, kernels "
+                f"{json.dumps(per_frame[i])}")
+        if twin is not None:
+            line += (f"; twin {frames[twin][0]}: device "
+                     f"{profiles[twin]['device_ms']:.4f} ms, "
+                     f"{profiles[twin]['launches']:.0f} launches")
+        print(line + "; " + summary + f" ({name}, {smi})")
+    if torch.equal(outs[1][0]["image"], outs[0][0]["image"]):
+        raise AssertionError("the forward frame equals the deferred frame")
+    if not torch.equal(outs[10][0]["image"], outs[0][0]["image"]):
+        raise AssertionError("the (T, 3) frame differs from the planar "
+                             "frame of the same triangles")
+    return kres, launches, len(frames)
+
+
 def main() -> int:
     try:
         import torch
@@ -2900,6 +3277,8 @@ def main() -> int:
         dev, smi, name, (scene, mats, overlay, proj, fp, base, settings), c5)
     kres2, launches2 = run_config2(dev, smi, name)
     kres4, launches4 = run_config4(dev, smi, name)
+    kres_n, launches_n, n_new = run_new_paths(
+        dev, smi, name, (scene, mats, overlay, proj, fp, base, settings))
 
     # One row per kernel and path: K1 and K3 on the config-1 frame, K1-K4
     # on the 1080p path's 4 frames, K10 on its group-window frame, every
@@ -2933,6 +3312,19 @@ def main() -> int:
               launches2[k], n2) for k in kres2]
     rows += [(k, KERNEL_INFO[k][0] + ", config-4 1080p x64", kres4[k],
               launches4[k], n4) for k in kres4]
+    new_paths = {
+        "raster": "new paths: main passes (forward, taps, (T, 3), TBN, "
+                  "MeshScene, cubes)",
+        "raster_shadow_pass": "new paths: shadow passes (planar and (T, 3))",
+        "shade": "forward 1080p, quantize=False",
+        "shade_gbuffer": "new paths: forward + IBL, taps, MaterialTextures",
+        "sample_block": f"new paths: 1080p at {NEW_TAPS} taps, forward + IBL",
+        "sample_small": "new paths: 1080p and cubes at 2-4 taps",
+        "sample_mip_block": "new paths: 720p cubes at 2 taps"}
+    rows += [("raster" if k == "raster_shadow_pass" else k,
+              KERNEL_INFO["raster" if k == "raster_shadow_pass" else k][0]
+              + ", " + label, kres_n[k], launches_n[k], n_new)
+             for k, label in new_paths.items()]
     kernels = []
     for k, label, r, n, frames in rows:
         _, src, repl = KERNEL_INFO[k]

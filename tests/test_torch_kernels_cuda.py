@@ -1386,3 +1386,134 @@ def test_shade_kernel_light_tiles(dev, n_lights):
     for g, x in zip(got, generic):
         assert torch.equal(g, x)
         assert bool((g[~valid] == 0).all())
+
+
+@pytest.mark.cuda
+def test_forward_shade_kernels_match_plain(dev, frame):
+    """The forward frame's shading calls: K2 at ``quantize=False`` (raw
+    samples, no G-buffer fp16) with and without the fused fp16 + tone-map
+    tail, NaN in every plane at the misses; K5 at ``quantize=False`` /
+    ``tonemap=False`` on unquantized planes with the IBL ambient and a
+    visibility plane — each against its plain version, one launch a
+    call."""
+    _, _, _, mats = frame
+    lights = shaderball_lights(dev)
+    p = _planes(dev, 23)
+    valid = p(0, 1) > 0.3
+    nan = torch.full_like(valid, float("nan"), dtype=torch.float32)
+
+    def dirty(x):
+        return torch.where(valid, x, nan)
+
+    args = (mats, dirty(p(-2, 3)), dirty(p(-2, 3)),
+            tuple(dirty(p(-5, 5)) for _ in range(3)),
+            tuple(dirty(p(-1, 1)) for _ in range(3)),
+            tuple(dirty(p(-1, 1)) for _ in range(3)), valid, lights,
+            torch.tensor([0.0, 1.0, -3.0], device=dev),
+            torch.tensor(1, device=dev))
+    tail = dict(quantize_hdr=True, tonemap=True,
+                enable_tone_mapping=torch.tensor(1, device=dev),
+                exposure=torch.tensor(1.0, device=dev))
+    for kw in (dict(quantize=False), dict(quantize=False, **tail)):
+        before = shade_sampled.launches
+        got = shade_sampled(*args, **kw)
+        want = shade_sampled_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert shade_sampled.launches == before + 1
+        _assert_close_rel(got, want)
+        for g in got:
+            assert bool((g[~valid] == 0).all())
+    q = _planes(dev, 29)
+    gargs = ((q(-5, 5), q(-5, 5), q(-5, 5)), (q(-1, 1), q(-1, 1), q(-1, 1)),
+             (q(0, 1), q(0, 1), q(0, 1)), q(0, 1), q(0.05, 1), q(0, 1),
+             valid, lights, torch.tensor([0.0, 1.0, -3.0], device=dev),
+             torch.tensor(1, device=dev), torch.tensor(1.0, device=dev))
+    opts = dict(quantize=False, tonemap=False, vis_plane=q(0, 1),
+                vis_light=0, ambient=(q(0, 0.2), q(0, 0.2), q(0, 0.2)))
+    before = shade_tonemap.launches
+    got = shade_tonemap(*gargs, **opts)
+    want = shade_tonemap_plain(*gargs, **opts)
+    torch.cuda.synchronize()
+    assert shade_tonemap.launches == before + 1
+    _assert_close_rel(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binding", ["tables", "mip_block"])
+def test_two_tap_sample_kernels_bit_equal(dev, frame, binding):
+    """One 2-tap anisotropic sample (``framegraph._sample_materials``):
+    through KERNELS each table's sampler launches twice — K6 and K7 on the
+    block + quad tables, K8 and K7 on the merged mip groups — and the
+    averaged slot planes equal the all-plain sample bit for bit."""
+    from bibim_tpu_torch.ops.fused import FusedPixels
+    from bibim_tpu_torch.pipeline import framegraph as fg
+
+    if binding == "tables":
+        mats = frame[3]
+        p = _planes(dev, 31, (12, 1024))
+        u, v = p(-2, 3), p(-2, 3)
+        mat = torch.zeros_like(u, dtype=torch.int32)
+        fns = (tq.sample_table_block_kernel, tq.sample_rows_small)
+    else:
+        mats = _cube_tables(dev, None)
+        u, v, mat = _smooth_uv(dev, 5)
+        fns = (tq.sample_mip_block_kernel, tq.sample_rows_small)
+    zero = torch.zeros_like(u)
+    tri = torch.zeros_like(mat)
+    px = FusedPixels(tri_id=tri, depth=zero, bary=(zero,) * 3, uv=(u, v),
+                     normal=(zero,) * 3, tangent=(zero,) * 3,
+                     world=(zero,) * 3, color=(zero,) * 3, mat_id=mat)
+    s = RenderSettings(aniso_taps=2)
+    before = [f.launches for f in fns]
+    got = fg._sample_materials(mats, px, s, KERNELS)
+    assert [f.launches for f in fns] == [b + 2 for b in before]
+    want = fg._sample_materials(mats, px, s, PLAIN)
+    one = fg._sample_materials(mats, px, RenderSettings(), PLAIN)
+    torch.cuda.synchronize()
+    assert set(got) == set(want)
+    for slot in want:
+        assert torch.equal(got[slot], want[slot]), slot
+    assert any(not torch.equal(want[k], one[k]) for k in want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(deferred=False),
+    dict(deferred=False, enable_shadows=True, shadow_fit_batches=(0,),
+         enable_ibl=True),
+    dict(aniso_taps=2),
+    dict(geometry="legacy", enable_shadows=True, shadow_fit_batches=(0,)),
+    dict(show_tbn=True),
+], ids=["forward", "forward_shadows_ibl", "aniso2", "legacy_shadows", "tbn"])
+def test_new_path_frames_vs_plain(dev, frame, kw):
+    """Forward, anisotropic, (T, 3) and TBN frames on the card: their
+    kernels launch (K2 on the forward frame; K6 / K7 twice and K5 at two
+    taps or with IBL; K1 on the (T, 3) main and shadow passes) and the
+    frame stays within the golden bound of its all-plain render."""
+    from bibim_tpu_torch.ops.ibl import make_ibl_sh
+
+    scene, vb, fp, mats = frame
+    overlay = make_overlay_resources(dev, with_gizmo=False)
+    s = RenderSettings(width=W, height=H, outputs="image+diag",
+                       show_gizmo=False, max_candidates=256,
+                       live_tile_cap=120, raster_tile_cap=128,
+                       span_mid_cap=1024, **kw)
+    ibl = make_ibl_sh(device=dev)
+    samples = s.enable_ibl or s.aniso_taps > 1
+    fns = [fused.raster_tiles, sort.sort_keys, fused.overlay_tiles]
+    fns += ([shade_tonemap, tq.sample_table_block_kernel,
+             tq.sample_rows_small] if samples else [shade_sampled])
+    counts = [f.launches for f in fns]
+    out = render_frame(scene, vb, fp, mats, overlay, s, ibl=ibl)
+    ref = render_frame(scene, vb, fp, mats, overlay, s, ibl=ibl,
+                       kernels=PLAIN)
+    torch.cuda.synchronize()
+    after = [f.launches for f in fns]
+    assert all(a > b for a, b in zip(after, counts))
+    if s.aniso_taps > 1:
+        assert after[4] - counts[4] == 2 and after[5] - counts[5] == 2
+    for k in range(4):
+        assert int(out["bin_diag"][k]) == 0
+    d = (out["image"].int() - ref["image"].int()).abs()
+    assert int(d.max()) <= 2
+    assert float((d > 0).any(dim=-1).float().mean()) <= 1e-3

@@ -13,6 +13,8 @@ keys, binning) and arrays that are pure data movement agree exactly.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -481,6 +483,112 @@ def assert_raster_equal(a, b):
 
     for x, y in zip(leaves(px_a), leaves(px_b)):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
+
+
+def seeded_pixels(seed: int, nt: int = 6, tx: int = 2):
+    """(JAX FusedPixels, port FusedPixels) of a seeded frame of ``nt``
+    8×128 tiles, ``tx`` across: uv an affine function of the pixel
+    position plus noise (so the pixel quads have a footprint, elongated
+    along x or y by tile), 10 % misses (tri id -1, every plane 0), world /
+    normal / tangent / colour planes uniform in [-1, 1], material ids
+    0 / 1."""
+    import jax.numpy as jnp
+
+    from bibim_tpu.ops import fused as jfused
+    from bibim_tpu_torch.ops import fused
+
+    rng = np.random.default_rng(seed)
+    npx = TILE_H * TILE_W
+    tile = np.arange(nt)[:, None]
+    pix = np.arange(npx)[None, :]
+    x = (tile % tx) * TILE_W + pix % TILE_W
+    y = (tile // tx) * TILE_H + pix // TILE_W
+    du = np.where(tile % 2 == 0, 0.031, 0.004)
+    u = du * x + 0.006 * y + rng.normal(0, 2e-3, (nt, npx))
+    v = (0.003 * x + np.where(tile % 3 == 0, 0.004, 0.027) * y
+         + rng.normal(0, 2e-3, (nt, npx)))
+    hit = rng.random((nt, npx)) > 0.1
+
+    def plane(a):
+        return np.where(hit, a, 0.0).astype(np.float32)
+
+    tri = np.where(hit, rng.integers(0, 500, (nt, npx)), -1).astype(np.int32)
+    mat = np.where(hit, rng.integers(0, 2, (nt, npx)), 0).astype(np.int32)
+    rnd = [plane(rng.uniform(-1, 1, (nt, npx))) for _ in range(14)]
+    fields = dict(
+        tri_id=tri, depth=plane(rng.random((nt, npx))),
+        bary=(rnd[0], rnd[1], rnd[2]), uv=(plane(u), plane(v)),
+        normal=tuple(rnd[3:6]), tangent=tuple(rnd[6:9]),
+        world=tuple(rnd[9:12]), color=(rnd[12], rnd[13], rnd[12]),
+        mat_id=mat)
+
+    def conv(fn, cls):
+        return cls(**{k: tuple(fn(c) for c in f) if isinstance(f, tuple)
+                      else fn(f) for k, f in fields.items()})
+
+    return conv(jnp.asarray, jfused.FusedPixels), conv(t, fused.FusedPixels)
+
+
+GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
+
+
+def golden_png(name: str) -> np.ndarray:
+    from PIL import Image
+
+    return np.asarray(Image.open(os.path.join(GOLDEN_DIR, f"{name}.png")))
+
+
+def checker_textures():
+    """tests/golden_configs.py checker_materials as the port's
+    MaterialTextures."""
+    from bibim_tpu_torch.pipeline import MaterialTextures
+
+    tex = np.zeros((8, 8, 4), np.uint8)
+    tex[::2, ::2] = tex[1::2, 1::2] = 255
+
+    def flat(val):
+        return torch.full((4, 4, 4), val, dtype=torch.uint8)
+
+    normal = np.full((4, 4, 4), 128, np.uint8) + np.asarray(
+        [0, 0, 127, 0], np.uint8)
+    return MaterialTextures(albedo=t(tex), metallic=flat(32),
+                            roughness=flat(128), ao=flat(255),
+                            normal=t(normal), height=flat(0))
+
+
+def golden_view(w: int, h: int, cam=None, fov: float = 60.0):
+    from bibim_tpu_torch import math3d as m3
+    from bibim_tpu_torch.pipeline import ViewBlock
+    from bibim_tpu_torch.scene import FreeLookCamera
+
+    cam = cam or FreeLookCamera()
+    return ViewBlock(view=torch.as_tensor(cam.get_view_matrix()),
+                     proj=m3.perspective(fov, w / h, 0.1, 1000.0),
+                     view_pos=torch.as_tensor(cam.pos),
+                     enable_normal_map=torch.tensor(0, dtype=torch.int32))
+
+
+def golden_params():
+    from bibim_tpu_torch.pipeline import FrameParams
+
+    return FrameParams(torch.tensor(1, dtype=torch.int32),
+                       torch.tensor(1.0, dtype=torch.float32))
+
+
+def golden_sphere_scene():
+    """tests/golden_configs.py sphere_scene in the port."""
+    from bibim_tpu_torch import math3d as m3
+    from bibim_tpu_torch.scene import SceneData, batch_from_mesh, make_lights
+    from bibim_tpu_torch.scene.meshgen import generate_uv_sphere_mesh
+
+    mesh = generate_uv_sphere_mesh(1.0, 16, 12)
+    model = m3.translate([0.0, 0.0, 4.0]).numpy()
+    lights = make_lights([
+        dict(type=2, dir=(0, -1, 1), color=(1, 1, 1), intensity=3.0),
+        dict(type=0, pos=(2, 2, 2), color=(1, 0.5, 0.2), intensity=8.0),
+    ], device="cpu")
+    return SceneData(batches=(batch_from_mesh(mesh, model, device="cpu"),),
+                     lights=lights)
 
 
 if __name__ == "__main__":
