@@ -47,9 +47,14 @@ Layout:
   texture tables, shading, shadow map, IBL, tone mapping
 - :mod:`bibim_tpu_torch.pipeline`  — ``render_frame``, the capacity
   autotune
-- :mod:`bibim_tpu_torch.host`      — the in-frame HUD's geometry and text
+- :mod:`bibim_tpu_torch.host`      — the interactive Session (2-deep
+  readback), the live viewer, the CLI (``python -m
+  bibim_tpu_torch.host.app``), the GUI state, the in-frame HUD
 - :mod:`bibim_tpu_torch.interop`   — numpy state of the JAX package → port
-- :mod:`bibim_tpu_torch.utils`     — capacity validation, resource root
+- :mod:`bibim_tpu_torch.utils`     — capacity validation, resource root,
+  timing and profiling hooks
+- :mod:`bibim_tpu_torch.native`    — ctypes binding of the native image
+  runtime (``native/libbibim_native.so``)
 """
 
 __version__ = "0.1.0"

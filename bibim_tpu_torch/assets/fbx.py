@@ -1,5 +1,6 @@
 """Binary FBX mesh importer (a copy of the JAX package's
-``assets/fbx.py``, without its on-disk cache).
+``assets/fbx.py``; parsed meshes go through the port's on-disk cache,
+``assets/asset_cache.py``).
 
 Replaces the reference's Assimp FBX path (scene.cpp:57-82:
 ``ReadFile(..., aiProcess_Triangulate | aiProcess_CalcTangentSpace)`` followed
@@ -170,13 +171,22 @@ def _layer_lookup(layer: FbxNode, data_name: str, index_name: str, num_corners: 
 
 
 def load_fbx_mesh(path: str | os.PathLike, mesh_index: int = 0) -> Mesh:
-    """Load one geometry from a binary FBX as a de-indexed triangle mesh.
+    """Load one geometry from a binary FBX as a de-indexed triangle mesh
+    (disk-cached).
 
     Mirrors the reference pipeline: triangulate (fan, matching Assimp on
     convex polygons), generate per-corner tangents from UV derivatives
     (aiProcess_CalcTangentSpace analog), and emit one vertex per triangle
     corner (scene.cpp:63-79 de-index loop).
     """
+    from bibim_tpu_torch.assets.asset_cache import cached
+
+    return cached(f"torch-fbx{mesh_index}", [path],
+                  lambda: _load_fbx_mesh_uncached(path, mesh_index))
+
+
+def _load_fbx_mesh_uncached(path: str | os.PathLike,
+                            mesh_index: int = 0) -> Mesh:
     root, _version = parse_fbx(path)
     objects = root.find("Objects")
     bb_assert(objects is not None, "FBX has no Objects node")

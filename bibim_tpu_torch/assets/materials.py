@@ -1,5 +1,6 @@
-"""PBR material sets (a copy of the JAX package's ``assets/materials.py``
-and its threaded image loader, without the on-disk cache).
+"""PBR material sets (a copy of the JAX package's ``assets/materials.py``;
+maps decode on ``assets/loader.py``'s thread pool, and a set goes through
+the port's on-disk cache, ``assets/asset_cache.py``).
 
 ``createPBRMaterialSet`` / ``getPBRMapOrDefault`` parity: a material is 6
 maps — Albedo, Metallic, Roughness, AO, Normal, Height — found as
@@ -11,16 +12,15 @@ the default material's.
 from __future__ import annotations
 
 import os
-from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from enum import IntEnum
 from pathlib import Path
 
 import numpy as np
 
-from bibim_tpu_torch.assets.image import load_image_rgba8
+from bibim_tpu_torch.assets.loader import ImageLoader
 from bibim_tpu_torch.utils.config import get_resource_root
-from bibim_tpu_torch.utils.log import log_info, log_warning
+from bibim_tpu_torch.utils.log import log_info
 
 
 class PBRMapType(IntEnum):
@@ -53,38 +53,6 @@ _NEUTRAL_TEXELS = {
     PBRMapType.NORMAL: (128, 128, 255, 255),
     PBRMapType.HEIGHT: (0, 0, 0, 255),
 }
-
-_MAX_CONCURRENT = 64  # decode batch width
-
-
-def _decode_one(path: Path) -> np.ndarray | None:
-    try:
-        return load_image_rgba8(path)
-    except Exception as exc:  # a missing/corrupt file is tolerated
-        log_warning("image load failed for {}: {}", path, exc)
-        return None
-
-
-@dataclass
-class ImageLoader:
-    """Task-queue image loader: decodes every queued image on a thread
-    pool, then delivers the results in enqueue order."""
-
-    _tasks: list = field(default_factory=list)
-
-    def enqueue_image_load_task(self, path: str | os.PathLike, sink) -> None:
-        """Queue a decode; ``sink(np.ndarray | None)`` receives the result."""
-        self._tasks.append((Path(path), sink))
-
-    def finalize_all_image_loads(self) -> None:
-        if not self._tasks:
-            return
-        tasks, self._tasks = self._tasks, []
-        with ThreadPoolExecutor(
-                max_workers=min(_MAX_CONCURRENT, len(tasks))) as pool:
-            results = list(pool.map(_decode_one, [p for p, _ in tasks]))
-        for (_, sink), img in zip(tasks, results):
-            sink(img)
 
 
 @dataclass
@@ -124,11 +92,20 @@ def create_pbr_material_set(pbr_root: str | os.PathLike | None = None,
                             with_mips: bool = True) -> PBRMaterialSet:
     """Scan ``<common_root>/pbr/*`` directories and load all maps
     concurrently (directories with no recognized map stay, as all-default
-    materials)."""
-    from bibim_tpu_torch.ops.texture_quad import build_mip_pyramid
+    materials). Disk-cached."""
+    from bibim_tpu_torch.assets.asset_cache import cached
 
     root = (Path(pbr_root) if pbr_root is not None
             else get_resource_root().common("pbr"))
+    sources = sorted(root.glob("*/*.png")) if root.is_dir() else []
+    return cached(f"torch-pbrset{'m' if with_mips else ''}", sources,
+                  lambda: _create_pbr_material_set_uncached(root, with_mips))
+
+
+def _create_pbr_material_set_uncached(root: Path,
+                                      with_mips: bool) -> PBRMaterialSet:
+    from bibim_tpu_torch.ops.texture_quad import build_mip_pyramid
+
     loader = ImageLoader()
     materials = []
     for entry in sorted(root.iterdir()) if root.is_dir() else []:

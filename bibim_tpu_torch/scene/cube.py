@@ -20,7 +20,12 @@ import torch
 from bibim_tpu_torch.ops import texture_quad as tq
 from bibim_tpu_torch.scene.lights import LightType, make_lights
 from bibim_tpu_torch.scene.meshgen import generate_cube_mesh
-from bibim_tpu_torch.scene.scene import DrawBatch, SceneData, batch_from_mesh
+from bibim_tpu_torch.scene.scene import (
+    DrawBatch,
+    SceneBase,
+    SceneData,
+    batch_from_mesh,
+)
 
 
 def cube_model(tx: float, ty: float, tz: float,
@@ -32,7 +37,12 @@ def cube_model(tx: float, ty: float, tz: float,
 
 
 @dataclass
-class CubeScene:
+class CubeScene(SceneBase):
+    """``spin`` turns cube A (only) 30° a second about y in
+    :meth:`update_scene`; like the JAX package's CubeScene, it replaces
+    cube A's model matrix and keeps its inverse."""
+
+    spin: bool = False
     angle: float = 25.0
     device: str = "cuda"
     _cube_a: DrawBatch | None = field(default=None, repr=False)
@@ -51,6 +61,13 @@ class CubeScene:
             dict(type=LightType.POINT, pos=(0, 2, 1), color=(1, 1, 1),
                  intensity=8.0),
         ], device=self.device)
+
+    def update_scene(self, dt: float) -> None:
+        if self.spin:
+            self.angle += 30.0 * dt
+            self._cube_a = self._cube_a._replace(model=torch.as_tensor(
+                cube_model(-0.9, 0, 3.0, self.angle)[None],
+                device=self._cube_a.model.device))
 
     def scene_data(self) -> SceneData:
         return SceneData(batches=(self._cube_a, self._cube_b),

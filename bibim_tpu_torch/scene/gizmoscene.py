@@ -14,14 +14,14 @@ from dataclasses import dataclass, field
 
 from bibim_tpu_torch.scene.lights import make_lights
 from bibim_tpu_torch.scene.meshgen import Mesh
-from bibim_tpu_torch.scene.scene import SceneData, batch_from_mesh
+from bibim_tpu_torch.scene.scene import SceneBase, SceneData, batch_from_mesh
 
 GIZMO_CAMERA_DISTANCE = 27.0
 GIZMO_FOV_DEGREES = 30.0
 
 
 @dataclass
-class GizmoScene:
+class GizmoScene(SceneBase):
     device: str = "cuda"
     mesh: Mesh | None = field(default=None, repr=False)
     _data: SceneData | None = field(default=None, repr=False)

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from bibim_tpu_torch.scene.lights import LightType, make_lights
-from bibim_tpu_torch.scene.scene import SceneData, batch_from_mesh
+from bibim_tpu_torch.scene.scene import SceneBase, SceneData, batch_from_mesh
 
 
 def load_mesh_any(path):
@@ -31,7 +31,7 @@ def load_mesh_any(path):
 
 
 @dataclass
-class MeshScene:
+class MeshScene(SceneBase):
     """One imported mesh; ``spin`` turns it 30° a second about y in
     :meth:`update_scene`."""
 

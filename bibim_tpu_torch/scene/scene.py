@@ -39,6 +39,23 @@ class SceneData(NamedTuple):
     lights: Lights
 
 
+class SceneBase:
+    """Host-side scene controller: ``update_scene`` advances the scene's
+    state by ``dt`` seconds (instance matrices), ``scene_data`` packages
+    it for the frame function. The session calls ``update_scene`` once a
+    frame."""
+
+    def update_scene(self, dt: float) -> None:
+        pass
+
+    def scene_data(self) -> SceneData:
+        raise NotImplementedError
+
+    @property
+    def selected_material(self) -> int:
+        return 0
+
+
 def _planes(a: np.ndarray, nk: int, device) -> tuple:
     """(3F, k) de-indexed array → per channel, three per-corner (F,) planes."""
     return tuple(

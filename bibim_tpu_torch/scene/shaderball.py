@@ -20,7 +20,12 @@ from bibim_tpu_torch.scene import culling
 from bibim_tpu_torch.scene.camera import FreeLookCamera
 from bibim_tpu_torch.scene.lights import LightType, make_lights
 from bibim_tpu_torch.scene.meshgen import Mesh, generate_plane_mesh
-from bibim_tpu_torch.scene.scene import DrawBatch, SceneData, batch_from_mesh
+from bibim_tpu_torch.scene.scene import (
+    DrawBatch,
+    SceneBase,
+    SceneData,
+    batch_from_mesh,
+)
 
 
 def shaderball_lights(device="cuda"):
@@ -80,13 +85,15 @@ def _deindexed_positions(mesh: Mesh) -> np.ndarray:
 
 
 @dataclass
-class ShaderBallScene:
+class ShaderBallScene(SceneBase):
     """``ball_mesh`` None loads ShaderBall.fbx from the resource root;
-    another mesh stands in for it."""
+    another mesh stands in for it. ``spin`` turns the balls 30° a second
+    about y in :meth:`update_scene`."""
 
     num_instances: int = 1
     selected_material_index: int = 1
     angle: float = -90.0
+    spin: bool = False
     device: str = "cuda"
     ball_mesh: Mesh | None = field(default=None, repr=False)
     # The ball (batch 0) is the shadow caster the light frustum's XY fits
@@ -99,8 +106,6 @@ class ShaderBallScene:
     _hosts: tuple = field(default=(), repr=False)
 
     def __post_init__(self):
-        import torch
-
         mesh = self.ball_mesh
         if mesh is None:
             from bibim_tpu_torch.assets.fbx import load_fbx_mesh
@@ -110,17 +115,35 @@ class ShaderBallScene:
         self._plane = ground_plane_batch(self.device)
         self._ball = batch_from_mesh(mesh, device=self.device)
         self._lights = shaderball_lights(self.device)
+        plane = _plane_model()[None]
+        self._hosts = (
+            culling.host_instances(_deindexed_positions(mesh),
+                                   np.eye(4, dtype=np.float32)[None],
+                                   np.eye(4, dtype=np.float32)[None]),
+            culling.host_instances(
+                _deindexed_positions(generate_plane_mesh()), plane,
+                np.linalg.inv(plane.astype(np.float64)).astype(np.float32)))
+        self._place_instances()
+
+    def _place_instances(self) -> None:
+        """The balls' model matrices at ``angle``, on the device and in
+        the host copy the cull reads."""
+        import torch
+
         model, inv = shaderball_instance_matrices(self.num_instances,
                                                   self.angle)
         self._ball = self._ball._replace(
             model=torch.as_tensor(model, device=self.device),
             inv_model=torch.as_tensor(inv, device=self.device))
-        plane = _plane_model()[None]
-        self._hosts = (
-            culling.host_instances(_deindexed_positions(mesh), model, inv),
-            culling.host_instances(
-                _deindexed_positions(generate_plane_mesh()), plane,
-                np.linalg.inv(plane.astype(np.float64)).astype(np.float32)))
+        self._hosts = (self._hosts[0]._replace(model=model, inv_model=inv),
+                       self._hosts[1])
+
+    def update_scene(self, dt: float) -> None:
+        if self.spin:
+            self.angle += 30.0 * dt
+            if self.angle > 360.0:
+                self.angle -= 360.0
+            self._place_instances()
 
     def scene_data(self) -> SceneData:
         return SceneData(batches=(self._ball, self._plane),

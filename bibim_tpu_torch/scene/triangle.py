@@ -9,11 +9,11 @@ import numpy as np
 
 from bibim_tpu_torch.scene.lights import LightType, make_lights
 from bibim_tpu_torch.scene.meshgen import Mesh
-from bibim_tpu_torch.scene.scene import SceneData, batch_from_mesh
+from bibim_tpu_torch.scene.scene import SceneBase, SceneData, batch_from_mesh
 
 
 @dataclass
-class TriangleScene:
+class TriangleScene(SceneBase):
     device: str = "cuda"
     _data: SceneData | None = field(default=None, repr=False)
 

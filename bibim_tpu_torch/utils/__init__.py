@@ -1,2 +1,2 @@
-"""Utilities of the port: capacity validation, the resource root and the
-asset loaders' logging helpers."""
+"""Utilities of the port: capacity validation, the resource root, the
+asset loaders' logging helpers, timing and profiling hooks."""

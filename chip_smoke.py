@@ -110,10 +110,25 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    (one of each timed, with its kernel-only time), the frames with the
    counters reset just before, each frame's device ms and launches (by
    ``torch.profiler``) beside its twin's;
-10. checks, on every frame, zero capacity drops (shadow pass included),
+10. the host (:func:`run_host`), on a stand-in resource root
+   (:func:`write_standin_resources`: 2048² maps, the stand-in ball as a
+   binary ShaderBall.fbx, gizmo.obj) at 1920×1080 on the ShaderBall scene,
+   deferred: the CLI (``host.app.main``) frames — default, forward, HUD,
+   shadows + IBL, a torus MeshScene — each PNG equal to a direct
+   render_frame, then its ``--no-write`` loop's ms/frame; a ~60-frame
+   Session script at readback depth 2 (WASD, a drag, a material switch,
+   exposure / TBN / HUD toggles, a resize to 1280×720, the gizmo and cube
+   scenes) with the counters reset just before it, four of its frames
+   equal to direct renders at the session's pose and settings, its first
+   frame's K1-K4 against their plain versions, every retune's caps; the
+   host syncs of one Session.render (torch's sync debug mode) and 50
+   frames at readback depth 1 and 2 (host ms, device ms, busy share, each
+   image equal to its frame's output); the live viewer for a few seconds
+   (/frame.jpg, a W key event, /stats, served fps, stop());
+11. checks, on every frame, zero capacity drops (shadow pass included),
    coverage, that the image is not background, and the frame against the
    all-plain render of the same frame at the golden-image bound;
-11. prints the GPU's ``nvidia-smi`` name/power-limit line, one JSON line of
+12. prints the GPU's ``nvidia-smi`` name/power-limit line, one JSON line of
    kernel results (per kernel and path: launches on the main path and the
    frames they cover, error against the plain version, wrapper and plain
    times, the bound of the bytes and operations the call needs on an H100
@@ -2803,6 +2818,148 @@ def write_torus_obj(path) -> int:
     return 2 * nu * nv
 
 
+# The stand-in resource root (:func:`write_standin_resources`): the
+# ShaderBall.fbx stand-in is build_inputs' ball, 10,000 triangles.
+BALL_SPHERE = (100.0, 100, 51)
+STANDIN_MATERIALS = ("standin_a", "standin_b")
+
+
+def _fbx_node(pos: int, name: str, props=(), children=()) -> bytes:
+    """One node record of a binary FBX 7.4 file (32-bit offsets) at file
+    offset ``pos``; ``children`` are (name, props, children) tuples. A
+    node with children ends with the 13-byte null record."""
+    import struct
+
+    import numpy as np
+
+    body = b""
+    for p in props:
+        if isinstance(p, str):
+            data = p.encode()
+            body += b"S" + struct.pack("<I", len(data)) + data
+        elif isinstance(p, np.ndarray):
+            code = {np.dtype("<f8"): b"d", np.dtype("<i4"): b"i"}[p.dtype]
+            data = np.ascontiguousarray(p).tobytes()
+            body += code + struct.pack("<III", p.size, 0, len(data)) + data
+        else:
+            body += b"L" + struct.pack("<q", int(p))
+    end = pos + 13 + len(name) + len(body)
+    nested = b""
+    for child in children:
+        rec = _fbx_node(end, *child)
+        nested += rec
+        end += len(rec)
+    if children:
+        nested += b"\0" * 13
+        end += 13
+    return (struct.pack("<III", end, len(props), len(body))
+            + struct.pack("<B", len(name)) + name.encode() + body + nested)
+
+
+def write_fbx_mesh(path, mesh) -> int:
+    """``mesh`` as a minimal binary FBX 7.4 file: one Objects/Geometry node
+    with the nodes ``assets/fbx.py load_fbx_mesh`` reads — ``Vertices``
+    (the shared positions), ``PolygonVertexIndex`` (one polygon a
+    triangle, its last corner bit-inverted), normals by polygon vertex
+    (Direct) and uvs by polygon vertex through ``UVIndex``
+    (IndexToDirect); uncompressed arrays. Returns the triangle count."""
+    import struct
+
+    import numpy as np
+
+    idx = np.asarray(mesh.indices, np.int64)
+    pvi = idx.astype(np.int32).copy()
+    pvi[:, 2] = ~pvi[:, 2]
+    flat = idx.reshape(-1)
+
+    def f64(a):
+        return np.asarray(a, np.float32).astype("<f8").reshape(-1)
+
+    geometry = ("Geometry", (1000, "Ball\0\x01Geometry", "Mesh"), (
+        ("Vertices", (f64(mesh.positions),), ()),
+        ("PolygonVertexIndex", (pvi.reshape(-1).astype("<i4"),), ()),
+        ("LayerElementNormal", (0,), (
+            ("MappingInformationType", ("ByPolygonVertex",), ()),
+            ("ReferenceInformationType", ("Direct",), ()),
+            ("Normals", (f64(np.asarray(mesh.normals)[flat]),), ()))),
+        ("LayerElementUV", (0,), (
+            ("MappingInformationType", ("ByPolygonVertex",), ()),
+            ("ReferenceInformationType", ("IndexToDirect",), ()),
+            ("UV", (f64(mesh.uvs),), ()),
+            ("UVIndex", (flat.astype("<i4"),), ())))))
+    head = b"Kaydara FBX Binary  \0\x1a\0" + struct.pack("<I", 7400)
+    data = head + _fbx_node(len(head), "Objects", (), (geometry,))
+    with open(path, "wb") as f:
+        f.write(data + b"\0" * 13)
+    return len(idx)
+
+
+def write_standin_resources(root, seed: int = SEED, map_size: int = 2048,
+                            cube_sizes=C2_ALBEDOS):
+    """A resource root for the host (Session, the viewer, the app) where
+    the real assets are missing, under ``root``: ``config.toml`` (its
+    ``common_root`` is ``root``); ``pbr/default`` with 16² maps of all six
+    kinds and two materials (``STANDIN_MATERIALS``) with seeded
+    ``map_size``² albedo / normal / roughness PNGs (their metallic, ao and
+    height fall back to the default's; at 2048² the big maps bind as one
+    block table, as the headline's do); ``gizmo.obj``
+    (:func:`gizmo_standin`); ``ShaderBall.fbx`` (build_inputs' ball,
+    :func:`write_fbx_mesh`); the cube scene's ``uv_debug.png`` and
+    ``texture.jpg`` (seeded, ``cube_sizes``). Returns the config path,
+    for ``utils.config.init_resource_root``."""
+    from pathlib import Path
+
+    import numpy as np
+    from PIL import Image
+
+    from bibim_tpu_torch.scene.meshgen import generate_uv_sphere_mesh
+
+    root = Path(root).resolve()
+    rng = np.random.default_rng(seed)
+
+    def image(path, n, channels, **kw):
+        path.parent.mkdir(parents=True, exist_ok=True)
+        px = rng.integers(0, 256, (n, n, channels), dtype=np.uint8)
+        Image.fromarray(px[:, :, 0] if channels == 1 else px).save(path,
+                                                                    **kw)
+
+    for kind, ch in (("albedo", 3), ("metallic", 1), ("roughness", 1),
+                     ("ao", 1), ("normal", 3), ("height", 1)):
+        image(root / "pbr" / "default" / f"{kind}.png", 16, ch)
+    for name in STANDIN_MATERIALS:
+        for kind, ch in (("albedo", 3), ("normal", 3), ("roughness", 1)):
+            image(root / "pbr" / name / f"{kind}.png", map_size, ch,
+                  compress_level=0)
+    image(root / "uv_debug.png", cube_sizes[0], 4, compress_level=0)
+    image(root / "texture.jpg", cube_sizes[1], 3, quality=90)
+
+    # gizmo.obj: the stand-in's parts as MTL materials (their Kd the
+    # part's colour, baked per vertex by the OBJ loader).
+    gizmo = gizmo_standin()
+    colors = sorted({tuple(c) for c in gizmo.colors.tolist()})
+    (root / "gizmo.mtl").write_text("".join(
+        f"newmtl c{k}\nKd {c[0]} {c[1]} {c[2]}\n"
+        for k, c in enumerate(colors)))
+    lines = ["mtllib gizmo.mtl"]
+    lines += [f"v {p[0]!r} {p[1]!r} {p[2]!r}"
+              for p in gizmo.positions.tolist()]
+    lines += [f"vn {q[0]!r} {q[1]!r} {q[2]!r}"
+              for q in gizmo.normals.tolist()]
+    current = None
+    for tri in gizmo.indices.tolist():
+        k = colors.index(tuple(gizmo.colors[tri[0]].tolist()))
+        if k != current:
+            lines.append(f"usemtl c{k}")
+            current = k
+        lines.append("f " + " ".join(f"{i + 1}//{i + 1}" for i in tri))
+    (root / "gizmo.obj").write_text("\n".join(lines) + "\n")
+    write_fbx_mesh(root / "ShaderBall.fbx",
+                   generate_uv_sphere_mesh(*BALL_SPHERE))
+    config = root / "config.toml"
+    config.write_text(f'[resource_path]\ncommon_root = "{root}"\n'
+                      f'shader_root = "{root / "shaders"}"\n')
+    return config
+
 def check_new_path_launches(per_frame: list, rows: dict) -> dict:
     """Every captured K1, K2, K5, K6, K7 and K8 launch of the new-path
     frames (``per_frame``: each frame's captured calls) against its plain
@@ -3086,6 +3243,531 @@ def run_new_paths(dev, smi: str, name: str, c3):
     return kres, launches, len(frames)
 
 
+# The host phase (run_host): the stand-in resource root's session script.
+HOST_SIZE = (1920, 1080)
+HOST_SCRIPT = [
+    {"frame": 2, "key": "w", "down": True},
+    {"frame": 8, "key": "w", "down": False},
+    {"frame": 10, "mouse": True, "cursor": [0, 0]},
+    {"frame": 11, "cursor": [12, 3]},
+    {"frame": 12, "cursor": [30, 8]},
+    {"frame": 13, "cursor": [44, 10]},
+    {"frame": 14, "mouse": False},
+    {"frame": 18, "set": {"selected_material": 0}},
+    {"frame": 22, "set": {"exposure": 2.0}},
+    {"frame": 24, "set": {"enable_tbn": True}},
+    {"frame": 27, "set": {"enable_tbn": False}},
+    {"frame": 28, "set": {"show_hud": True}},
+    {"frame": 32, "set": {"show_hud": False}},
+    {"frame": 34, "set": {"size": [1280, 720]}},
+    {"frame": 40, "set": {"scene": "gizmo"}},
+    {"frame": 48, "set": {"scene": "cube"}},
+]
+HOST_FRAMES = 58
+# The session's first pose: 4 units behind the origin and 0.5 up, so
+# that the ball and the point light at (0, 2, 0) are in view (K4
+# composites its sphere in frame 0, whose kernels are checked).
+HOST_CAMERA = (0.0, 0.5, -4.0)
+# Frames held against a direct render_frame: 1080p while moving, the
+# material switch, the HUD, the 720p cubes.
+HOST_CHECKED = (5, 20, 30, 52)
+READBACK_FRAMES = 50
+# The CLI frames' per-tile capacity (CAPS' 1080p value; the app's
+# default capacities are bench.py's, not autotuned).
+HOST_MAX_CANDIDATES = 512
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper's launch counter, by Kernels field."""
+    from bibim_tpu_torch.pipeline import KERNELS, Kernels
+
+    return dict(zip(Kernels._fields, KERNELS))
+
+
+def reset_counters() -> None:
+    from bibim_tpu_torch.ops.sort import sort_keys
+
+    for fn in kernel_counters().values():
+        fn.launches = 0
+    sort_keys.device_launches = 0
+
+
+def read_counters() -> dict:
+    return {k: fn.launches for k, fn in kernel_counters().items()
+            if fn.launches}
+
+
+class record_frames:
+    """Within the block, every ``render_frame`` call the host module
+    ``module`` makes goes through ``hook(i, args, kw, out)`` (``i`` the
+    call's index); ``first`` = (kernels, context manager) renders call 0
+    with those kernels inside that context (capture_kernels /
+    capture_composites)."""
+
+    def __init__(self, module, hook, first=None):
+        self.module, self.hook, self.first = module, hook, first
+
+    def __enter__(self):
+        self.fn = fn = self.module.render_frame
+        count = [0]
+
+        def run(*args, **kw):
+            i = count[0]
+            count[0] += 1
+            if i == 0 and self.first is not None:
+                kernels, ctx = self.first
+                with ctx:
+                    out = fn(*args, **dict(kw, kernels=kernels))
+            else:
+                out = fn(*args, **kw)
+            self.hook(i, args, kw, out)
+            return out
+
+        self.module.render_frame = run
+        return self
+
+    def __exit__(self, *exc):
+        self.module.render_frame = self.fn
+
+
+def host_view_block(cam, width: int, height: int, normal_map: bool, dev,
+                    fov: float = 60.0):
+    """A ViewBlock built here for the camera pose (the projection on the
+    host, as the host modules build it)."""
+    import torch
+
+    from bibim_tpu_torch import math3d as m3
+    from bibim_tpu_torch.pipeline import ViewBlock
+
+    return ViewBlock(
+        view=torch.as_tensor(cam.get_view_matrix(), device=dev),
+        proj=m3.perspective(fov, width / height, 0.1, 1000.0,
+                            device="cpu").to(dev),
+        view_pos=torch.as_tensor(cam.pos, device=dev),
+        enable_normal_map=torch.tensor(int(normal_map), dtype=torch.int32,
+                                       device=dev))
+
+
+def host_frame_params(tone_map: bool, exposure: float, dev):
+    import torch
+
+    from bibim_tpu_torch.pipeline import FrameParams
+
+    return FrameParams(
+        enable_tone_mapping=torch.tensor(int(tone_map), dtype=torch.int32,
+                                         device=dev),
+        exposure=torch.tensor(exposure, dtype=torch.float32, device=dev))
+
+
+def run_host_cli(dev, root, mats) -> dict:
+    """The CLI on the stand-in root: each frame's PNG against a direct
+    render_frame of the same settings and camera (zero drops), then the
+    sustained ``--no-write`` loop. Returns ms/frame of that loop."""
+    import dataclasses
+    import logging
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from bibim_tpu_torch.host import app
+    from bibim_tpu_torch.host.hud import build_hud_geometry, hud_text_mask
+    from bibim_tpu_torch.pipeline import make_overlay_resources, render_frame
+    from bibim_tpu_torch.utils.validation import check_bin_diag
+
+    w, h = HOST_SIZE
+    torus = root / "torus.obj"
+    write_torus_obj(torus)
+    overlay = make_overlay_resources(device=dev)
+    base = ["--size", str(w), str(h), "--max-candidates",
+            str(HOST_MAX_CANDIDATES)]
+    runs = [("shaderball", ["--scene", "shaderball"]),
+            ("forward", ["--scene", "shaderball", "--forward"]),
+            ("HUD", ["--scene", "shaderball", "--hud"]),
+            ("shadows + IBL", ["--scene", "shaderball", "--shadows",
+                               "--ibl"]),
+            ("mesh (torus OBJ)", ["--scene", "mesh", "--mesh-path",
+                                  str(torus), "--material", "1"])]
+    # Every run binds material 1 (the ShaderBall scene's selection), as
+    # ``mats`` does.
+    ibl = {}
+    for label, argv in runs:
+        png = root / "cli.png"
+        argv = argv + base + ["--out", str(png)]
+        reset_counters()
+        t0 = time.perf_counter()
+        if app.main(argv) != 0:
+            raise AssertionError(f"host CLI {label}: exit code not 0")
+        host_s = time.perf_counter() - t0
+        launches = read_counters()
+        got = torch.from_numpy(np.array(Image.open(png).convert("RGB")))
+        args = app.build_parser().parse_args(argv)
+        scene = app.make_scene(args, dev)
+        s = dataclasses.replace(app.frame_settings(args, scene),
+                                outputs="image+diag")
+        hud = None
+        if args.hud:
+            geom = build_hud_geometry(w, h)
+            text, _ = hud_input(w, h, 0.0, fps=0.0)
+            hud = (geom, torch.as_tensor(hud_text_mask(text, geom.max_chars),
+                                         device=dev))
+        if args.ibl and "sh" not in ibl:
+            from bibim_tpu_torch.ops.ibl import make_ibl_sh
+
+            ibl["sh"] = make_ibl_sh(device=dev)
+        cam = app.default_camera(args)
+        out = render_frame(
+            scene.scene_data(), host_view_block(cam, w, h, False, dev),
+            host_frame_params(True, 1.0, dev), mats, overlay, s,
+            ibl=ibl.get("sh") if args.ibl else None, hud=hud)
+        check_bin_diag(out["bin_diag"], where=f"host CLI {label}")
+        want = out["image"].cpu()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"host CLI {label}: the PNG differs from the direct render "
+                f"at {int((got != want).any(dim=-1).sum())} pixels")
+        non_bg = float((want != 0).any(dim=-1).float().mean())
+        print(f"host CLI {label}: {w}x{h} PNG equal to the direct "
+              f"render_frame (non-background {non_bg:.4f}); app.main "
+              f"{host_s:.2f} s host with setup; launches "
+              + json.dumps(launches))
+        if not launches.get("raster"):
+            raise AssertionError(f"host CLI {label}: no K1 launch")
+
+    lines = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    grab = Grab()
+    logger = logging.getLogger("bibim_tpu_torch")
+    logger.addHandler(grab)
+    try:
+        reset_counters()
+        if app.main(["--scene", "shaderball", "--frames", "30", "--orbit",
+                     "--no-write"] + base) != 0:
+            raise AssertionError("host CLI --no-write: exit code not 0")
+    finally:
+        logger.removeHandler(grab)
+    loop = [ln for ln in lines if ln.startswith("sustained loop:")]
+    if not loop:
+        raise AssertionError("host CLI --no-write printed no loop line")
+    ms = float(loop[-1].split()[2])
+    print(f"host CLI --frames 30 --orbit --no-write: {ms:.2f} ms/frame "
+          f"(FrameStats over the loop, host clock; syncs on one pixel a "
+          f"frame); launches " + json.dumps(read_counters()))
+    return {"no_write_ms_per_frame": ms}
+
+
+def host_syncs(fn) -> list:
+    """The host synchronisations the port makes in ``fn`` (torch's sync
+    debug mode: one warning per synchronising call), by the innermost
+    frame of the port: [(file:line function, count), ...], most first."""
+    import traceback
+    import warnings
+
+    import torch
+
+    sites: dict = {}
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        port = [f for f in traceback.extract_stack()
+                if "bibim_tpu_torch/" in f.filename]
+        if port:
+            f = port[-1]
+            key = (f"{f.filename.split('bibim_tpu_torch/')[-1]}:{f.lineno} "
+                   f"{f.name}")
+            sites[key] = sites.get(key, 0) + 1
+
+    torch.cuda.synchronize()
+    old = warnings.showwarning
+    warnings.showwarning = show
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        warnings.showwarning = old
+    torch.cuda.synchronize()
+    return sorted(sites.items(), key=lambda kv: -kv[1])
+
+
+def readback_window(session, depth: int, dev, busy: bool = True) -> dict:
+    """``READBACK_FRAMES`` Session.render calls at readback ``depth``:
+    median host ms a call, device ms a frame (CUDA events across the
+    window) and, with ``busy``, the device's busy share (torch.profiler's
+    device time over the wall time of 6 more frames). Every image
+    returned equals its frame's ``out["image"].cpu()``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bibim_tpu_torch.host import session as session_mod
+    from bibim_tpu_torch.host.readback import DoubleBufferedReadback
+
+    session.flush()
+    session.readback = DoubleBufferedReadback(depth=depth)
+    session.render(1 / 60)  # warm: the pipeline fills
+    session.flush()
+    images = []
+    with record_frames(session_mod,
+                       lambda i, a, k, out: images.append(out["image"])):
+        returned, host = [], []
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(READBACK_FRAMES):
+            t0 = time.perf_counter()
+            img = session.render(1 / 60)
+            host.append((time.perf_counter() - t0) * 1e3)
+            if img is not None:
+                returned.append(img)
+        b.record()
+        returned += session.flush()
+        torch.cuda.synchronize()
+        device_ms = a.elapsed_time(b) / READBACK_FRAMES
+        if len(returned) != len(images):
+            raise AssertionError(f"readback depth {depth}: {len(returned)} "
+                                 f"images for {len(images)} frames")
+        for i, (got, want) in enumerate(zip(returned, images)):
+            if not torch.equal(torch.from_numpy(got), want.cpu()):
+                raise AssertionError(f"readback depth {depth}: image {i} "
+                                     "differs from its frame's output")
+    res = dict(depth=depth, frames=READBACK_FRAMES,
+               host_ms_median=statistics.median(host),
+               host_ms_quartiles=statistics.quantiles(host, n=4),
+               device_ms_per_frame=device_ms, images_equal=len(images))
+    if busy:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(6):
+                session.render(1 / 60)
+            session.flush()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA)
+        res["busy_share"] = busy_us / 1e3 / wall_ms
+    return res
+
+
+def run_host_viewer(session, dev) -> dict:
+    """The live viewer over the 1080p session for a few seconds: a frame
+    from /frame.jpg, a W key event moving the camera, /stats, and stop()
+    (which raises what ended the render loop, if anything did)."""
+    import io
+    import urllib.request
+
+    import numpy as np
+    from PIL import Image
+
+    from bibim_tpu_torch.host.serve import ViewerServer
+
+    # Loopback requests go straight to the viewer, whatever proxy the
+    # environment names.
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    v = ViewerServer(session, host="127.0.0.1", port=0).start()
+    url = f"http://127.0.0.1:{v.port}"
+    try:
+        seq, _ = v.wait_for_frame(120)
+        jpg = opener.open(url + "/frame.jpg", timeout=60).read()
+        shape = np.asarray(Image.open(io.BytesIO(jpg))).shape
+        if shape != (HOST_SIZE[1], HOST_SIZE[0], 3):
+            raise AssertionError(f"viewer /frame.jpg decodes to {shape}")
+        start = session.camera.pos.copy()
+        req = urllib.request.Request(
+            url + "/event", method="POST",
+            data=json.dumps({"key": "w", "down": True}).encode())
+        opener.open(req, timeout=60).read()
+        seq, _ = v.wait_for_frame(60, after=seq)
+        seq, _ = v.wait_for_frame(60, after=seq)
+        req = urllib.request.Request(
+            url + "/event", method="POST",
+            data=json.dumps({"key": "w", "down": False}).encode())
+        opener.open(req, timeout=60).read()
+        moved = session.camera.pos.copy()
+        if not moved[2] > start[2]:
+            raise AssertionError(f"viewer: W moved the camera from {start} "
+                                 f"to {moved}")
+        f0, t0 = v.frames, time.perf_counter()
+        time.sleep(2.0)
+        served = (v.frames - f0) / (time.perf_counter() - t0)
+        stats = json.loads(opener.open(url + "/stats", timeout=60).read())
+        if not stats["fps"] > 0:
+            raise AssertionError(f"viewer /stats: {stats}")
+    finally:
+        v.stop()
+    if v._render_thread.is_alive():
+        raise AssertionError("viewer: the render thread is still alive")
+    return dict(served_fps=served, stats=stats, jpeg_bytes=len(jpg),
+                camera_moved=[float(x) for x in moved - start])
+
+
+def run_host(dev, smi: str, name: str):
+    """The host slice on a stand-in resource root
+    (:func:`write_standin_resources`, 2048² maps) at 1920×1080 on the
+    ShaderBall stand-in, deferred, 3 lights: the CLI frames, the Session
+    script (counters reset just before it, read just after; its first
+    frame's K1-K4 against their plain versions), the readback timings at
+    depth 1 and 2 with the host syncs of one frame, and the live viewer.
+    Returns (kernel results, launches, frames) of the session script."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from bibim_tpu_torch.assets import asset_cache
+    from bibim_tpu_torch.host import session as session_mod
+    from bibim_tpu_torch.host.gui import UiState
+    from bibim_tpu_torch.host.session import Session
+    from bibim_tpu_torch.pipeline import (
+        KERNELS,
+        material_quads_from_set,
+        render_frame,
+    )
+    from bibim_tpu_torch.scene.camera import FreeLookCamera
+    from bibim_tpu_torch.utils import config
+
+    old_root, old_cache = config.get_resource_root(), asset_cache.CACHE_DIR
+    with tempfile.TemporaryDirectory(prefix="bibim-host-") as tmp:
+        root = Path(tmp)
+        t0 = t_host = time.perf_counter()
+        config.init_resource_root(write_standin_resources(root / "res"))
+        asset_cache.CACHE_DIR = root / "cache"
+        try:
+            print(f"host: stand-in resource root written in "
+                  f"{time.perf_counter() - t0:.1f} s (2048² maps)")
+            from bibim_tpu_torch.assets.materials import (
+                create_pbr_material_set,
+            )
+
+            mats = material_quads_from_set(create_pbr_material_set(), 1,
+                                           device=dev)
+            kinds = sorted(type(t).__name__ for t in mats)
+            if kinds != ["BlockTable", "QuadTable"]:
+                raise AssertionError(f"host binding {kinds}")
+            laps = {"stand-in root": time.perf_counter() - t0}
+            t0 = time.perf_counter()
+            cli = run_host_cli(dev, root, mats)
+            laps["CLI"] = time.perf_counter() - t0
+
+            session = Session(width=HOST_SIZE[0], height=HOST_SIZE[1],
+                              ui=UiState(scene="shaderball",
+                                         camera_pos=HOST_CAMERA),
+                              readback_depth=2)
+            if session.readback.depth != 2:
+                raise AssertionError("the session's readback is not 2-deep")
+            poses, calls, comps = {}, {}, []
+
+            def hook(i, args, kw, out):
+                if i in HOST_CHECKED:
+                    c = session.camera
+                    poses[i] = (c.pos.copy(), c.yaw, c.pitch,
+                                dataclasses.replace(session.ui), args, kw)
+
+            t0 = time.perf_counter()
+            reset_counters()
+            with record_frames(session_mod, hook,
+                               (capture_kernels(KERNELS, calls),
+                                capture_composites(comps))):
+                frames = list(session.run_script(HOST_SCRIPT, HOST_FRAMES))
+            torch.cuda.synchronize()
+            launches = read_counters()
+            script_s = laps["session script"] = time.perf_counter() - t0
+            print(f"host session: {len(frames)} frames in {script_s:.2f} s "
+                  f"(readback depth 2, autotune included); launches "
+                  + json.dumps(launches))
+            for k in ("raster", "shade", "sort", "overlay"):
+                if not launches.get(k):
+                    raise AssertionError(f"host session: kernel {k} was not "
+                                         "launched")
+            if len(frames) != HOST_FRAMES:
+                raise AssertionError(f"host session: {len(frames)} frames")
+            resize = next(e["frame"] for e in HOST_SCRIPT
+                          if "size" in e.get("set", {}))
+            for i, img in enumerate(frames):
+                want = ((HOST_SIZE[1], HOST_SIZE[0], 3) if i < resize
+                        else (720, 1280, 3))
+                if img.shape != want:
+                    raise AssertionError(f"host session frame {i}: "
+                                         f"{img.shape}, want {want}")
+            for i in HOST_CHECKED:
+                pos, yaw, pitch, ui, args, kw = poses[i]
+                s = args[5]
+                cam = FreeLookCamera(pos=pos, yaw=yaw, pitch=pitch)
+                out = render_frame(
+                    args[0], host_view_block(cam, s.width, s.height,
+                                             ui.enable_normal_map, dev),
+                    host_frame_params(ui.enable_tone_mapping, ui.exposure,
+                                      dev), args[3], args[4], s,
+                    hud=kw.get("hud"))
+                if not torch.equal(torch.from_numpy(frames[i]),
+                                   out["image"].cpu()):
+                    raise AssertionError(f"host session frame {i} differs "
+                                         "from the direct render_frame")
+                print(f"host session frame {i}: {ui.scene} {s.width}x"
+                      f"{s.height}, material {ui.selected_material}, hud "
+                      f"{s.show_hud}, pose {[round(float(x), 3) for x in pos]}"
+                      f" yaw {yaw} pitch {pitch}: equal to the direct "
+                      "render_frame")
+            print(f"host session retunes: {len(session.retunes)}")
+            for key, caps in session.retunes:
+                print(f"host retune {key}: " + json.dumps(caps))
+            t0 = time.perf_counter()
+            kres = check_kernels(calls, comps)
+            laps["frame 0 kernel checks"] = time.perf_counter() - t0
+            del calls, comps
+            for k, v in kres.items():
+                print(f"kernel {k} (host session, frame 0): "
+                      + json.dumps(v))
+
+            # Readback: back to the 1080p ShaderBall frame.
+            session.handle_event({"set": {"scene": "shaderball",
+                                          "size": list(HOST_SIZE),
+                                          "selected_material": 1,
+                                          "exposure": 1.0}})
+            t0 = time.perf_counter()
+            session.render(1 / 60)  # the retune at the new size
+            session.flush()
+            syncs = host_syncs(lambda: session.render(1 / 60))
+            session.flush()
+            print("host syncs of one Session.render (1080p, torch sync "
+                  "debug mode): " + json.dumps(syncs))
+            # In turns, 1, 2, 2, 1; the busy share on the first of each.
+            rb = [readback_window(session, d, dev, busy=i < 2)
+                  for i, d in enumerate((1, 2, 2, 1))]
+            for r in rb:
+                print("host readback: " + json.dumps(r))
+            laps["readback"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            session.readback = type(session.readback)(depth=2)
+            viewer = run_host_viewer(session, dev)
+            print(f"host viewer: {viewer['served_fps']:.2f} fps served at "
+                  f"{HOST_SIZE[0]}x{HOST_SIZE[1]} (frames published / "
+                  f"wall; {name}, {smi}); " + json.dumps(viewer))
+            laps["viewer"] = time.perf_counter() - t0
+            summary = dict(cli, readback=rb, served_fps=viewer["served_fps"],
+                           retunes=len(session.retunes),
+                           host_syncs=sum(n for _, n in syncs),
+                           seconds={k: round(v, 1) for k, v in laps.items()})
+            print(f"host phase: {time.perf_counter() - t_host:.1f} s; "
+                  + json.dumps(summary))
+        finally:
+            config._active_root = old_root
+            asset_cache.CACHE_DIR = old_cache
+    return kres, launches, len(frames)
+
+
 def main() -> int:
     try:
         import torch
@@ -3279,6 +3961,7 @@ def main() -> int:
     kres4, launches4 = run_config4(dev, smi, name)
     kres_n, launches_n, n_new = run_new_paths(
         dev, smi, name, (scene, mats, overlay, proj, fp, base, settings))
+    kres_h, launches_h, n_host = run_host(dev, smi, name)
 
     # One row per kernel and path: K1 and K3 on the config-1 frame, K1-K4
     # on the 1080p path's 4 frames, K10 on its group-window frame, every
@@ -3325,6 +4008,9 @@ def main() -> int:
               KERNEL_INFO["raster" if k == "raster_shadow_pass" else k][0]
               + ", " + label, kres_n[k], launches_n[k], n_new)
              for k, label in new_paths.items()]
+    rows += [(k, KERNEL_INFO[k][0] + ", host Session script (1080p / "
+              "720p, frame 0 checked)", kres_h[k], launches_h[k], n_host)
+             for k in ("raster", "shade", "sort", "overlay")]
     kernels = []
     for k, label, r, n, frames in rows:
         _, src, repl = KERNEL_INFO[k]

@@ -1517,3 +1517,51 @@ def test_new_path_frames_vs_plain(dev, frame, kw):
     d = (out["image"].int() - ref["image"].int()).abs()
     assert int(d.max()) <= 2
     assert float((d > 0).any(dim=-1).float().mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_session_frame_equals_direct_render(dev, tmp_path):
+    """A 1280×720 ShaderBall frame of the interactive Session on the card
+    (on chip_smoke's stand-in resource root, readback depth 2: the frame
+    comes back one render later) equals render_frame at the session's
+    pose and settings, and went through K1-K4."""
+    import chip_smoke
+    from bibim_tpu_torch.assets import asset_cache
+    from bibim_tpu_torch.host.gui import UiState
+    from bibim_tpu_torch.host.session import Session
+    from bibim_tpu_torch.ops.sort import sort_keys
+    from bibim_tpu_torch.utils import config
+
+    old = config._active_root, asset_cache.CACHE_DIR
+    config.init_resource_root(chip_smoke.write_standin_resources(
+        tmp_path / "res", map_size=256, cube_sizes=(64, 64)))
+    asset_cache.CACHE_DIR = tmp_path / "cache"
+    try:
+        s = Session(width=1280, height=720, ui=UiState(
+            scene="shaderball", enable_tone_mapping=True))
+        fns = [fused.raster_tiles, shade_sampled, sort_keys,
+               fused.overlay_tiles]
+        counts = [f.launches for f in fns]
+        s.handle_event({"mouse": True, "cursor": [0, 0]})
+        s.handle_event({"cursor": [20, 6]})
+        assert s.render(1 / 60) is None
+        cam, settings = s.camera, s.settings()
+        vb = ViewBlock(
+            view=torch.as_tensor(cam.get_view_matrix(), device=dev),
+            proj=m3.perspective(60.0, 1280 / 720, 0.1, 1000.0,
+                                device="cpu").to(dev),
+            view_pos=torch.as_tensor(cam.pos, device=dev),
+            enable_normal_map=torch.tensor(0, dtype=torch.int32, device=dev))
+        fp = FrameParams(
+            enable_tone_mapping=torch.tensor(1, dtype=torch.int32,
+                                             device=dev),
+            exposure=torch.tensor(1.0, dtype=torch.float32, device=dev))
+        want = render_frame(s.scene.scene_data(), vb, fp, s.materials(),
+                            s.overlay(), settings)["image"].cpu()
+        got = s.render(1 / 60)
+        assert got is not None and got.shape == (720, 1280, 3)
+        assert torch.equal(torch.from_numpy(got), want)
+        assert all(f.launches > c for f, c in zip(fns, counts))
+        assert len(s.flush()) == 1
+    finally:
+        config._active_root, asset_cache.CACHE_DIR = old

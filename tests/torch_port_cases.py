@@ -13,7 +13,9 @@ keys, binning) and arrays that are pure data movement agree exactly.
 
 from __future__ import annotations
 
+import contextlib
 import os
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -595,3 +597,41 @@ if __name__ == "__main__":
     import sys
 
     _render_frames_main(sys.argv[1], sys.argv[2])
+
+
+# The host tests' stand-in resource root (chip_smoke.write_standin_resources
+# at small sizes): 32² material maps, 32² / 64² cube albedos.
+STANDIN_SIZES = dict(map_size=32, cube_sizes=(32, 64))
+
+
+@contextlib.contextmanager
+def standin_resources(root, with_jax: bool = True):
+    """Point the port's (and, ``with_jax``, the JAX package's) resource
+    root at a stand-in root written under ``root``, and their asset caches
+    at ``root/.asset_cache``; the previous roots and cache directories come
+    back afterwards, so that test files sharing a worker see no change.
+    Yields the stand-in's config path."""
+    import chip_smoke
+    from bibim_tpu_torch.assets import asset_cache as pcache
+    from bibim_tpu_torch.utils import config as pconfig
+
+    config = chip_smoke.write_standin_resources(root, seed=0,
+                                                **STANDIN_SIZES)
+    cache = Path(root) / ".asset_cache"
+    saved = [(pconfig, "_active_root"), (pcache, "CACHE_DIR")]
+    if with_jax:
+        from bibim_tpu.assets import asset_cache as jcache
+        from bibim_tpu.utils import config as jconfig
+
+        saved += [(jconfig, "_active_root"), (jcache, "_CACHE_DIR")]
+    old = [(mod, name, getattr(mod, name)) for mod, name in saved]
+    try:
+        pconfig.init_resource_root(config)
+        pcache.CACHE_DIR = cache
+        if with_jax:
+            jconfig.init_resource_root(config)
+            jcache._CACHE_DIR = cache
+        yield config
+    finally:
+        for mod, name, value in old:
+            setattr(mod, name, value)
