@@ -152,6 +152,20 @@ def build_record_table(setup: PlanarSetup, tris: torch.Tensor, uv, normal,
     return build_record_table_planar(setup, soup_like)
 
 
+def shift_record_table_y(rec: torch.Tensor, y0) -> torch.Tensor:
+    """Records rebased to the rows of a horizontal band that starts at
+    frame row ``y0``: E(px, py_frame) = A·px + B·(py_band + y0) + C, so
+    C += B·y0 on the three edges and on the z and w planes' constant
+    terms lets the unmodified raster scan the band in band-local rows.
+    The product and the sum round apart; culled (zero) rows stay zero."""
+    y0 = float(y0)
+    out = rec.clone()
+    out[:, _C:_C + 3] = rec[:, _C:_C + 3] + rec[:, _B:_B + 3] * y0
+    cz = [_ZC + 2, _WC + 2]
+    out[:, cz] = rec[:, cz] + rec[:, [_ZC + 1, _WC + 1]] * y0
+    return out
+
+
 class _CornerSoup(NamedTuple):
     uv: tuple
     normal: tuple
@@ -1038,13 +1052,15 @@ def _overflow_rows(rec, big_ids):
 
 
 def _big_cover_mask(ov: torch.Tensor, big_ids: torch.Tensor, nt: int,
-                    tiles_x: int, tile_h: int, tile_w: int) -> torch.Tensor:
+                    tiles_x: int, tile_h: int, tile_w: int,
+                    row0: int = 0) -> torch.Tensor:
     """(NT,) conservative mask of tiles an overflow triangle may cover: an
-    affine plane's max over a tile rectangle is at a corner."""
+    affine plane's max over a tile rectangle is at a corner. ``row0``:
+    the frame tile row of tile 0 (a band's, in frame coordinates)."""
     dev = ov.device
     ar = torch.arange(nt, dtype=torch.int32, device=dev)
     tcol = (ar % tiles_x).to(torch.float32)
-    trow = (ar // tiles_x).to(torch.float32)
+    trow = (ar // tiles_x + row0).to(torch.float32)
     x0 = (tcol * tile_w)[:, None]
     x1 = x0 + tile_w
     y0 = (trow * tile_h)[:, None]
@@ -1114,7 +1130,8 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
                  raster_tile_cap: int | None = None,
                  span_mid_cap: int | None = None,
                  group_pair_cap: int | None = None, drop_fields: tuple = (),
-                 fine_bins: bool = False, earlyz: bool = False, raster=raster_tiles,
+                 fine_bins: bool = False, earlyz: bool = False,
+                 band_y0: int = 0, raster=raster_tiles,
                  raster_earlyz=raster_tiles_earlyz, raster_gw=raster_tiles_gw,
                  raster_fine=raster_tiles_fine, sort=sort_keys):
     """Bin + rasterize + resolve: the host side of K1 and its schedule
@@ -1146,11 +1163,19 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
     one tile and loops to its own count, and the chunk-class slot order
     cost more in its sort than it saved in K1 (PERF.md, config 4).
 
+    ``band_y0`` (a whole number of tiles): the pass covers the horizontal
+    band of ``height`` rows that starts at this frame row, binned from a
+    band setup (``ops.raster``) with the records in frame coordinates.
+    The kernels read a slot's tile id only for its pixel centres, so they
+    get the slots' frame tile ids and rasterize the band with the frame's
+    own pixel centres: every pixel rounds as in the single frame.
+
     Returns (pixels: FusedPixels, zkey (NT, NPX) int32, diag: BinDiag)."""
     maxc = _ceil8(max_candidates)
     oc = _ceil8(overflow_cap)
     npx = tile_h * tile_w
     dev = rec_table.device
+    row0 = band_y0 // tile_h
     nt_static = -(-width // tile_w) * -(-height // tile_h)
     use_gw = (group_pair_cap is not None and passes == 1
               and raster_tile_cap is not None
@@ -1213,7 +1238,7 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
         if p == 0 and raster_tile_cap is not None and raster_tile_cap <= nt:
             live0 = (counts > 0) | _big_cover_mask(
                 _overflow_rows(rec_table, big_ids), big_ids, nt, tiles_x,
-                tile_h, tile_w)
+                tile_h, tile_w, row0)
             k = raster_tile_cap
             ids, dropped0 = _compact_tile_list(live0, k)
             dropped_tiles = dropped_tiles + dropped0
@@ -1243,6 +1268,7 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
                 torch.clamp(counts[ids.long()] - p * maxc, 0, maxc),
                 torch.zeros_like(ids))
         ids = ids.contiguous()
+        frame_ids = ids + row0 * tiles_x if row0 else ids
         zk_in = zkey[ids.long()].contiguous()
         ok_new = None
         if p == 0 and fine_bins:
@@ -1258,7 +1284,7 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
             if scatter_ids is not None:
                 cntk = cntk * slot_live[:, None].to(torch.int32)
             zk_new, fouts = raster_fine(
-                rec_table, big_ids, nb_p, sorted_tri, ids,
+                rec_table, big_ids, nb_p, sorted_tri, frame_ids,
                 starts_p.contiguous(), lb_al.contiguous(), cntk.contiguous(),
                 zk_in, tiles_x, tile_h, tile_w, out_fields)
         elif p == 0 and use_gw:
@@ -1276,19 +1302,19 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
             lb_al = (lb // CHUNK) * CHUNK
             cnt_k = kept + (lb - lb_al)
             zk_new, fouts = raster_gw(
-                rec_table, big_ids, nb_p, sorted_tri, ids, win,
+                rec_table, big_ids, nb_p, sorted_tri, frame_ids, win,
                 lb_al.contiguous(), cnt_k.contiguous(), zk_in, group,
                 tiles_x, tile_h, tile_w, out_fields,
                 max_count=gcap + CHUNK - 1)
         elif earlyz:
             zk_new, ok_new, fouts = raster_earlyz(
-                rec_table, big_ids, nb_p, sorted_tri, ids,
+                rec_table, big_ids, nb_p, sorted_tri, frame_ids,
                 starts_p.contiguous(), counts_p.contiguous(), zk_in,
                 okey[ids.long()].contiguous(), zsh, tiles_x, tile_h, tile_w,
                 out_fields, max_count=maxc)
         else:
             zk_new, fouts = raster(
-                rec_table, big_ids, nb_p, sorted_tri, ids,
+                rec_table, big_ids, nb_p, sorted_tri, frame_ids,
                 starts_p.contiguous(), counts_p.contiguous(), zk_in, tiles_x,
                 tile_h, tile_w, out_fields, max_count=maxc)
         fields_p = dict(zip(out_fields, fouts))

@@ -43,8 +43,14 @@ def _min3(t):
     return torch.minimum(torch.minimum(t[0], t[1]), t[2])
 
 
-def _setup_from_corners(xh, yh, z, w, width: int, height: int) -> PlanarSetup:
-    """Shared body of both setups on per-corner (T,) planes."""
+def _setup_from_corners(xh, yh, z, w, width: int, height: int,
+                        band_y0=None, band_height: int | None = None
+                        ) -> PlanarSetup:
+    """Shared body of both setups on per-corner (T,) planes. With
+    ``band_y0`` the bounding box is in the rows of the horizontal band
+    that starts at frame row ``band_y0`` (``band_height`` rows: the
+    on-screen cull and the clamp); the edge, z and w coefficients stay in
+    frame coordinates (``ops.fused.raster_fused``'s ``band_y0``)."""
     w0, w1, w2 = w
     ea = (yh[1] * w2 - yh[2] * w1, yh[2] * w0 - yh[0] * w2,
           yh[0] * w1 - yh[1] * w0)
@@ -84,6 +90,10 @@ def _setup_from_corners(xh, yh, z, w, width: int, height: int) -> PlanarSetup:
     bx1 = torch.where(w_ok, torch.ceil(_max3(xs)), float(width - 1))
     by0 = torch.where(w_ok, torch.floor(_min3(ys)), 0.0)
     by1 = torch.where(w_ok, torch.ceil(_max3(ys)), float(height - 1))
+    if band_y0 is not None:
+        by0 = by0 - band_y0
+        by1 = by1 - band_y0
+        height = band_height if band_height is not None else height
     on_screen = (bx1 >= 0.0) & (bx0 < width) & (by1 >= 0.0) & (by0 < height)
     valid = valid & on_screen
 
@@ -99,9 +109,12 @@ def _setup_from_corners(xh, yh, z, w, width: int, height: int) -> PlanarSetup:
                        w_coef=w_coef, bbox=bbox, valid=valid, zub=zub)
 
 
-def triangle_setup_planar(clip: tuple, width: int,
-                          height: int) -> PlanarSetup:
-    """Setup from corner-planar clip coordinates ((x0,x1,x2), .., (w..))."""
+def triangle_setup_planar(clip: tuple, width: int, height: int,
+                          band_y0=None, band_height: int | None = None
+                          ) -> PlanarSetup:
+    """Setup from corner-planar clip coordinates ((x0,x1,x2), .., (w..));
+    ``band_y0`` / ``band_height``: a band's setup
+    (:func:`_setup_from_corners`)."""
     x, y, z, w = clip
 
     def vh(p, c, extent):
@@ -109,16 +122,19 @@ def triangle_setup_planar(clip: tuple, width: int,
 
     xh = tuple(vh(x, c, width) for c in range(3))
     yh = tuple(vh(y, c, height) for c in range(3))
-    return _setup_from_corners(xh, yh, z, w, width, height)
+    return _setup_from_corners(xh, yh, z, w, width, height, band_y0,
+                               band_height)
 
 
 def triangle_setup(clip: torch.Tensor, tris: torch.Tensor, width: int,
-                   height: int, sequential: bool = False) -> PlanarSetup:
+                   height: int, band_y0=None, band_height: int | None = None,
+                   sequential: bool = False) -> PlanarSetup:
     """Setup for an indexed mesh: (V,4) clip coordinates + (T,3) corner
     indices (shared-vertex batches, the gizmo, the HUD). Same formulas as
     :func:`triangle_setup_planar`; returned in the planar layout.
     ``sequential``: ``tris`` is the arange of a de-indexed mesh, so the
-    corners are a reshape of ``clip``, not a gather."""
+    corners are a reshape of ``clip``, not a gather. ``band_y0`` /
+    ``band_height``: a band's setup (:func:`_setup_from_corners`)."""
     v = clip.reshape(-1, 3, 4) if sequential else clip[tris.long()]
     corner = tuple(tuple(v[:, c, k] for c in range(3)) for k in range(4))
     x, y, z, w = corner
@@ -128,4 +144,5 @@ def triangle_setup(clip: torch.Tensor, tris: torch.Tensor, width: int,
 
     xh = tuple(vh(x, c, width) for c in range(3))
     yh = tuple(vh(y, c, height) for c in range(3))
-    return _setup_from_corners(xh, yh, z, w, width, height)
+    return _setup_from_corners(xh, yh, z, w, width, height, band_y0,
+                               band_height)

@@ -21,8 +21,10 @@ router's ``sample_route_caps``, the overlay's and the shadow pass's caps.
    :func:`grow_caps` merges a fresh derivation into earlier settings.
 4. :func:`dense_cap_candidates` + :func:`pick_measured` choose the
    dense-pass slot count of merged multi-pass frames by measurement.
-
-Not ported yet: the band probes of the sharded renderer.
+5. :func:`probe_band_caps` / :func:`autotune_settings_sharded`: the same
+   for the band-sharded renderer (``parallel.tile_shard``), each band
+   probed with the band setup its render runs, the caps derived from the
+   worst band.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from bibim_tpu_torch.pipeline.framegraph import (
     _gizmo_clip,
     _light_clip_planar,
     _light_sphere_planar_soup,
+    _main_setup,
     _shadow_fit_ranges,
 )
 
@@ -81,10 +84,12 @@ def _open_bins(setup, width: int, height: int, tile_h: int, bin_w: int,
 
 
 def _cover_live(setup, counts, big_ids, nt: int, tiles_x: int, tile_h: int,
-                tile_w: int) -> torch.Tensor:
+                tile_w: int, y0: int = 0) -> torch.Tensor:
     """(NT,) pass-0 live tiles: binned candidates or an overflow
     triangle's conservative cover (the test reads the 15 coverage
-    coefficients of its row)."""
+    coefficients of its row; in a band that starts at frame row ``y0``,
+    over the band's tiles in frame rows, as the band's raster tests
+    it)."""
     big_valid = big_ids >= 0
     bidx = torch.clamp(big_ids, min=0).long()
     cols = [getattr(setup, name)[k][bidx]
@@ -95,13 +100,16 @@ def _cover_live(setup, counts, big_ids, nt: int, tiles_x: int, tile_h: int,
     ov[:, :15] = torch.stack(cols, dim=1) * big_valid.to(torch.float32)[
         :, None]
     return (counts > 0) | fused._big_cover_mask(ov, big_ids, nt, tiles_x,
-                                                tile_h, tile_w)
+                                                tile_h, tile_w,
+                                                y0 // tile_h)
 
 
-def _bin_stats(setup, settings, width: int, height: int, sort) -> dict:
+def _bin_stats(setup, settings, width: int, height: int, sort,
+               y0: int = 0) -> dict:
     """Binning demand statistics of one setup (0-dim tensors): open
     binning at the production span_cap, at subtile granularity under
-    ``fine_bins`` (window stats reduce back to coarse tiles)."""
+    ``fine_bins`` (window stats reduce back to coarse tiles); ``y0``: the
+    first frame row of a band's setup."""
     n_tris = setup.valid.shape[0]
     tiles_x = -(-width // settings.tile_w)
     nsub = fused.NSUB_FINE if settings.fine_bins else 1
@@ -114,7 +122,7 @@ def _bin_stats(setup, settings, width: int, height: int, sort) -> dict:
     counts = (counts_b if nsub == 1
               else counts_b.reshape(nt, nsub).sum(dim=1, dtype=i32))
     live0 = _cover_live(setup, counts, big_ids, nt, tiles_x,
-                        settings.tile_h, settings.tile_w)
+                        settings.tile_h, settings.tile_w, y0)
     bin_live = live0.sum(dtype=i32)
     bx0, by0, bx1, by1 = setup.bbox
     bin_w = settings.tile_w // nsub
@@ -162,9 +170,7 @@ def probe_frame_caps(scene, view_block, settings,
     block tables) adds the sampling router's escape tiles (needs the
     raster)."""
     width, height = settings.width, settings.height
-    psoup = assemble_scene_planar(scene.batches, view_block.view,
-                                  view_block.proj, settings.batch_material_ids)
-    setup = triangle_setup_planar(psoup.clip, width, height)
+    _, setup = _main_setup(scene, view_block, settings)
     out = _bin_stats(setup, settings, width, height, kernels.sort)
     if measure_coverage:
         # Exact shaded coverage: the production main pass with open
@@ -192,8 +198,13 @@ def probe_frame_caps(scene, view_block, settings,
     out = {k: int(v) for k, v in out.items()}
     nt = (-(-settings.width // settings.tile_w)
           * -(-settings.height // settings.tile_h))
+    return _cap_probe(out, nt)
+
+
+def _cap_probe(out: dict, n_tiles: int) -> CapProbe:
+    """A :class:`CapProbe` of :func:`_bin_stats`' host ints."""
     return CapProbe(
-        n_tiles=nt,
+        n_tiles=n_tiles,
         bin_tiles=out["bin_tiles"],
         covered_tiles=out["covered_tiles"],
         max_candidates=out["max_candidates"],
@@ -207,6 +218,71 @@ def probe_frame_caps(scene, view_block, settings,
         small_pair_frac=out["small_pairs"] / max(out["total_pairs"], 1),
         escape_tiles=out.get("escape_tiles", -1),
     )
+
+
+def band_height(settings, n_bands: int) -> int:
+    """Rows of each of ``n_bands`` horizontal bands: the frame height
+    split evenly, rounded up to whole tiles (the last band may reach past
+    the frame; the sharded frame crops it)."""
+    rows = -(-settings.height // n_bands)
+    return -(-rows // settings.tile_h) * settings.tile_h
+
+
+def probe_band_caps(scene, view_block, settings, n_bands: int,
+                    kernels: Kernels = KERNELS) -> CapProbe:
+    """Worst-band capacity demands of the band-sharded renderer: every
+    band probed with the band setup its render runs (bounding boxes in
+    band rows), binned open at band height; each demand is the maximum
+    over bands, so that every band takes the same caps. Coverage is
+    bounded by the bin-live tiles (no raster probe); the sharded frame's
+    summed BinDiag validates the caps.
+
+    Unlike the JAX package's, an overflow triangle's tile cover is tested
+    over the band's own tiles: the JAX package tests the frame's first
+    rows instead (band-local rows against frame coefficients), which
+    undercounts the live tiles of a lower band that a big triangle covers
+    (the 100× ground plane at 1080p on 4 bands: 306 bin-live tiles probed
+    against 510 in the bottom band, so every frame dropped 126 tiles)."""
+    band_h = band_height(settings, n_bands)
+    outs = []
+    for b in range(n_bands):
+        _, setup = _main_setup(scene, view_block, settings,
+                               band=(band_h, b * band_h))
+        o = _bin_stats(setup, settings, settings.width, band_h,
+                       kernels.sort, y0=b * band_h)
+        outs.append({k: int(v) for k, v in o.items()})
+    worst = {k: max(o[k] for o in outs) for k in outs[0]}
+    return _cap_probe(worst, settings.tiles_x * (band_h // settings.tile_h))
+
+
+def autotune_settings_sharded(scene, view_block, settings, n_bands: int,
+                              margin: float = 1.25, overlay=None,
+                              materials=None, kernels: Kernels = KERNELS):
+    """Probe + derive for the band-sharded renderer. The frame's autotune
+    first (span routing, the sampling router's decision and route caps,
+    shadow and overlay caps: band-independent, or full-frame bounds the
+    bands reuse; with ``materials`` it measures coverage and escape
+    tiles), then the bands probed at the chosen span and the band caps
+    derived from the worst band; if that picks a smaller span, the bands
+    are probed again at it. Returns ``(frame_settings, band_settings,
+    band_probe)``: the frame settings drive the passes outside the bands
+    (shadow map, gizmo), the band settings ``render_frame_sharded``'s
+    ``band_settings``."""
+    derived, _ = autotune_settings(scene, view_block, settings,
+                                   margin=margin,
+                                   measure_coverage=materials is not None,
+                                   materials=materials, overlay=overlay,
+                                   kernels=kernels)
+    base = dataclasses.replace(settings, span_cap=derived.span_cap)
+    probe = probe_band_caps(scene, view_block, base, n_bands, kernels)
+    band = derive_settings(derived, probe, margin=margin)
+    if band.span_cap != derived.span_cap:
+        base = dataclasses.replace(settings, span_cap=band.span_cap)
+        probe = probe_band_caps(scene, view_block, base, n_bands, kernels)
+        band = derive_settings(
+            dataclasses.replace(derived, span_cap=band.span_cap), probe,
+            margin=margin)
+    return derived, band, probe
 
 
 # Capacities where None means "uncapped" (None wins a merge), and the

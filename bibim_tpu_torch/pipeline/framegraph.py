@@ -40,6 +40,9 @@ Stages of :func:`render_frame`:
    cleared key, ``hud=``), the TBN lines (``ops.lines``, ``show_tbn``),
    the corner gizmo (K1 in its own viewport), sRGB encode and u8.
 
+The sharded frame (``parallel.tile_shard``) runs the main pass, the
+shading and the light spheres band by band (``band=``).
+
 The main pass takes the reference's raster schedule variants: early-z
 (K9, every pass), the group window (K10) and fine subtiles (K11);
 ``merged_coverage`` is accepted and has no counterpart. The XLA fallback
@@ -90,6 +93,10 @@ from bibim_tpu_torch.ops.tonemap import srgb_encode, to_u8
 from bibim_tpu_torch.scene.lights import Lights
 from bibim_tpu_torch.scene.meshgen import generate_uv_sphere_mesh
 from bibim_tpu_torch.scene.scene import SceneData
+from bibim_tpu_torch.utils.validation import (
+    check_frame_output,
+    validation_active,
+)
 
 
 class GBufferViz(IntEnum):
@@ -341,11 +348,12 @@ def _prunable_fields(settings: RenderSettings) -> tuple:
 def _raster(rec, setup, width, height, settings: RenderSettings,
             kernels: Kernels, cap=None, init_zkey=None, overflow_cap=None,
             passes=None, main_pass=False, span_cap=None, drop_fields=None,
-            tile_cap=None):
+            tile_cap=None, band_y0: int = 0):
     """``tile_cap``: the pass-0 tile compaction of a pass that is not the
     main one (the main pass takes ``settings.raster_tile_cap``). Early-z
     applies to every pass (shadow and gizmo too), the group window and
-    fine bins to the main pass only."""
+    fine bins to the main pass only. ``band_y0``: the first frame row of
+    a band's main pass (``ops.fused.raster_fused``)."""
     if passes is None:
         passes = settings.raster_passes if cap is None else 1
     return fused.raster_fused(
@@ -362,7 +370,7 @@ def _raster(rec, setup, width, height, settings: RenderSettings,
         drop_fields=(drop_fields if drop_fields is not None
                      else (_prunable_fields(settings) if main_pass else ())),
         fine_bins=settings.fine_bins and main_pass,
-        earlyz=settings.early_z,
+        earlyz=settings.early_z, band_y0=band_y0,
         raster=kernels.raster, raster_earlyz=kernels.raster_earlyz,
         raster_gw=kernels.raster_gw, raster_fine=kernels.raster_fine,
         sort=kernels.sort,
@@ -752,25 +760,15 @@ def _pcf_vis(smap: sh.ShadowMap, px, settings: RenderSettings, sh_diag):
     return sh.shadow_factor(smap, px.world, settings.shadow_bias), sh_diag
 
 
-def _shadow_visibility_planar(psoup, px, lights, settings: RenderSettings,
-                              kernels: Kernels, fit_ranges=None):
-    smap, sh_diag = _shadow_map_planar(psoup, lights, settings, kernels,
-                                       fit_ranges=fit_ranges)
-    return _pcf_vis(smap, px, settings, sh_diag)
-
-
-def _shadow_vis_any(soup, px, scene: SceneData, settings: RenderSettings,
+def _shadow_map_any(soup, scene: SceneData, settings: RenderSettings,
                     kernels: Kernels):
-    """Visibility plane of the shadow-casting light and the shadow pass's
-    BinDiag, from the main pass's planar soup or its (T, 3) soup."""
+    """The shadow map of the shadow-casting light and its pass's BinDiag,
+    from the main pass's planar soup or its (T, 3) soup."""
     if isinstance(soup, PlanarSoup):
-        return _shadow_visibility_planar(soup, px, scene.lights, settings,
-                                         kernels,
-                                         _shadow_fit_ranges(scene, settings))
-    smap, sh_diag = _shadow_map_from_soup(
-        soup, scene.lights, settings, kernels,
-        _shadow_fit_rows(scene, settings))
-    return _pcf_vis(smap, px, settings, sh_diag)
+        return _shadow_map_planar(soup, scene.lights, settings, kernels,
+                                  _shadow_fit_ranges(scene, settings))
+    return _shadow_map_from_soup(soup, scene.lights, settings, kernels,
+                                 _shadow_fit_rows(scene, settings))
 
 
 def _light_sphere_planar_soup(lights: Lights, overlay: OverlayResources,
@@ -806,20 +804,28 @@ def _light_sphere_planar_soup(lights: Lights, overlay: OverlayResources,
 
 def _composite_light_spheres(ldr, zkey, lights: Lights,
                              overlay: OverlayResources, view_proj,
-                             settings: RenderSettings, kernels: Kernels):
+                             settings: RenderSettings, kernels: Kernels,
+                             band=None):
     """The light spheres into the (3, NT, NPX) LDR planes ``ldr`` (in
     place on the card), depth-tested against the scene's keys ``zkey``.
-    Returns (ldr', diag)."""
+    ``band`` = (band height, first frame row): the planes and keys are a
+    horizontal band's (the sharded frame); the overlay composite indexes
+    them by band tile, so the sphere records are rebased to band rows
+    (``ops.fused.shift_record_table_y``). Returns (ldr', diag)."""
+    height, y0 = (settings.height, None) if band is None else band
     soup = _light_sphere_planar_soup(lights, overlay, view_proj)
-    setup = triangle_setup_planar(soup.clip, settings.width, settings.height)
+    setup = triangle_setup_planar(soup.clip, settings.width, settings.height,
+                                  band_y0=y0, band_height=height)
     rec = fused.build_record_table_planar(setup, soup)
+    if band is not None:
+        rec = fused.shift_record_table_y(rec, y0)
     return fused.composite_overlay(
-        rec, setup, ldr, zkey, settings.width, settings.height,
+        rec, setup, ldr, zkey, settings.width, height,
         tile_h=settings.tile_h, tile_w=settings.tile_w,
         max_candidates=settings.overlay_candidates,
         overflow_cap=settings.overlay_overflow_cap, span_cap=32,
         max_tiles=min(settings.overlay_max_tiles,
-                      settings.tiles_x * settings.tiles_y),
+                      settings.tiles_x * -(-height // settings.tile_h)),
         span_mid_cap=max(256, rec.shape[0] // 4),
         overlay=kernels.overlay, sort=kernels.sort,
     )
@@ -923,20 +929,32 @@ def _render_gizmo(view, proj, overlay: OverlayResources,
     return region(px.tri_id >= 0), tuple(region(c) for c in gz_rgb), gz_diag
 
 
-def _composite_gizmo(ldr3_img, view, proj, overlay: OverlayResources,
-                     settings: RenderSettings, kernels: Kernels):
-    ext = settings.gizmo_extent
-    hit, rgb, gz_diag = _render_gizmo(view, proj, overlay, settings, kernels)
-    ey = min(ext, settings.height)
-    ex = min(ext, settings.width)
-    x0 = settings.width - ex
+def _gizmo_into(ldr3_img, hit, rgb, width: int, y0: int = 0):
+    """The gizmo patch (``hit``, ``rgb``: :func:`_render_gizmo`'s
+    ext² images) over the frame's top-right corner, into the rows of
+    ``ldr3_img`` that start at frame row ``y0`` (a band's rows in the
+    sharded frame)."""
+    rows = ldr3_img[0].shape[0]
+    ext = hit.shape[0]
+    r1 = min(ext, y0 + rows)
+    if r1 <= y0:
+        return ldr3_img
+    ex = min(ext, width)
+    x0 = width - ex
     out = []
     for c in range(3):
         img = ldr3_img[c].clone()
-        img[0:ey, x0:] = torch.where(hit[:ey, :ex], rgb[c][:ey, :ex],
-                                     img[0:ey, x0:])
+        img[0:r1 - y0, x0:] = torch.where(hit[y0:r1, :ex],
+                                          rgb[c][y0:r1, :ex],
+                                          img[0:r1 - y0, x0:])
         out.append(img)
-    return tuple(out), gz_diag
+    return tuple(out)
+
+
+def _composite_gizmo(ldr3_img, view, proj, overlay: OverlayResources,
+                     settings: RenderSettings, kernels: Kernels):
+    hit, rgb, gz_diag = _render_gizmo(view, proj, overlay, settings, kernels)
+    return _gizmo_into(ldr3_img, hit, rgb, settings.width), gz_diag
 
 
 def _as_planes(ldr3) -> torch.Tensor:
@@ -1121,29 +1139,141 @@ def _use_planar(scene: SceneData, settings: RenderSettings) -> bool:
     return ok
 
 
-def _assemble_and_raster(scene: SceneData, view_block: ViewBlock,
-                         settings: RenderSettings, kernels: Kernels):
-    """The main pass: vertex stage, setup, records, raster. Returns
-    (pixels, zkey, diag, soup): a PlanarSoup, or the TriangleSoup of the
-    (T, 3) path."""
-    w, h = settings.width, settings.height
+def _assemble(scene: SceneData, view_block: ViewBlock,
+              settings: RenderSettings):
+    """The vertex stage: corner planes (PlanarSoup) for de-indexed
+    batches, else the (T, 3) TriangleSoup (:func:`_use_planar`)."""
     if _use_planar(scene, settings):
-        soup = assemble_scene_planar(scene.batches, view_block.view,
+        return assemble_scene_planar(scene.batches, view_block.view,
                                      view_block.proj,
                                      settings.batch_material_ids)
-        setup = triangle_setup_planar(soup.clip, w, h)
+    return assemble_scene(scene.batches, view_block.view, view_block.proj,
+                          settings.batch_material_ids)
+
+
+def _main_setup(scene: SceneData, view_block: ViewBlock,
+                settings: RenderSettings, band=None):
+    """The main pass's vertex stage and triangle setup; ``band`` = (band
+    height, first frame row) sets up a horizontal band (bounding boxes in
+    band rows). Returns (soup, setup): a PlanarSoup, or the TriangleSoup
+    of the (T, 3) path."""
+    w, h = settings.width, settings.height
+    band_h, y0 = (None, None) if band is None else band
+    soup = _assemble(scene, view_block, settings)
+    if isinstance(soup, PlanarSoup):
+        return soup, triangle_setup_planar(soup.clip, w, h, band_y0=y0,
+                                           band_height=band_h)
+    return soup, triangle_setup(soup.clip, soup.tris, w, h, band_y0=y0,
+                                band_height=band_h,
+                                sequential=settings.sequential_tris)
+
+
+def _assemble_and_raster(scene: SceneData, view_block: ViewBlock,
+                         settings: RenderSettings, kernels: Kernels,
+                         band=None):
+    """The main pass: vertex stage, setup, records, raster; with ``band``
+    (:func:`_main_setup`) the raster bins and covers the band's tiles and
+    rasterizes them at the frame's pixel centres (the records stay in
+    frame coordinates), so each pixel is the single frame's. Returns
+    (pixels, zkey, diag, soup)."""
+    soup, setup = _main_setup(scene, view_block, settings, band)
+    if isinstance(soup, PlanarSoup):
         rec = fused.build_record_table_planar(setup, soup)
     else:
-        soup = assemble_scene(scene.batches, view_block.view,
-                              view_block.proj, settings.batch_material_ids)
-        seq = settings.sequential_tris
-        setup = triangle_setup(soup.clip, soup.tris, w, h, sequential=seq)
         rec = fused.build_record_table(
             setup, soup.tris, soup.uv, soup.normal, soup.tangent,
-            soup.world, soup.color, soup.mat_id, sequential=seq)
-    px, zkey, diag = _raster(rec, setup, w, h, settings, kernels,
-                             main_pass=True)
+            soup.world, soup.color, soup.mat_id,
+            sequential=settings.sequential_tris)
+    h, y0 = (settings.height, 0) if band is None else band
+    px, zkey, diag = _raster(rec, setup, settings.width, h, settings,
+                             kernels, main_pass=True, band_y0=y0)
     return px, zkey, diag, soup
+
+
+def _shade(px, materials, lights: Lights, view_block: ViewBlock,
+           frame_params: FrameParams, settings: RenderSettings,
+           kernels: Kernels, light_vis, ibl, diags: list):
+    """Shading of the raster's pixels (stage 5 of :func:`render_frame`;
+    the sharded frame's bands run it too). Returns (LDR planes, HDR
+    planes or None where a kernel tone maps in its epilogue, the
+    G-buffer images of a "full" deferred frame)."""
+    valid = px.tri_id >= 0
+    flat = settings.shading == "flat"
+    viz = settings.gbuffer_viz != GBufferViz.RENDERED_SCENE
+    hdr3 = None
+    gb = {}
+    ldr3 = None
+    production = settings.outputs != "full"
+    if flat:
+        # Unlit flat colour, Lambert in view space (gizmo.frag's model):
+        # BASELINE config 1 and colour-only meshes.
+        hdr3 = shade_flat_planar(px.color, px.normal, view_block.view[:3, :3])
+        zero = torch.zeros_like(hdr3[0])
+        hdr3 = tuple(torch.where(valid, c, zero) for c in hdr3)
+    elif not settings.deferred:
+        # Forward lighting: no G-buffer exists, so a G-buffer view shows
+        # the cleared attachments.
+        if viz:
+            zero = torch.zeros_like(px.depth)
+            hdr3 = (zero, zero, zero)
+        else:
+            hdr3, ldr3 = _forward_hdr(px, materials, lights,
+                                      view_block, frame_params, settings,
+                                      kernels, light_vis, ibl, production,
+                                      diags)
+    elif (production and not settings.enable_ibl and not viz
+            and settings.aniso_taps == 1
+            and sampled_groups_supported(materials)):
+        ldr3 = _sampled_ldr(px, materials, lights, view_block,
+                            frame_params, settings, kernels, light_vis,
+                            diags)
+    else:
+        # The production frame samples through K6/K7/K8 and shades on K5;
+        # "full" keeps the plain chain.
+        sampling = kernels if production else None
+        g_pos, g_nrm, g_alb, g_mrah, valid = _materialize_gbuffer_planes(
+            px, materials, view_block, settings, sampling)
+        zero = torch.zeros_like(px.depth)
+        ambient = None
+        if settings.enable_ibl and ibl is not None and not viz:
+            view_dir = tuple(view_block.view_pos[c] - g_pos[c]
+                             for c in range(3))
+            ambient = ibl_ambient(ibl, g_nrm, view_dir, g_alb, g_mrah[0],
+                                  g_mrah[1], g_mrah[2], sampling)
+            ambient = tuple(torch.where(valid, a, zero) for a in ambient)
+        if viz:
+            # buffer_visualize.frag: the raw G-buffer rgb is the HDR
+            # target (no lighting); MATERIAL_INDEX is gbuffer.frag's
+            # placeholder.
+            hdr3 = {
+                GBufferViz.POSITION: g_pos, GBufferViz.NORMAL: g_nrm,
+                GBufferViz.ALBEDO: g_alb, GBufferViz.MRHA: g_mrah[:3],
+                GBufferViz.MATERIAL_INDEX: (torch.where(valid, 1.0, 0.0),
+                                            zero, zero),
+            }[settings.gbuffer_viz]
+        elif production:
+            ldr3 = _pbr_ldr_fused(g_pos, g_nrm, g_alb, g_mrah, valid,
+                                  lights, view_block, frame_params,
+                                  settings, kernels, light_vis, ambient)
+        else:
+            hdr3 = _pbr_hdr(g_pos, g_nrm, g_alb, g_mrah, valid,
+                            lights, view_block, light_vis, ambient)
+        if not production:
+            def img3(planes):
+                return torch.stack([_untile(c, settings) for c in planes],
+                                   -1)
+
+            gb = {
+                "position": img3(g_pos), "normal": img3(g_nrm),
+                "albedo": img3(g_alb), "mrah": img3(g_mrah),
+                "matindex": img3((torch.where(valid, 1.0, 0.0), zero, zero)),
+            }
+    if ldr3 is None:
+        ldr3 = hdr_tail(hdr3, settings.quantize_fp16, True,
+                        frame_params.enable_tone_mapping,
+                        frame_params.exposure)
+
+    return ldr3, hdr3, gb
 
 
 def render_frame(scene: SceneData, view_block: ViewBlock,
@@ -1219,86 +1349,17 @@ def render_frame(scene: SceneData, view_block: ViewBlock,
 
             px = _slot_pixels(px, compact_ids)
 
-    valid = px.tri_id >= 0
-    gb = {}
     light_vis = None
     if (settings.enable_shadows and scene.lights.num_lights > 0
             and not flat):
-        vis_plane, sh_diag = _shadow_vis_any(soup, px, scene, settings,
-                                             kernels)
+        smap, sh_diag = _shadow_map_any(soup, scene, settings, kernels)
+        vis_plane, sh_diag = _pcf_vis(smap, px, settings, sh_diag)
         light_vis = {settings.shadow_light: vis_plane}
         diags.append(sh_diag)
 
-    ldr3 = None
-    production = settings.outputs != "full"
-    if flat:
-        # Unlit flat colour, Lambert in view space (gizmo.frag's model):
-        # BASELINE config 1 and colour-only meshes.
-        hdr3 = shade_flat_planar(px.color, px.normal, view_block.view[:3, :3])
-        zero = torch.zeros_like(hdr3[0])
-        hdr3 = tuple(torch.where(valid, c, zero) for c in hdr3)
-    elif not settings.deferred:
-        # Forward lighting: no G-buffer exists, so a G-buffer view shows
-        # the cleared attachments.
-        if viz:
-            zero = torch.zeros_like(px.depth)
-            hdr3 = (zero, zero, zero)
-        else:
-            hdr3, ldr3 = _forward_hdr(px, materials, scene.lights,
-                                      view_block, frame_params, settings,
-                                      kernels, light_vis, ibl, production,
-                                      diags)
-    elif (production and not settings.enable_ibl and not viz
-            and settings.aniso_taps == 1
-            and sampled_groups_supported(materials)):
-        ldr3 = _sampled_ldr(px, materials, scene.lights, view_block,
-                            frame_params, settings, kernels, light_vis,
+    ldr3, hdr3, gb = _shade(px, materials, scene.lights, view_block,
+                            frame_params, settings, kernels, light_vis, ibl,
                             diags)
-    else:
-        # The production frame samples through K6/K7/K8 and shades on K5;
-        # "full" keeps the plain chain.
-        sampling = kernels if production else None
-        g_pos, g_nrm, g_alb, g_mrah, valid = _materialize_gbuffer_planes(
-            px, materials, view_block, settings, sampling)
-        zero = torch.zeros_like(px.depth)
-        ambient = None
-        if settings.enable_ibl and ibl is not None and not viz:
-            view_dir = tuple(view_block.view_pos[c] - g_pos[c]
-                             for c in range(3))
-            ambient = ibl_ambient(ibl, g_nrm, view_dir, g_alb, g_mrah[0],
-                                  g_mrah[1], g_mrah[2], sampling)
-            ambient = tuple(torch.where(valid, a, zero) for a in ambient)
-        if viz:
-            # buffer_visualize.frag: the raw G-buffer rgb is the HDR
-            # target (no lighting); MATERIAL_INDEX is gbuffer.frag's
-            # placeholder.
-            hdr3 = {
-                GBufferViz.POSITION: g_pos, GBufferViz.NORMAL: g_nrm,
-                GBufferViz.ALBEDO: g_alb, GBufferViz.MRHA: g_mrah[:3],
-                GBufferViz.MATERIAL_INDEX: (torch.where(valid, 1.0, 0.0),
-                                            zero, zero),
-            }[settings.gbuffer_viz]
-        elif production:
-            ldr3 = _pbr_ldr_fused(g_pos, g_nrm, g_alb, g_mrah, valid,
-                                  scene.lights, view_block, frame_params,
-                                  settings, kernels, light_vis, ambient)
-        else:
-            hdr3 = _pbr_hdr(g_pos, g_nrm, g_alb, g_mrah, valid,
-                            scene.lights, view_block, light_vis, ambient)
-        if not production:
-            def img3(planes):
-                return torch.stack([_untile(c, settings) for c in planes],
-                                   -1)
-
-            gb = {
-                "position": img3(g_pos), "normal": img3(g_nrm),
-                "albedo": img3(g_alb), "mrah": img3(g_mrah),
-                "matindex": img3((torch.where(valid, 1.0, 0.0), zero, zero)),
-            }
-    if ldr3 is None:
-        ldr3 = hdr_tail(hdr3, settings.quantize_fp16, True,
-                        frame_params.enable_tone_mapping,
-                        frame_params.exposure)
 
     spheres = (settings.show_lights and overlay is not None
                and scene.lights.num_lights > 0)
@@ -1336,19 +1397,22 @@ def render_frame(scene: SceneData, view_block: ViewBlock,
     image = to_u8(torch.stack(out3, dim=-1))
 
     if settings.outputs == "image":
-        return {"image": image}
-    total_diag = fused.sum_diags(diags)
-    if settings.outputs == "image+diag":
-        return {"image": image, "bin_diag": total_diag}
-    return {
-        "image": image,
-        "ldr": torch.stack(ldr3_img, dim=-1),
-        "hdr": torch.stack([_untile(c, settings) for c in hdr3], -1),
-        "depth": _untile(px.depth, settings),
-        "tri_id": _untile(px.tri_id, settings),
-        "gbuffer": gb,
-        "bin_diag": total_diag,
-    }
+        out = {"image": image}
+    elif settings.outputs == "image+diag":
+        out = {"image": image, "bin_diag": fused.sum_diags(diags)}
+    else:
+        out = {
+            "image": image,
+            "ldr": torch.stack(ldr3_img, dim=-1),
+            "hdr": torch.stack([_untile(c, settings) for c in hdr3], -1),
+            "depth": _untile(px.depth, settings),
+            "tri_id": _untile(px.tri_id, settings),
+            "gbuffer": gb,
+            "bin_diag": fused.sum_diags(diags),
+        }
+    if validation_active():
+        check_frame_output({"ldr": torch.stack(ldr3_img, dim=-1), **out})
+    return out
 
 
 # Size groups above this many texels bind as block tables.

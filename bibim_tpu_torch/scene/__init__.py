@@ -14,6 +14,7 @@ from bibim_tpu_torch.scene.lights import (
 )
 from bibim_tpu_torch.scene.scene import (
     DrawBatch,
+    RenderPassType,
     SceneBase,
     SceneData,
     batch_from_mesh,
@@ -27,6 +28,7 @@ __all__ = [
     "LightType",
     "Lights",
     "MAX_NUM_LIGHTS",
+    "RenderPassType",
     "SceneBase",
     "SceneData",
     "TriangleScene",

@@ -8,6 +8,7 @@ pipeline (``ops.geometry``) consumes.
 
 from __future__ import annotations
 
+from enum import IntEnum
 from typing import NamedTuple
 
 import numpy as np
@@ -15,6 +16,14 @@ import torch
 
 from bibim_tpu_torch.scene.lights import Lights
 from bibim_tpu_torch.scene.meshgen import Mesh
+
+
+class RenderPassType(IntEnum):
+    """The scene's render pass (``RenderSettings.deferred`` selects it in
+    the frame function)."""
+
+    FORWARD = 0
+    DEFERRED = 1
 
 
 class DrawBatch(NamedTuple):
@@ -44,6 +53,8 @@ class SceneBase:
     state by ``dt`` seconds (instance matrices), ``scene_data`` packages
     it for the frame function. The session calls ``update_scene`` once a
     frame."""
+
+    scene_render_pass_type: RenderPassType = RenderPassType.DEFERRED
 
     def update_scene(self, dt: float) -> None:
         pass

@@ -125,10 +125,27 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    frames at readback depth 1 and 2 (host ms, device ms, busy share, each
    image equal to its frame's output); the live viewer for a few seconds
    (/frame.jpg, a W key event, /stats, served fps, stop());
-11. checks, on every frame, zero capacity drops (shadow pass included),
+11. the sharded frame (:func:`run_sharded`): the config-3 stand-in at
+   1920×1080 from the host phase's first pose on 4 in-process bands (all
+   on cuda:0 with one card, spread over the cards with more) through a
+   ``ShardedRenderer`` tuned by ``autotune_settings_sharded(pair_sampling=2,
+   margin=1.05, materials=, overlay=)``, its frames with the counters
+   reset just before; every band's K1, K3, K2 and K4 launch of the first
+   frame against its plain version; the band height, each band's K1
+   slots, pairs and covered tiles, the band caps beside the frame caps;
+   the frame within the golden bound of ``render_frame`` on one card at
+   the same settings, drop-free, and its device ms, host ms and launches
+   beside that frame's; the sharded dry run
+   (``parallel.dryrun.dryrun_multichip(4)`` on a stand-in resource root:
+   retunes 1 then 2, its K1 shadow passes and every band's K5, K6 and K7
+   against their plain versions); the frame on 2 ranks spawned with
+   ``torch.multiprocessing`` (NCCL with a card each when there are 2
+   cards, else gloo with both on cuda:0), each rank's image
+   ``torch.equal`` to the in-process 2-band frame, its wall ms;
+12. checks, on every frame, zero capacity drops (shadow pass included),
    coverage, that the image is not background, and the frame against the
    all-plain render of the same frame at the golden-image bound;
-12. prints the GPU's ``nvidia-smi`` name/power-limit line, one JSON line of
+13. prints the GPU's ``nvidia-smi`` name/power-limit line, one JSON line of
    kernel results (per kernel and path: launches on the main path and the
    frames they cover, error against the plain version, wrapper and plain
    times, the bound of the bytes and operations the call needs on an H100
@@ -3768,6 +3785,445 @@ def run_host(dev, smi: str, name: str):
     return kres, launches, len(frames)
 
 
+# The sharded frame (run_sharded): config 3 on an in-process mesh of
+# SHARDED_BANDS bands (all on cuda:0 with one card, spread over the cards
+# with more), the sharded dry run on SHARDED_BANDS bands, and the same
+# frame on SHARDED_RANKS ranks over torch.distributed.
+SHARDED_BANDS = 4
+SHARDED_RANKS = 2
+SHARDED_FRAMES = 2  # ShardedRenderer frames on the counted main path
+RANK_TIMEOUT_S = 240
+
+
+def sharded_view(proj, dev):
+    """The sharded frames' view: the host phase's first pose
+    (:data:`HOST_CAMERA`), where the ball and the point light's sphere at
+    (0, 2, 0) are in view, so that a band composites a light sphere."""
+    import numpy as np
+    import torch
+
+    from bibim_tpu_torch.pipeline import ViewBlock
+    from bibim_tpu_torch.scene.camera import FreeLookCamera
+
+    cam = FreeLookCamera(pos=np.asarray(HOST_CAMERA, np.float32))
+    return ViewBlock(
+        view=torch.as_tensor(cam.get_view_matrix(), device=dev),
+        proj=proj, view_pos=torch.as_tensor(cam.pos, device=dev),
+        enable_normal_map=torch.tensor(0, dtype=torch.int32, device=dev))
+
+
+def band_raster_stats(calls: list) -> list:
+    """Per band, from its main pass's K1 call: slots, live slots (a window
+    of at least one candidate), pairs (window rows) and covered tiles."""
+    out = []
+    for args, _, res in calls:
+        idf = res[1][args[11].index("idf")]
+        counts = args[6]
+        out.append(dict(slots=int(args[4].shape[0]),
+                        live_slots=int((counts > 0).sum()),
+                        pairs=int(counts.sum()),
+                        covered_tiles=int((idf >= 0.5).any(dim=1).sum())))
+    return out
+
+
+def check_band_shades(calls: list, what: str) -> dict:
+    """Every band's K2 call against its plain version (its HDR output and
+    with the fused tail, :func:`assert_shade_close`); the band with the
+    most covered pixels timed."""
+    import torch
+
+    from bibim_tpu_torch.ops.shading import shade_sampled, shade_sampled_plain
+
+    errs = []
+    for args, kw, _ in calls:
+        for kwx in (dict(kw, quantize_hdr=False, tonemap=False), kw):
+            got = shade_sampled(*args, **kwx)
+            want = shade_sampled_plain(*args, **kwx)
+            torch.cuda.synchronize()
+            errs.append(assert_shade_close(got, want, f"{what} K2"))
+    args, kw, _ = max(calls, key=lambda c: int(c[0][6].sum()))
+    out = shade_sampled(*args, **kw)
+    return dict(max_abs_err=max(errs), checked_calls=len(calls),
+                pixels=int(args[1].numel()), library_ms=None,
+                **shade_bound(args, kw, out, K2_BLOCK_TAP_CHANNELS),
+                **shade_times(shade_sampled, shade_sampled_plain, args, kw,
+                              dict(kw, quantize_hdr=False, tonemap=False)))
+
+
+def check_band_gbuffer_shades(calls: list, what: str) -> dict:
+    """Every band's K5 call against its plain version (HDR output, and
+    with fp16 + tone map as the frame calls it); the largest timed."""
+    import torch
+
+    from bibim_tpu_torch.ops.shading import shade_tonemap, shade_tonemap_plain
+
+    errs = []
+    for args, kw, _ in calls:
+        for kwx, rel in ((dict(kw, quantize=False, tonemap=False), True),
+                         (dict(kw, quantize=True, tonemap=True), False)):
+            got = shade_tonemap(*args, **kwx)
+            want = shade_tonemap_plain(*args, **kwx)
+            torch.cuda.synchronize()
+            errs.append(assert_shade_close(got, want, f"{what} K5", rel))
+    args, kw, _ = max(calls, key=lambda c: int(c[0][6].sum()))
+    hdr_kw = dict(kw, quantize=False, tonemap=False)
+    return dict(max_abs_err=max(errs), checked_calls=len(calls),
+                pixels=int(args[3].numel()), library_ms=None,
+                **shade_bound(args, kw, shade_tonemap(*args, **kw), 0,
+                              sampled=False),
+                **shade_times(shade_tonemap, shade_tonemap_plain, args, kw,
+                              hdr_kw))
+
+
+def check_band_samplers(calls: list, kern, plain, name: str, taps: int,
+                        kernel: str | None = None) -> dict:
+    """Every band's sampler call (K6, K7) bit-equal to its plain version;
+    the first timed (:func:`check_sampler`)."""
+    import torch
+
+    for args, kw, _ in calls[1:]:
+        got, want = kern(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(got[s], want[s]) for s in want):
+            raise AssertionError(f"{name}: a band's call differs from its "
+                                 "plain version")
+    return dict(check_sampler(calls[0], kern, plain, name, taps,
+                              kernel=kernel), checked_calls=len(calls))
+
+
+def check_band_overlays(calls: list, comps: list, what: str) -> dict:
+    """Every band's K4 call bit-equal to its plain version; the one with
+    the most live slots timed with its launch line (:func:`check_overlay`)."""
+    import torch
+
+    from bibim_tpu_torch.ops import fused
+
+    for args, kw, _ in calls:
+        work = args[:9] + (args[9].clone(),) + args[10:]
+        got = fused.overlay_tiles(*work, **kw)
+        want = fused.overlay_tiles_plain(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: a band's K4 call differs from "
+                                 "its plain version")
+    return dict(check_overlay(*overlay_call(calls, comps), what),
+                checked_calls=len(calls))
+
+
+def frame_times(fn, reps: int = 5) -> dict:
+    """One frame's host ms (host clock around the call and a synchronize,
+    median of ``reps``) and its device ms and kernel launches
+    (:func:`device_profile`)."""
+    import torch
+
+    prof = device_profile(fn, reps=3)
+    host = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    return dict(host_ms=statistics.median(host), **prof)
+
+
+def sharded_rank(rank: int, port: int, out_dir: str, frame_settings,
+                 band_settings) -> None:
+    """One rank of the torch.distributed frame (spawned by
+    :func:`run_sharded_ranks`): the config-3 inputs on its card, one
+    warm-up frame, then :data:`SHARDED_FRAMES` + 3 timed frames; its image
+    and wall ms written to ``out_dir``."""
+    import os
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(SHARDED_RANKS),
+                      LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(SHARDED_RANKS))
+    import torch
+    import torch.distributed as dist
+
+    from bibim_tpu_torch.parallel import (
+        make_process_mesh,
+        render_frame_sharded,
+    )
+
+    mesh = make_process_mesh(init_method=f"tcp://localhost:{port}")
+    try:
+        dev = mesh.devices[rank]
+        scene, mats, overlay, proj, fp, _ = build_inputs(dev, caps=BASE3)
+        vb = sharded_view(proj, dev)
+
+        def frame():
+            return render_frame_sharded(mesh, scene, vb, fp, mats,
+                                        frame_settings, overlay=overlay,
+                                        band_settings=band_settings)
+
+        img = frame()
+        ms = []
+        for _ in range(SHARDED_FRAMES + 3):
+            dist.barrier()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            img = frame()
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        torch.save(img.cpu(), f"{out_dir}/rank{rank}.pt")
+        with open(f"{out_dir}/rank{rank}.json", "w") as f:
+            json.dump(dict(rank=rank, device=str(dev),
+                           backend=dist.get_backend(), wall_ms=ms), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_sharded_ranks(scene, mats, overlay, fp, vb, base) -> dict:
+    """The config-3 frame on :data:`SHARDED_RANKS` spawned ranks, one band
+    each (NCCL with a card per rank, else gloo with both on cuda:0): each
+    rank's image ``torch.equal`` to the in-process frame of as many bands
+    at the same settings. The kernels are built before the spawn."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as tmp_mp
+
+    from bibim_tpu_torch.parallel import (
+        make_device_mesh,
+        render_frame_sharded,
+    )
+    from bibim_tpu_torch.pipeline.autotune import autotune_settings_sharded
+
+    frame_s, band_s, _ = autotune_settings_sharded(
+        scene, vb, base, SHARDED_RANKS, margin=MARGIN, materials=mats,
+        overlay=overlay)
+    want = render_frame_sharded(make_device_mesh(SHARDED_RANKS), scene, vb,
+                                fp, mats, frame_s, overlay=overlay,
+                                band_settings=band_s).cpu()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory(prefix="bibim-ranks-") as tmp:
+        t0 = time.perf_counter()
+        ctx = tmp_mp.start_processes(
+            sharded_rank, args=(port, tmp, frame_s, band_s),
+            nprocs=SHARDED_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        try:
+            # join raises if a rank failed (and ends the others).
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"the ranks did not finish in "
+                                         f"{RANK_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        codes = [p.exitcode for p in ctx.processes]
+        if codes != [0] * SHARDED_RANKS:
+            raise AssertionError(f"rank exit codes {codes}")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(SHARDED_RANKS):
+            with open(f"{tmp}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+            img = torch.load(f"{tmp}/rank{r}.pt")
+            if not torch.equal(img, want):
+                raise AssertionError(f"rank {r}'s frame differs from the "
+                                     f"in-process {SHARDED_RANKS}-band frame")
+    return dict(ranks=ranks, seconds=round(wall, 1),
+                equal_to_in_process=True)
+
+
+def run_sharded_dryrun(dev) -> tuple:
+    """``parallel.dryrun.dryrun_multichip`` on :data:`SHARDED_BANDS` bands
+    on a stand-in resource root (2048² maps: block tables, so the bands
+    sample on K6), with the counters reset just before it and read just
+    after; the shadow passes' K1 (counted apart) and every band's K5, K6
+    and K7 against their plain versions. Returns (kernel results,
+    launches, frames)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from bibim_tpu_torch.assets import asset_cache
+    from bibim_tpu_torch.ops import fused
+    from bibim_tpu_torch.ops import texture_quad as tq
+    from bibim_tpu_torch.parallel.dryrun import dryrun_multichip
+    from bibim_tpu_torch.pipeline import KERNELS
+    from bibim_tpu_torch.utils import config
+
+    old_root, old_cache = config.get_resource_root(), asset_cache.CACHE_DIR
+    calls: dict = {}
+    shadow = shadow_fields()
+    shadow_launches = [0]
+    cap = capture_kernels(KERNELS, calls)
+
+    def raster_counted(*args, **kw):
+        before = fused.raster_tiles.launches
+        out = cap.raster(*args, **kw)
+        if tuple(args[11]) == shadow:
+            shadow_launches[0] += fused.raster_tiles.launches - before
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="bibim-dryrun-") as tmp:
+        root = Path(tmp)
+        config.init_resource_root(write_standin_resources(root / "res"))
+        asset_cache.CACHE_DIR = root / "cache"
+        try:
+            reset_counters()
+            t0 = time.perf_counter()
+            r, (away, front) = dryrun_multichip(
+                SHARDED_BANDS, kernels=cap._replace(raster=raster_counted))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read_counters()
+        finally:
+            config._active_root = old_root
+            asset_cache.CACHE_DIR = old_cache
+    launches["raster_shadow_pass"] = shadow_launches[0]
+    print(f"sharded dry run: {SHARDED_BANDS} bands of "
+          f"{front.shape[0] // SHARDED_BANDS} rows, {front.shape[1]}x"
+          f"{front.shape[0]}, {seconds:.1f} s (stand-in root and tunes "
+          f"included); retunes {r.retunes}; launches "
+          + json.dumps(launches) + "; band caps "
+          + json.dumps({k: getattr(r._band, k) for k in DERIVED_KEYS}))
+    for k in ("raster_shadow_pass", "shade_gbuffer", "sample_block",
+              "sample_small"):
+        if not launches.get(k):
+            raise AssertionError(f"sharded dry run: kernel {k} was not "
+                                 "launched")
+    if not float(front.float().mean()) > float(away.float().mean()):
+        raise AssertionError("sharded dry run: the front frame shows less "
+                             "than the away frame")
+    sh = [c for c in calls["raster"] if tuple(c[0][11]) == shadow]
+    kres = {"raster_shadow_pass": check_raster(sh[0], calls=sh[1:]),
+            "shade_gbuffer": check_band_gbuffer_shades(
+                calls["shade_gbuffer"], "sharded dry run"),
+            "sample_block": check_band_samplers(
+                calls["sample_block"], tq.sample_table_block_kernel,
+                tq.sample_table_block, "sample_block",
+                SAMPLER_TAPS["sample_block"], kernel="sample_block_kernel"),
+            "sample_small": check_band_samplers(
+                calls["sample_small"], tq.sample_rows_small,
+                tq.sample_rows_small_plain, "sample_small",
+                SAMPLER_TAPS["sample_small"])}
+    return kres, launches, 3
+
+
+def run_sharded(dev, smi: str, name: str):
+    """The sharded frame: config 3 (1920×1080 ShaderBall stand-in,
+    deferred GGX, 3 lights, light spheres; :func:`build_inputs`) through a
+    ``ShardedRenderer`` on :data:`SHARDED_BANDS` in-process bands, tuned
+    by ``autotune_settings_sharded(pair_sampling=2, margin=1.05,
+    materials=, overlay=)``, its frames with the counters reset just
+    before and read just after; every band's K1, K3, K2 and K4 launch of
+    the first frame against its plain version; the frame within the
+    golden bound of ``render_frame`` on one card at the frame settings,
+    drop-free; its device ms, host ms and launches beside the single-card
+    frame's; then the dry run (:func:`run_sharded_dryrun`) and the
+    torch.distributed frame (:func:`run_sharded_ranks`). Returns (kernel
+    results, launches, frames) of the config-3 frames and of the dry
+    run."""
+    import dataclasses
+
+    import torch
+
+    from bibim_tpu_torch.parallel import (
+        ShardedRenderer,
+        make_device_mesh,
+        render_frame_sharded,
+    )
+    from bibim_tpu_torch.pipeline import KERNELS, render_frame
+    from bibim_tpu_torch.pipeline.autotune import band_height
+    from bibim_tpu_torch.utils.validation import check_bin_diag
+
+    t_phase = time.perf_counter()
+    scene, mats, overlay, proj, fp, base = build_inputs(dev, caps=BASE3)
+    vb = sharded_view(proj, dev)
+    mesh = make_device_mesh(SHARDED_BANDS)
+    r = ShardedRenderer(mesh, base, mats, overlay=overlay, margin=MARGIN)
+    reset_counters()
+    t0 = time.perf_counter()
+    imgs = [r.render(scene, vb, fp) for _ in range(SHARDED_FRAMES)]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_counters()
+    if r.retunes != 1:
+        raise AssertionError(f"sharded 1080p: {r.retunes} tunes (a frame "
+                             "dropped geometry)")
+    for k in ("raster", "shade", "sort", "overlay"):
+        if not launches.get(k):
+            raise AssertionError(f"sharded 1080p: kernel {k} was not "
+                                 "launched")
+    band_h = band_height(base, SHARDED_BANDS)
+    print(f"sharded 1080p: {SHARDED_BANDS} bands of {band_h} rows on "
+          f"{sorted({str(d) for d in mesh.devices})}; {SHARDED_FRAMES} "
+          f"frames in {first_s:.2f} s (tune included); launches "
+          + json.dumps(launches))
+    print("sharded 1080p caps (frame, band): " + json.dumps(
+        {k: [getattr(r._frame, k), getattr(r._band, k)]
+         for k in DERIVED_KEYS}))
+
+    calls: dict = {}
+    comps: list = []
+    with capture_composites(comps):
+        img, diag = render_frame_sharded(
+            mesh, scene, vb, fp, mats, r._frame, overlay=overlay,
+            band_settings=r._band, return_diag=True,
+            kernels=capture_kernels(KERNELS, calls))
+    torch.cuda.synchronize()
+    check_bin_diag(diag, where="sharded 1080p frame")
+    if not all(torch.equal(img, x) for x in imgs):
+        raise AssertionError("sharded 1080p: the captured frame differs "
+                             "from the renderer's frames")
+    for k, n_k in (("raster", 1), ("shade", 1), ("overlay", 1)):
+        if len(calls.get(k, ())) != SHARDED_BANDS * n_k:
+            raise AssertionError(f"sharded 1080p: {len(calls.get(k, ()))} "
+                                 f"{k} calls for {SHARDED_BANDS} bands")
+    for b, st in enumerate(band_raster_stats(calls["raster"])):
+        print(f"sharded 1080p band {b}: rows {b * band_h}-"
+              f"{(b + 1) * band_h - 1}, K1 " + json.dumps(st))
+    # K1 timed on the band with the most window rows.
+    k1 = sorted(calls["raster"], key=lambda c: -int(c[0][6].sum()))
+    kres = {"raster": check_raster(k1[0], calls=k1[1:]),
+            "sort": check_sorts(calls["sort"]),
+            "shade": check_band_shades(calls["shade"], "sharded 1080p"),
+            "overlay": check_band_overlays(calls["overlay"], comps,
+                                           "sharded 1080p light spheres")}
+    del calls, comps
+    for k, v in kres.items():
+        print(f"kernel {k} (sharded 1080p, {SHARDED_BANDS} bands): "
+              + json.dumps(v))
+
+    single_s = dataclasses.replace(r._frame, outputs="image+diag")
+    single = render_frame(scene, vb, fp, mats, overlay, single_s)
+    check_bin_diag(single["bin_diag"], where="single-card 1080p frame")
+    assert_golden_bound(img, single["image"],
+                        "sharded 1080p frame vs the single-card frame")
+    same = float((img == single["image"]).all(dim=-1).float().mean())
+    times = {
+        "sharded": frame_times(lambda: render_frame_sharded(
+            mesh, scene, vb, fp, mats, r._frame, overlay=overlay,
+            band_settings=r._band)),
+        "single": frame_times(lambda: render_frame(
+            scene, vb, fp, mats, overlay,
+            dataclasses.replace(r._frame, outputs="image"))),
+    }
+    print(f"sharded 1080p frame: identical to the single-card frame "
+          f"{same:.6f} (golden bound held, drop-free); times ({name}, "
+          f"{smi}): " + json.dumps(times))
+
+    kres_d, launches_d, n_d = run_sharded_dryrun(dev)
+    for k, v in kres_d.items():
+        print(f"kernel {k} (sharded dry run): " + json.dumps(v))
+    ranks = run_sharded_ranks(scene, mats, overlay, fp, vb, base)
+    print(f"sharded ranks ({SHARDED_RANKS}, {name}, {smi}): "
+          + json.dumps(ranks))
+    print(f"sharded phase: {time.perf_counter() - t_phase:.1f} s")
+    return (kres, launches, SHARDED_FRAMES), (kres_d, launches_d, n_d)
+
+
+
 def main() -> int:
     try:
         import torch
@@ -3962,6 +4418,8 @@ def main() -> int:
     kres_n, launches_n, n_new = run_new_paths(
         dev, smi, name, (scene, mats, overlay, proj, fp, base, settings))
     kres_h, launches_h, n_host = run_host(dev, smi, name)
+    (kres_s, launches_s, n_s), (kres_d, launches_d, n_d) = run_sharded(
+        dev, smi, name)
 
     # One row per kernel and path: K1 and K3 on the config-1 frame, K1-K4
     # on the 1080p path's 4 frames, K10 on its group-window frame, every
@@ -4011,6 +4469,15 @@ def main() -> int:
     rows += [(k, KERNEL_INFO[k][0] + ", host Session script (1080p / "
               "720p, frame 0 checked)", kres_h[k], launches_h[k], n_host)
              for k in ("raster", "shade", "sort", "overlay")]
+    rows += [(k, KERNEL_INFO[k][0] + f", sharded 1080p ({SHARDED_BANDS} "
+              "bands)", kres_s[k], launches_s[k], n_s)
+             for k in ("raster", "shade", "sort", "overlay")]
+    rows.append(("raster", KERNEL_INFO["raster"][0] + ", sharded dry run: "
+                 "shadow passes", kres_d["raster_shadow_pass"],
+                 launches_d["raster_shadow_pass"], n_d))
+    rows += [(k, KERNEL_INFO[k][0] + ", sharded dry run", kres_d[k],
+              launches_d[k], n_d)
+             for k in ("shade_gbuffer", "sample_block", "sample_small")]
     kernels = []
     for k, label, r, n, frames in rows:
         _, src, repl = KERNEL_INFO[k]

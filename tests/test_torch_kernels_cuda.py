@@ -1565,3 +1565,41 @@ def test_session_frame_equals_direct_render(dev, tmp_path):
         assert len(s.flush()) == 1
     finally:
         config._active_root, asset_cache.CACHE_DIR = old
+
+
+@pytest.mark.cuda
+def test_sharded_frame_matches_plain_kernels(frame, dev):
+    """The 512×256 frame with light spheres and shadows on 4 bands on the
+    card(s): through the kernels (K1, K2, K3, K4 launched on every band)
+    within the golden bound of its twin through the plain versions, and of
+    the single-card frame; drop-free."""
+    from bibim_tpu_torch.parallel import (
+        make_device_mesh,
+        render_frame_sharded,
+    )
+    from bibim_tpu_torch.ops.sort import sort_keys
+
+    scene, vb, fp, mats = frame
+    overlay = make_overlay_resources(device=dev, with_gizmo=False)
+    s = RenderSettings(width=W, height=H, show_gizmo=False,
+                       enable_shadows=True, shadow_size=512,
+                       shadow_fit_batches=(0,), max_candidates=512,
+                       outputs="image")
+    mesh = make_device_mesh(4)
+    fns = [fused.raster_tiles, shade_sampled, sort_keys,
+           fused.overlay_tiles]
+    counts = [f.launches for f in fns]
+    got, diag = render_frame_sharded(mesh, scene, vb, fp, mats, s,
+                                     overlay=overlay, return_diag=True)
+    # K1: a main pass a band and a shadow pass a card; K2 once a band.
+    assert [f.launches - c for f, c in zip(fns, counts)][:2] == [
+        4 + len(set(mesh.devices)), 4]
+    assert all(f.launches - c >= 4 for f, c in zip(fns[2:], counts[2:]))
+    assert not any(int(v) for v in diag)
+    plain = render_frame_sharded(mesh, scene, vb, fp, mats, s,
+                                 overlay=overlay, kernels=PLAIN)
+    single = render_frame(scene, vb, fp, mats, overlay, s)["image"]
+    for want in (plain, single):
+        d = (got.to(torch.int32) - want.to(torch.int32)).abs()
+        assert int(d.max()) <= 2
+        assert float((d > 0).any(dim=-1).float().mean()) <= 1e-3

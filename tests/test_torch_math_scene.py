@@ -199,6 +199,8 @@ _DEVICE_ENTRY_POINTS = [
     "interop.draw_batch", "interop.lights", "interop.scene_data",
     "interop.material_tables", "interop.ibl", "interop.overlay_resources",
     "interop.view_block", "interop.frame_params",
+    "parallel.mesh.make_device_mesh", "parallel.mesh.make_process_mesh",
+    "parallel.dryrun.dryrun_multichip",
 ]
 
 

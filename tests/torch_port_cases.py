@@ -635,3 +635,110 @@ def standin_resources(root, with_jax: bool = True):
     finally:
         for mod, name, value in old:
             setattr(mod, name, value)
+
+
+# The sharded frame's tests (tests/test_torch_sharded*.py) run the scenes
+# of tests/test_pipeline.py TestShardedRendering at its frame size.
+SHARD_W, SHARD_H = 128, 64
+
+
+def shard_inputs(segments=(12, 8), cam=None, width=SHARD_W, height=SHARD_H,
+                 mats=None, light_dir=(0, -1, 1)):
+    """((scene, view block, frame params, materials) of the JAX package,
+    the same carried into the port): tests/test_pipeline.py's sphere scene
+    (a UV sphere of ``segments`` at z = 4, one directional light), its
+    camera (``cam``: a FreeLookCamera, default the origin's), tone mapping
+    on, and ``mats`` (a JAX binding; default its 4×4 MaterialTextures)."""
+    import jax.numpy as jnp
+
+    from bibim_tpu import math3d as m3
+    from bibim_tpu.assets.meshgen import generate_uv_sphere_mesh
+    from bibim_tpu.pipeline import framegraph as jfg
+    from bibim_tpu.scene import FreeLookCamera
+    from bibim_tpu.scene.lights import make_lights
+    from bibim_tpu.scene.scene import SceneData, batch_from_mesh
+    from bibim_tpu_torch import interop
+    from tests.test_pipeline import _flat_materials
+
+    cap_threads()
+    mesh = generate_uv_sphere_mesh(1.0, *segments)
+    model = np.asarray(m3.translate([0.0, 0.0, 4.0]))
+    lights = make_lights([dict(type=2, dir=light_dir, color=(1, 1, 1),
+                               intensity=3.0)])
+    scene = SceneData(batches=(batch_from_mesh(mesh, model),), lights=lights)
+    cam = cam or FreeLookCamera()
+    vb = jfg.ViewBlock(view=jnp.asarray(cam.get_view_matrix()),
+                       proj=m3.perspective(60.0, width / height, 0.1, 1000.0),
+                       view_pos=jnp.asarray(cam.pos),
+                       enable_normal_map=jnp.int32(0))
+    fp = jfg.FrameParams(enable_tone_mapping=jnp.int32(1),
+                         exposure=jnp.float32(1.0))
+    mats = _flat_materials() if mats is None else mats
+    port = (interop.scene_data(scene, device="cpu"),
+            interop.view_block(vb, device="cpu"),
+            interop.frame_params(fp, device="cpu"),
+            interop.materials(mats, device="cpu"))
+    return (scene, vb, fp, mats), port
+
+
+def shard_overlay():
+    """Light spheres and a cube standing in for gizmo.obj (JAX package's
+    OverlayResources, the same in the port)."""
+    import jax.numpy as jnp
+
+    from bibim_tpu.assets.meshgen import (
+        generate_cube_mesh,
+        generate_uv_sphere_mesh,
+    )
+    from bibim_tpu.pipeline import framegraph as jfg
+    from bibim_tpu_torch import interop
+
+    sphere = generate_uv_sphere_mesh(0.1, 16, 16)
+    cube = generate_cube_mesh(1.0)
+    ov = jfg.OverlayResources(
+        sphere_positions=jnp.asarray(sphere.positions),
+        sphere_tris=jnp.asarray(sphere.indices),
+        gizmo_positions=jnp.asarray(cube.positions),
+        gizmo_normals=jnp.asarray(cube.normals),
+        gizmo_colors=jnp.asarray(np.abs(cube.normals)),
+        gizmo_tris=jnp.asarray(cube.indices))
+    return ov, interop.overlay_resources(ov, device="cpu")
+
+
+def shard_frames(n: int, inputs, kw: dict, overlay=(None, None),
+                 ibl=(None, None)):
+    """(the JAX package's sharded image, the port's sharded image, the
+    port's single-card image, drop-free) of one case of
+    :func:`shard_inputs` on ``n`` bands at settings ``kw``, numpy u8.
+    ``overlay`` / ``ibl``: (the JAX package's, the port's)."""
+    import dataclasses
+
+    from bibim_tpu.parallel import make_device_mesh as jax_mesh
+    from bibim_tpu.parallel import render_frame_sharded as jax_sharded
+    from bibim_tpu.pipeline import framegraph as jfg
+    from bibim_tpu_torch.parallel import (
+        make_device_mesh,
+        render_frame_sharded,
+    )
+    from bibim_tpu_torch.pipeline import RenderSettings, render_frame
+    from bibim_tpu_torch.utils.validation import check_bin_diag
+
+    (jin, pin), (jov, pov), (jibl, pibl) = inputs, overlay, ibl
+    want = np.asarray(jax_sharded(jax_mesh(n), *jin,
+                                  jfg.RenderSettings(**kw), overlay=jov,
+                                  ibl=jibl))
+    ps = RenderSettings(**kw)
+    got = render_frame_sharded(make_device_mesh(n, device="cpu"), *pin, ps,
+                               overlay=pov, ibl=pibl)
+    single = render_frame(*pin, pov, dataclasses.replace(
+        ps, outputs="image+diag"), ibl=pibl)
+    check_bin_diag(single["bin_diag"])
+    assert got.shape == (kw["height"], kw["width"], 3)
+    assert got.dtype == torch.uint8
+    return want, got.numpy(), single["image"].numpy()
+
+
+def differing_pixels(a, b) -> float:
+    """Share of pixels where two u8 images differ in any channel."""
+    d = np.asarray(a).astype(int) != np.asarray(b).astype(int)
+    return float(d.any(axis=-1).mean())
