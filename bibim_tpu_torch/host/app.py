@@ -50,6 +50,7 @@ from bibim_tpu_torch.scene.gizmoscene import (
 )
 from bibim_tpu_torch.scene.shaderball import ShaderBallScene
 from bibim_tpu_torch.scene.triangle import TriangleScene
+from bibim_tpu_torch.utils import profiling
 from bibim_tpu_torch.utils.log import log_info
 from bibim_tpu_torch.utils.profiling import FrameStats
 from bibim_tpu_torch.utils.timing import Stopwatch
@@ -131,6 +132,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the frames render (cpu: the kernels' plain "
                         "versions)")
+    p.add_argument("--no-spans", action="store_true",
+                   help="switch the host span recorder off "
+                        "(utils/profiling.py; /stats then has no stage "
+                        "times)")
     return p
 
 
@@ -225,6 +230,7 @@ def _run_session(args, device) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    profiling.set_enabled(not args.no_spans)
     device = torch.device(args.device)
     width, height = args.size
 

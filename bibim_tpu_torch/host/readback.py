@@ -8,11 +8,15 @@ the current CUDA stream and the host returns at once; :meth:`submit`
 queues the frame's copy to pinned host memory on a copy stream of its own
 and hands back the oldest frame in flight, waiting only on that frame's
 copy event, so the host never blocks on the frame it just submitted.
+Spans: ``readback.queue`` (queueing a frame's copies) and
+``readback.wait`` (the host waiting on a copy event).
 """
 
 from __future__ import annotations
 
 import torch
+
+from bibim_tpu_torch.utils.profiling import stage_scope
 
 
 class DoubleBufferedReadback:
@@ -67,7 +71,8 @@ class DoubleBufferedReadback:
     def _ready(entry):
         hosts, done, single = entry
         if done is not None:
-            done.synchronize()
+            with stage_scope("readback.wait"):
+                done.synchronize()
             hosts = tuple(h.numpy() for h in hosts)
         return hosts[0] if single else hosts
 
@@ -77,7 +82,8 @@ class DoubleBufferedReadback:
         flight, else None; blocks only on that frame's copy."""
         single = isinstance(frame, torch.Tensor)
         tensors = (frame,) if single else tuple(frame)
-        hosts, done = self._queue(tensors)
+        with stage_scope("readback.queue"):
+            hosts, done = self._queue(tensors)
         self._inflight.append((hosts, done, single))
         if len(self._inflight) >= self._depth:
             return self._ready(self._inflight.pop(0))

@@ -20,7 +20,9 @@ Endpoints:
   GET  /stream      MJPEG frame stream (the present loop)
   GET  /frame.jpg   one frame (poll / screenshot)
   POST /event       JSON event or list of events (host/session.py format)
-  GET  /stats       {"fps": ..., "frames": ..., "size": [w, h]}
+  GET  /stats       {"fps": ..., "frames": ..., "size": [w, h],
+                     "stages": the render_frame stages' median host ms
+                     and host syncs over the last 60 frames}
   GET  /ui          the session's UiState (camera fields from the live
                     camera)
   GET  /materials   {"names": [...], "selected": i}
@@ -43,7 +45,12 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from bibim_tpu_torch.utils import profiling
 from bibim_tpu_torch.utils.log import log_info, log_warning
+
+# The newest span records /stats reads: 60 frames of a dozen or so each,
+# with room.
+STATS_RECORDS = 2048
 
 
 def encode_frame_jpeg(img: np.ndarray, quality: int = 85) -> bytes:
@@ -285,6 +292,8 @@ class ViewerServer:
                         "ms_per_frame": viewer.session.stats.ms_per_frame,
                         "frames": viewer.frames,
                         "size": [w, h],
+                        "stages": profiling.stage_medians(
+                            profiling.snapshot(last=STATS_RECORDS)),
                     }).encode()
                     self._send(200, "application/json", body)
                 elif self.path == "/ui":

@@ -44,6 +44,7 @@ import torch
 from bibim_tpu_torch import math3d as m3
 from bibim_tpu_torch.host.gui import UiState
 from bibim_tpu_torch.host.readback import DoubleBufferedReadback
+from bibim_tpu_torch.ops.fused import BinDiag
 from bibim_tpu_torch.pipeline import (
     FrameParams,
     GBufferViz,
@@ -56,7 +57,7 @@ from bibim_tpu_torch.pipeline import (
 from bibim_tpu_torch.scene.camera import FreeLookCamera
 from bibim_tpu_torch.scene.input import Input
 from bibim_tpu_torch.utils.log import log_info
-from bibim_tpu_torch.utils.profiling import FrameStats
+from bibim_tpu_torch.utils.profiling import FrameStats, next_frame, stage_scope
 
 VIZ_BY_NAME = {
     "position": GBufferViz.POSITION,
@@ -323,23 +324,26 @@ class Session:
             base = dataclasses.replace(base, **tuned)
         return base
 
-    def _retune(self, scene_data, view_block) -> None:
+    def _retune(self, scene_data, view_block, reason: tuple) -> None:
         """(Re-)derive adaptive caps for the current scene + camera and
-        merge them into the previous derivation (:func:`merge_caps`)."""
+        merge them into the previous derivation (:func:`merge_caps`).
+        ``reason``, the ``session.retune`` span's detail: ("first_bind",)
+        or ("dropped", the BinDiag fields that were non-zero...)."""
         from bibim_tpu_torch.pipeline.autotune import autotune_settings
 
-        derived, probe = autotune_settings(
-            scene_data, view_block, self._base_settings(),
-            overlay=self.overlay(),
-        )
-        key = self._tune_key()
-        caps = merge_caps(self._tuned.get(key), derived)
-        self._tuned[key] = caps
-        self.retunes.append((key, dict(caps)))
-        log_info("autotuned caps for {}: {} (probe: {} covered tiles, "
-                 "{} pairs, worst tile {})", self.ui.scene, caps,
-                 probe.covered_tiles, probe.total_pairs,
-                 probe.max_candidates)
+        with stage_scope("session.retune", reason):
+            derived, probe = autotune_settings(
+                scene_data, view_block, self._base_settings(),
+                overlay=self.overlay(),
+            )
+            key = self._tune_key()
+            caps = merge_caps(self._tuned.get(key), derived)
+            self._tuned[key] = caps
+            self.retunes.append((key, dict(caps)))
+            log_info("autotuned caps for {}: {} (probe: {} covered tiles, "
+                     "{} pairs, worst tile {})", self.ui.scene, caps,
+                     probe.covered_tiles, probe.total_pairs,
+                     probe.max_candidates)
 
     def _hud(self):
         """Per-frame HUD payload: cached static cell geometry + the lit
@@ -367,35 +371,40 @@ class Session:
 
         Returns the host image of the frame readied this iteration
         (``readback_depth - 1`` frames behind the dispatch, or None while
-        the pipeline fills)."""
-        self._update_camera(dt)
-        scene = self.scene
-        scene.update_scene(dt)
-        view_block = self.view_block()
-        data = scene.scene_data()
-        if self._tune_key() not in self._tuned:
-            self._retune(data, view_block)
-        out = render_frame(
-            data, view_block, self.frame_params(), self.materials(),
-            self.overlay(), self.settings(), hud=self._hud(),
-        )
-        self.stats.tick()
-        done = self.readback.submit(
-            (out["image"], _diag_values(out["bin_diag"], self._dev)))
-        self._pending.append((data, view_block))
-        if done is None:
-            return None
-        img, dropped = done
-        d_data, d_view = self._pending.pop(0)
-        if dropped.any():
-            # A completed frame overflowed a derived cap: raise the
-            # buckets from a fresh probe at that camera. The frame itself
-            # is the one-frame glitch the margin didn't cover; subsequent
-            # frames render complete again.
-            log_info("frame reported dropped geometry — re-probing "
-                     "capacities")
-            self._retune(d_data, d_view)
-        return img
+        the pipeline fills). Records the ``session.frame`` span under a
+        new frame id."""
+        next_frame()
+        with stage_scope("session.frame"):
+            self._update_camera(dt)
+            scene = self.scene
+            scene.update_scene(dt)
+            view_block = self.view_block()
+            data = scene.scene_data()
+            if self._tune_key() not in self._tuned:
+                self._retune(data, view_block, ("first_bind",))
+            out = render_frame(
+                data, view_block, self.frame_params(), self.materials(),
+                self.overlay(), self.settings(), hud=self._hud(),
+            )
+            self.stats.tick()
+            done = self.readback.submit(
+                (out["image"], _diag_values(out["bin_diag"], self._dev)))
+            self._pending.append((data, view_block))
+            if done is None:
+                return None
+            img, dropped = done
+            d_data, d_view = self._pending.pop(0)
+            if dropped.any():
+                # A completed frame overflowed a derived cap: raise the
+                # buckets from a fresh probe at that camera. The frame
+                # itself is the one-frame glitch the margin didn't cover;
+                # subsequent frames render complete again.
+                log_info("frame reported dropped geometry — re-probing "
+                         "capacities")
+                fields = tuple(name for name, v in zip(BinDiag._fields,
+                                                       dropped) if v)
+                self._retune(d_data, d_view, ("dropped",) + fields)
+            return img
 
     def flush(self) -> list:
         """Drain the frames in flight (oldest first) as host images."""

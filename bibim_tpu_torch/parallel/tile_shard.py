@@ -67,6 +67,7 @@ from bibim_tpu_torch.pipeline.framegraph import (
 )
 from bibim_tpu_torch.scene.scene import SceneData
 from bibim_tpu_torch.utils.log import log_info
+from bibim_tpu_torch.utils.profiling import stage_scope
 from bibim_tpu_torch.utils.validation import (
     check_bin_diag,
     check_frame_output,
@@ -137,8 +138,10 @@ def _band_rows(k: int, band_h: int, scene: SceneData, view_block: ViewBlock,
         vis, q_diag = _pcf_vis(smap, px, view, no_drops)
         diags.append(q_diag)
         light_vis = {settings.shadow_light: vis}
-    ldr3, _, _ = _shade(px, materials, scene.lights, view_block,
-                        frame_params, view, kernels, light_vis, ibl, diags)
+    with stage_scope("frame.shade"):
+        ldr3, _, _ = _shade(px, materials, scene.lights, view_block,
+                            frame_params, view, kernels, light_vis, ibl,
+                            diags)
     spheres = (settings.show_lights and overlay is not None
                and scene.lights.num_lights > 0)
     ldr = ldr3

@@ -93,6 +93,8 @@ from bibim_tpu_torch.ops.tonemap import srgb_encode, to_u8
 from bibim_tpu_torch.scene.lights import Lights
 from bibim_tpu_torch.scene.meshgen import generate_uv_sphere_mesh
 from bibim_tpu_torch.scene.scene import SceneData
+from bibim_tpu_torch.utils import profiling
+from bibim_tpu_torch.utils.profiling import stage_scope
 from bibim_tpu_torch.utils.validation import (
     check_frame_output,
     validation_active,
@@ -889,8 +891,13 @@ def _gizmo_clip(view, proj, overlay: OverlayResources):
     trans = -(rot @ view_pos)
     gz_view = view.clone()
     gz_view[:3, 3] = trans
+    # torch.tensor copies the scalar to the card synchronously (pageable).
+    # Counted; test_host_syncs_count_every_sync holds the counts to torch's
+    # sync debug mode on the card.
     d = 1.0 / torch.tan(torch.tensor(0.261799, dtype=torch.float32,
                                      device=view.device))
+    if view.device.type == "cuda":
+        profiling.count("host_syncs")
     gz_proj = proj.clone()
     gz_proj[0, 0] = d
     gz_proj[1, 1] = -d
@@ -1176,17 +1183,19 @@ def _assemble_and_raster(scene: SceneData, view_block: ViewBlock,
     rasterizes them at the frame's pixel centres (the records stay in
     frame coordinates), so each pixel is the single frame's. Returns
     (pixels, zkey, diag, soup)."""
-    soup, setup = _main_setup(scene, view_block, settings, band)
-    if isinstance(soup, PlanarSoup):
-        rec = fused.build_record_table_planar(setup, soup)
-    else:
-        rec = fused.build_record_table(
-            setup, soup.tris, soup.uv, soup.normal, soup.tangent,
-            soup.world, soup.color, soup.mat_id,
-            sequential=settings.sequential_tris)
+    with stage_scope("frame.geometry"):
+        soup, setup = _main_setup(scene, view_block, settings, band)
+        if isinstance(soup, PlanarSoup):
+            rec = fused.build_record_table_planar(setup, soup)
+        else:
+            rec = fused.build_record_table(
+                setup, soup.tris, soup.uv, soup.normal, soup.tangent,
+                soup.world, soup.color, soup.mat_id,
+                sequential=settings.sequential_tris)
     h, y0 = (settings.height, 0) if band is None else band
-    px, zkey, diag = _raster(rec, setup, settings.width, h, settings,
-                             kernels, main_pass=True, band_y0=y0)
+    with stage_scope("frame.raster"):
+        px, zkey, diag = _raster(rec, setup, settings.width, h, settings,
+                                 kernels, main_pass=True, band_y0=y0)
     return px, zkey, diag, soup
 
 
@@ -1296,7 +1305,23 @@ def render_frame(scene: SceneData, view_block: ViewBlock,
     :data:`PLAIN` renders a reference frame with the plain versions on any
     device). ``hud`` = (``host.hud.HudGeometry``, its text mask) is the
     text ``settings.show_hud`` burns in; without it the frame has no
-    HUD."""
+    HUD.
+
+    The host's work is recorded (``utils.profiling``) as the span
+    ``framegraph.frame`` holding five stages in turn: ``frame.geometry``,
+    ``frame.raster``, ``frame.shade``, ``frame.overlay``,
+    ``frame.output``."""
+    with stage_scope("framegraph.frame"):
+        return _render_frame(scene, view_block, frame_params, materials,
+                             overlay, settings, ibl, kernels, hud)
+
+
+def _render_frame(scene: SceneData, view_block: ViewBlock,
+                  frame_params: FrameParams, materials,
+                  overlay: OverlayResources | None, settings: RenderSettings,
+                  ibl, kernels: Kernels, hud):
+    """:func:`render_frame`'s work in its five stages: geometry and raster
+    (:func:`_assemble_and_raster`), shade, overlay, output."""
     check_supported(settings, materials)
     if settings.show_gizmo and overlay is not None \
             and overlay.gizmo_tris is None:
@@ -1308,110 +1333,116 @@ def render_frame(scene: SceneData, view_block: ViewBlock,
                                                 settings, kernels)
     diags = [diag]
 
-    nt_full = px.tri_id.shape[0]
-    compact_ids = None
-    flat = settings.shading == "flat"
-    viz = settings.gbuffer_viz != GBufferViz.RENDERED_SCENE
-    # Not for the image-space bindings, which sample (H, W) images.
-    can_compact = (settings.live_tile_cap is not None
-                   and settings.live_tile_cap < nt_full and not viz
-                   and not settings.show_tbn and not flat
-                   and _planar_materials(materials))
-    if (settings.outputs == "full" and settings.sample_route_caps
-            and not flat and _routes(materials, settings)):
-        # Debug frames shade through the plain chain but still report
-        # whether the production router's caps would overflow: escape
-        # tiles past the exact cap, with the clean tiles past the clean
-        # cap that fall through to it.
-        flags = _escape_flags(materials, px,
-                              _effective_pair(materials, settings),
-                              settings.tile_w)
-        nt_prod = (min(settings.live_tile_cap, nt_full) if can_compact
-                   else nt_full)
-        q_cap, e_cap = settings.sample_route_caps
-        esc_n = flags.sum(dtype=torch.int32)
-        over_q = torch.clamp(nt_prod - esc_n - min(int(q_cap), nt_prod),
-                             min=0)
-        diags.append(_tile_diag(torch.clamp(
-            esc_n + over_q - min(int(e_cap), nt_prod), min=0), dev))
-    if can_compact:
-        live = (px.tri_id >= 0).any(dim=1)
-        if settings.outputs == "full":
-            # Debug frames shade at full rate but still report whether the
-            # production cap would overflow.
-            over = torch.clamp(live.sum(dtype=torch.int32)
-                               - settings.live_tile_cap, min=0)
-            diags.append(_tile_diag(over, dev))
+    with stage_scope("frame.shade"):
+        nt_full = px.tri_id.shape[0]
+        compact_ids = None
+        flat = settings.shading == "flat"
+        viz = settings.gbuffer_viz != GBufferViz.RENDERED_SCENE
+        # Not for the image-space bindings, which sample (H, W) images.
+        can_compact = (settings.live_tile_cap is not None
+                       and settings.live_tile_cap < nt_full and not viz
+                       and not settings.show_tbn and not flat
+                       and _planar_materials(materials))
+        if (settings.outputs == "full" and settings.sample_route_caps
+                and not flat and _routes(materials, settings)):
+            # Debug frames shade through the plain chain but still report
+            # whether the production router's caps would overflow: escape
+            # tiles past the exact cap, with the clean tiles past the clean
+            # cap that fall through to it.
+            flags = _escape_flags(materials, px,
+                                  _effective_pair(materials, settings),
+                                  settings.tile_w)
+            nt_prod = (min(settings.live_tile_cap, nt_full) if can_compact
+                       else nt_full)
+            q_cap, e_cap = settings.sample_route_caps
+            esc_n = flags.sum(dtype=torch.int32)
+            over_q = torch.clamp(nt_prod - esc_n - min(int(q_cap), nt_prod),
+                                 min=0)
+            diags.append(_tile_diag(torch.clamp(
+                esc_n + over_q - min(int(e_cap), nt_prod), min=0), dev))
+        if can_compact:
+            live = (px.tri_id >= 0).any(dim=1)
+            if settings.outputs == "full":
+                # Debug frames shade at full rate but still report whether
+                # the production cap would overflow.
+                over = torch.clamp(live.sum(dtype=torch.int32)
+                                   - settings.live_tile_cap, min=0)
+                diags.append(_tile_diag(over, dev))
+            else:
+                compact_ids, dropped = _compact_ids(
+                    live, settings.live_tile_cap, nt_full)
+                diags.append(_tile_diag(dropped, dev))
+
+                px = _slot_pixels(px, compact_ids)
+
+        light_vis = None
+        if (settings.enable_shadows and scene.lights.num_lights > 0
+                and not flat):
+            smap, sh_diag = _shadow_map_any(soup, scene, settings, kernels)
+            vis_plane, sh_diag = _pcf_vis(smap, px, settings, sh_diag)
+            light_vis = {settings.shadow_light: vis_plane}
+            diags.append(sh_diag)
+
+        ldr3, hdr3, gb = _shade(px, materials, scene.lights, view_block,
+                                frame_params, settings, kernels, light_vis,
+                                ibl, diags)
+
+    with stage_scope("frame.overlay"):
+        spheres = (settings.show_lights and overlay is not None
+                   and scene.lights.num_lights > 0)
+        show_hud = settings.show_hud and hud is not None
+        ldr = ldr3
+        if compact_ids is not None or spheres or show_hud:
+            ldr = _ldr_planes(ldr3, compact_ids, nt_full)
+        del ldr3  # a compacted shade output is not needed past the scatter
+        view_proj = m3.matmul(view_block.proj, view_block.view)
+        if spheres:
+            ldr, sp_diag = _composite_light_spheres(
+                ldr, zkey, scene.lights, overlay, view_proj, settings,
+                kernels)
+            diags.append(sp_diag)
+        if show_hud:
+            ldr, hud_diag = _composite_hud(ldr, hud, settings, kernels)
+            diags.append(hud_diag)
+
+        ldr3_img = tuple(_untile(c, settings) for c in ldr)
+        if settings.show_tbn and overlay is not None:
+            if isinstance(soup, PlanarSoup):  # lines read (T, 3) face data
+                soup = assemble_scene(scene.batches, view_block.view,
+                                      view_block.proj,
+                                      settings.batch_material_ids)
+            ldr3_img = _composite_tbn(ldr3_img, soup,
+                                      _untile(px.depth, settings), view_proj,
+                                      settings)
+        if settings.show_gizmo and overlay is not None:
+            ldr3_img, gz_diag = _composite_gizmo(
+                ldr3_img, view_block.view, view_block.proj, overlay, settings,
+                kernels)
+            diags.append(gz_diag)
+
+    with stage_scope("frame.output"):
+        if settings.srgb_output:
+            out3 = tuple(srgb_encode(c) for c in ldr3_img)
         else:
-            compact_ids, dropped = _compact_ids(live, settings.live_tile_cap,
-                                                nt_full)
-            diags.append(_tile_diag(dropped, dev))
+            out3 = tuple(torch.clamp(c, 0.0, 1.0) for c in ldr3_img)
+        image = to_u8(torch.stack(out3, dim=-1))
 
-            px = _slot_pixels(px, compact_ids)
-
-    light_vis = None
-    if (settings.enable_shadows and scene.lights.num_lights > 0
-            and not flat):
-        smap, sh_diag = _shadow_map_any(soup, scene, settings, kernels)
-        vis_plane, sh_diag = _pcf_vis(smap, px, settings, sh_diag)
-        light_vis = {settings.shadow_light: vis_plane}
-        diags.append(sh_diag)
-
-    ldr3, hdr3, gb = _shade(px, materials, scene.lights, view_block,
-                            frame_params, settings, kernels, light_vis, ibl,
-                            diags)
-
-    spheres = (settings.show_lights and overlay is not None
-               and scene.lights.num_lights > 0)
-    show_hud = settings.show_hud and hud is not None
-    ldr = ldr3
-    if compact_ids is not None or spheres or show_hud:
-        ldr = _ldr_planes(ldr3, compact_ids, nt_full)
-    del ldr3  # a compacted shade output is not needed past the scatter
-    view_proj = m3.matmul(view_block.proj, view_block.view)
-    if spheres:
-        ldr, sp_diag = _composite_light_spheres(
-            ldr, zkey, scene.lights, overlay, view_proj, settings, kernels)
-        diags.append(sp_diag)
-    if show_hud:
-        ldr, hud_diag = _composite_hud(ldr, hud, settings, kernels)
-        diags.append(hud_diag)
-
-    ldr3_img = tuple(_untile(c, settings) for c in ldr)
-    if settings.show_tbn and overlay is not None:
-        if isinstance(soup, PlanarSoup):  # the lines read (T, 3) face data
-            soup = assemble_scene(scene.batches, view_block.view,
-                                  view_block.proj, settings.batch_material_ids)
-        ldr3_img = _composite_tbn(ldr3_img, soup, _untile(px.depth, settings),
-                                  view_proj, settings)
-    if settings.show_gizmo and overlay is not None:
-        ldr3_img, gz_diag = _composite_gizmo(
-            ldr3_img, view_block.view, view_block.proj, overlay, settings,
-            kernels)
-        diags.append(gz_diag)
-
-    if settings.srgb_output:
-        out3 = tuple(srgb_encode(c) for c in ldr3_img)
-    else:
-        out3 = tuple(torch.clamp(c, 0.0, 1.0) for c in ldr3_img)
-    image = to_u8(torch.stack(out3, dim=-1))
-
-    if settings.outputs == "image":
-        out = {"image": image}
-    elif settings.outputs == "image+diag":
-        out = {"image": image, "bin_diag": fused.sum_diags(diags)}
-    else:
-        out = {
-            "image": image,
-            "ldr": torch.stack(ldr3_img, dim=-1),
-            "hdr": torch.stack([_untile(c, settings) for c in hdr3], -1),
-            "depth": _untile(px.depth, settings),
-            "tri_id": _untile(px.tri_id, settings),
-            "gbuffer": gb,
-            "bin_diag": fused.sum_diags(diags),
-        }
-    if validation_active():
-        check_frame_output({"ldr": torch.stack(ldr3_img, dim=-1), **out})
+        if settings.outputs == "image":
+            out = {"image": image}
+        elif settings.outputs == "image+diag":
+            out = {"image": image, "bin_diag": fused.sum_diags(diags)}
+        else:
+            out = {
+                "image": image,
+                "ldr": torch.stack(ldr3_img, dim=-1),
+                "hdr": torch.stack([_untile(c, settings) for c in hdr3], -1),
+                "depth": _untile(px.depth, settings),
+                "tri_id": _untile(px.tri_id, settings),
+                "gbuffer": gb,
+                "bin_diag": fused.sum_diags(diags),
+            }
+        if validation_active():
+            check_frame_output({"ldr": torch.stack(ldr3_img, dim=-1), **out})
     return out
 
 

@@ -13,6 +13,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from bibim_tpu_torch.utils import profiling
+
 MAX_NUM_LIGHTS = 100
 
 
@@ -78,7 +80,11 @@ def pack_lights(lights: Lights, vis_light: int = -1) -> torch.Tensor:
         return torch.zeros((1, LIGHT_ROW), dtype=torch.float32, device=dev)
     flag = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     if 0 <= vis_light < n:
+        # The scalar reaches the card by a synchronous pageable copy
+        # (counted; see test_host_syncs_count_every_sync).
         flag[vis_light, 0] = 1.0
+        if dev.type == "cuda":
+            profiling.count("host_syncs")
     return torch.cat([
         lights.pos,
         lights.type.to(torch.float32)[:, None],

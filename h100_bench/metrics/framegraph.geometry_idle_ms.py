@@ -1,0 +1,10 @@
+"""framegraph.geometry_idle_ms: device-idle ms a profiled frame whose idle
+gap's middle lies in the program's ``frame.geometry`` span (the vertex
+stage, setup and the record table), the program's clock mapped onto the
+profiler's (``program_trace.stage_idle_ms``)."""
+
+from h100_bench import program_trace
+
+
+def read(run):
+    return program_trace.stage_idle_ms(run, "frame.geometry")

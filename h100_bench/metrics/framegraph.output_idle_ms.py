@@ -1,0 +1,10 @@
+"""framegraph.output_idle_ms: device-idle ms a profiled frame whose idle
+gap's middle lies in the program's ``frame.output`` span (sRGB or clamp,
+the u8 image and the summed drop counts), the program's clock mapped onto
+the profiler's (``program_trace.stage_idle_ms``)."""
+
+from h100_bench import program_trace
+
+
+def read(run):
+    return program_trace.stage_idle_ms(run, "frame.output")

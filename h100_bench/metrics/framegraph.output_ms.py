@@ -1,0 +1,10 @@
+"""framegraph.output_ms: the median, over the window frames, of a frame's
+host ms in the program's ``frame.output`` span (sRGB or clamp, the u8
+image and the summed drop counts) less the spans inside it
+(``program_trace.stage_ms``)."""
+
+from h100_bench import program_trace
+
+
+def read(run):
+    return program_trace.stage_ms(run, "frame.output")

@@ -1,0 +1,10 @@
+"""framegraph.overlay_idle_ms: device-idle ms a profiled frame whose idle
+gap's middle lies in the program's ``frame.overlay`` span (the LDR
+scatter, light spheres, HUD, untile, TBN lines and gizmo), the program's
+clock mapped onto the profiler's (``program_trace.stage_idle_ms``)."""
+
+from h100_bench import program_trace
+
+
+def read(run):
+    return program_trace.stage_idle_ms(run, "frame.overlay")

@@ -1,0 +1,10 @@
+"""framegraph.shade_ms: the median, over the window frames, of a frame's
+host ms in the program's ``frame.shade`` span (live-tile compaction,
+shadows and shading) less the spans inside it
+(``program_trace.stage_ms``)."""
+
+from h100_bench import program_trace
+
+
+def read(run):
+    return program_trace.stage_ms(run, "frame.shade")

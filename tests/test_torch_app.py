@@ -153,3 +153,13 @@ def test_parser_defaults_to_cuda():
     assert args.device == "cuda" and args.scene == "shaderball"
     with pytest.raises(SystemExit):
         app.build_parser().parse_args(["--device", "tpu"])
+
+
+def test_no_spans_switches_the_recorder_off(standin, monkeypatch, capsys):
+    from bibim_tpu_torch.utils import profiling
+
+    seen = []
+    monkeypatch.setattr(profiling, "set_enabled", seen.append)
+    assert app.main(["--list-materials", "--no-spans"]) == 0
+    assert app.main(["--list-materials"]) == 0
+    assert seen == [False, True]

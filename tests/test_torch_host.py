@@ -103,12 +103,21 @@ def test_stopwatch_and_frame_stats_match_jax(monkeypatch):
 
 
 def test_stage_scope_and_device_trace(tmp_path):
-    with pprof.device_trace(str(tmp_path)):
+    """A stage is recorded on the host clock and never enters a
+    ``torch.profiler`` trace, so a device trace holds only device work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
         with pprof.stage_scope("bibim-stage"):
             torch.ones(4).sum()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
     trace = json.loads((tmp_path / "trace.json").read_text())
-    assert any(e.get("name") == "bibim-stage"
-               for e in trace["traceEvents"])
+    assert any("sum" in e.get("name", "") for e in trace["traceEvents"])
+    assert not any(e.get("name") == "bibim-stage"
+                   for e in trace["traceEvents"])
+    (rec,) = [r for r in pprof.snapshot(last=64) if r.name == "bibim-stage"]
+    assert 0 < rec.end_ns - rec.start_ns
+    assert not hasattr(pprof, "device_trace")
 
 
 # ---------------------------------------------------------------------------

@@ -133,6 +133,12 @@ class TestViewerServer:
         stats = json.loads(_get(viewer, "/stats").read())
         assert stats["size"] == [128, 64] and stats["frames"] >= 2
         assert stats["fps"] > 0
+        # The render_frame stages' rolling medians, from the span recorder.
+        stages = stats["stages"]
+        assert set(stages) == {"geometry_ms", "raster_ms", "shade_ms",
+                               "overlay_ms", "output_ms", "host_syncs"}
+        assert all(stages[k] > 0 for k in stages if k != "host_syncs")
+        assert stages["host_syncs"] == 0  # a CPU session never syncs
         for body in (b"{not json", b"[1, 2]"):
             with pytest.raises(urllib.error.HTTPError) as err:
                 _post(viewer, body)
