@@ -8,7 +8,9 @@ Plain tensor code is PyTorch; the kernels of the frame's hot path are
 hand-written CUDA C++ (``csrc/``), built with ``nvcc`` into one shared
 library at first use (see ``_build.py``):
 
-- K1 raster + resolve        → ``ops.fused.raster_tiles``   (csrc/raster.cu)
+- K1 raster + resolve        → ``ops.fused.raster_tiles``   (csrc/raster.cu;
+  its tail, every candidate past a multi-pass frame's first window, →
+  ``ops.fused.raster_tiles_tail``)
 - K2 sampled shade           → ``ops.shading.shade_sampled`` (csrc/shade.cu)
 - K3 pair sort               → ``ops.sort.sort_keys``       (csrc/sort.cu)
 - K4 overlay composite       → ``ops.fused.overlay_tiles``

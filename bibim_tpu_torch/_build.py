@@ -158,6 +158,13 @@ def _declare(lib) -> None:
         # field mask, cluster size, zkey out, fields out, stream
         "bb_raster": [p, p, p, i, p, i, p, p, p, p, i, i, i, i, i,
                       ctypes.c_uint, i, p, p, p],
+        # rec, pair_tri, pair_len, ids, starts, counts, part ends, n_slots,
+        # row_off, tiles_x, tile_h, tile_w, rec_stride, field mask, packed
+        # maxima, arrival counters, part counter, zkey (in place), fields
+        # (in place), field plane stride, stream
+        "bb_raster_tail": [p, p, i, p, p, p, p, i, i, i, i, i, i,
+                           ctypes.c_uint, p, p, p, p, p, ctypes.c_longlong,
+                           p],
         # rec, big_ids, n_big, big_len, pair_tri, pair_len, ids, starts,
         # counts, init_zkey, init_okey, n_slots, tiles_x, tile_h, tile_w,
         # rec_stride, field mask, zsh, cluster size, zkey out, okey out,

@@ -21,8 +21,9 @@ Endpoints:
   GET  /frame.jpg   one frame (poll / screenshot)
   POST /event       JSON event or list of events (host/session.py format)
   GET  /stats       {"fps": ..., "frames": ..., "size": [w, h],
-                     "stages": the render_frame stages' median host ms
-                     and host syncs over the last 60 frames}
+                     "stages": the render_frame stages' median host ms,
+                     host syncs and K1 tail launches over the last 60
+                     frames}
   GET  /ui          the session's UiState (camera fields from the live
                     camera)
   GET  /materials   {"names": [...], "selected": i}

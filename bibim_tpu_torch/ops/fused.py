@@ -38,6 +38,7 @@ from bibim_tpu_torch.ops.sort import (
     sort_pairs_z,
     zorder_bits,
 )
+from bibim_tpu_torch.utils import profiling
 
 CHUNK = 8
 LOW3 = ~7  # clears the 3 low bits of a packed depth key
@@ -580,8 +581,9 @@ def _field_mask(out_fields) -> int:
 # K1 and K9 split a slot's window over the blocks of a thread-block cluster
 # (csrc/raster.cu, csrc/raster_earlyz.cu) when a launch leaves SMs idle:
 # each part keeps at least CLUSTER_MIN_PART window candidates (the
-# kernels' MIN_PART: a shorter sequence is scanned by one block), and the
-# launch stays within
+# kernels' MIN_PART: a shorter sequence is scanned by one block; K1's tail
+# cuts its sequences into parts of exactly that length), and the launch
+# stays within
 # CLUSTER_MAX_BLOCKS blocks — five waves of the 4 blocks (64 registers ×
 # 256 threads) each of an H100's 132 SMs holds.
 CLUSTER_SIZES = (1, 2, 4, 8)
@@ -647,6 +649,109 @@ def raster_tiles(rec, big_ids, n_big, pair_tri, ids, starts, counts,
 
 
 raster_tiles.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1's tail: the candidates past the first window, merged in place
+# ---------------------------------------------------------------------------
+
+def raster_tiles_tail_plain(rec, pair_tri, ids, starts, counts, zkey,
+                            fields, tiles_x: int, tile_h: int, tile_w: int,
+                            out_fields: tuple = _OUT_FIELDS, row0: int = 0):
+    """Plain version of K1's tail. Slot s scans
+    ``pair_tri[starts[s] : starts[s] + counts[s]]`` (no overflow rows;
+    ``counts[s]`` 0: a dead slot) over frame tile ``ids[s]``, continuing
+    the keys of the frame's plane row ``ids[s] - row0·tiles_x`` in
+    ``zkey`` ((NT, NPX) int32), and merges into the frame's planes in
+    place: the key where a candidate won, and ``fields``' planes
+    ((len(out_fields), NT, NPX) float32, ``"idf"`` among them) where the
+    winner is a triangle — what K1's passes over the same candidates,
+    chained through their keys, leave. Returns (zkey, fields)."""
+    live = counts > 0
+    rows = (ids - row0 * tiles_x).long()[live]
+    if rows.numel() == 0:
+        return zkey, fields
+    dev = rec.device
+    zk, f = raster_tiles_plain(
+        rec, torch.zeros((0,), dtype=torch.int32, device=dev),
+        torch.zeros((1,), dtype=torch.int32, device=dev), pair_tri,
+        ids[live], starts[live], counts[live], zkey[rows], tiles_x, tile_h,
+        tile_w, out_fields)
+    hit = f[out_fields.index("idf")] >= 0.5
+    zkey[rows] = zk
+    fields[:, rows] = torch.where(hit, f, fields[:, rows])
+    return zkey, fields
+
+
+def raster_tiles_tail(rec, pair_tri, ids, starts, counts, zkey, fields,
+                      tiles_x: int, tile_h: int, tile_w: int,
+                      out_fields: tuple = _OUT_FIELDS, row0: int = 0):
+    """K1's tail (csrc/raster.cu, ``raster_kernel`` in its TAIL mode); same
+    contract as :func:`raster_tiles_tail_plain`, which it runs only for CPU
+    tensors. One launch of one resident wave of blocks that take the
+    slots' parts of CLUSTER_MIN_PART candidates, laid end to end by their
+    prefix sums, in turn from a counter; counted in
+    ``raster_tiles.launches`` (it is K1) and in its own ``launches``."""
+    k = ids.shape[0]
+    dev = rec.device
+    npx = tile_h * tile_w
+    _check("rec", rec, torch.float32, dev)
+    if rec.ndim != 2 or rec.shape[1] != REC_CH:
+        raise ValueError(f"rec: expected (T, {REC_CH}), got "
+                         f"{tuple(rec.shape)}")
+    _check("pair_tri", pair_tri, torch.int32, dev)
+    for name, t in (("ids", ids), ("starts", starts), ("counts", counts)):
+        _check(name, t, torch.int32, dev, (k,))
+    _check("zkey", zkey, torch.int32, dev)
+    if zkey.ndim != 2 or zkey.shape[1] != npx:
+        raise ValueError(f"zkey: expected (NT, {npx}), got "
+                         f"{tuple(zkey.shape)}")
+    nt = zkey.shape[0]
+    if fields.dtype != torch.float32 or fields.device != dev:
+        raise ValueError("fields: expected float32 on the records' device")
+    if tuple(fields.shape) != (len(out_fields), nt, npx) or (
+            nt > 1 and fields.stride(1) != npx) or fields.stride(2) != 1:
+        raise ValueError(f"fields: expected ({len(out_fields)}, {nt}, {npx})"
+                         f" with contiguous rows, got {tuple(fields.shape)}")
+    if "idf" not in out_fields:
+        raise ValueError("raster_tiles_tail: out_fields must hold 'idf'")
+    if dev.type == "cpu":
+        return raster_tiles_tail_plain(rec, pair_tri, ids, starts, counts,
+                                       zkey, fields, tiles_x, tile_h,
+                                       tile_w, out_fields, row0)
+    if dev.type != "cuda":
+        raise RuntimeError(f"raster_tiles_tail: unsupported device {dev}")
+    if npx > _build.MAX_TILE_PIXELS:
+        raise ValueError(f"raster_tiles_tail: tiles of {npx} px exceed "
+                         f"{_build.MAX_TILE_PIXELS}")
+    if rec.data_ptr() % 16:
+        raise ValueError("raster_tiles_tail: rec must be 16-byte aligned")
+    mask = _field_mask(out_fields)
+    if k == 0:
+        return zkey, fields
+    # The flat list of parts: each slot's part count, summed in order.
+    ends = torch.cumsum(torch.div(counts + (CLUSTER_MIN_PART - 1),
+                                  CLUSTER_MIN_PART, rounding_mode="floor"),
+                        0, dtype=torch.int32)
+    # The slots' packed (key, index) maxima, then their arrival counters
+    # and the counter that hands out the parts.
+    scratch = torch.zeros(k * npx + -(-(k + 1) // 2), dtype=torch.int64,
+                          device=dev)
+    counters = scratch.data_ptr() + k * npx * 8
+    p = _build.ptr
+    err = _build.library().bb_raster_tail(
+        p(rec), p(pair_tri), pair_tri.shape[0], p(ids), p(starts),
+        p(counts), p(ends), k, row0 * tiles_x, tiles_x, tile_h, tile_w,
+        REC_CH, ctypes.c_uint(mask), p(scratch), ctypes.c_void_p(counters),
+        ctypes.c_void_p(counters + 4 * k), p(zkey), p(fields),
+        fields.stride(0), _build.stream_ptr(dev))
+    _build.check(err, "raster_tail")
+    raster_tiles.launches += 1
+    raster_tiles_tail.launches += 1
+    return zkey, fields
+
+
+raster_tiles_tail.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1133,13 +1238,23 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
                  fine_bins: bool = False, earlyz: bool = False,
                  band_y0: int = 0, raster=raster_tiles,
                  raster_earlyz=raster_tiles_earlyz, raster_gw=raster_tiles_gw,
-                 raster_fine=raster_tiles_fine, sort=sort_keys):
+                 raster_fine=raster_tiles_fine, raster_tail=raster_tiles_tail,
+                 sort=sort_keys):
     """Bin + rasterize + resolve: the host side of K1 and its schedule
     variants K9-K11 (port of ``raster_fused_pallas``, same contract).
 
-    ``passes`` > 1: pass p covers candidate window [p·maxc, (p+1)·maxc),
-    depth-chained through the previous pass's keys, on a compact list of
-    the tiles denser than p·maxc (``dense_tile_cap`` slots).
+    ``passes`` > 1: the reference's pass p covers candidate window
+    [p·maxc, (p+1)·maxc), depth-chained through the previous pass's keys,
+    on a compact list of the tiles denser than p·maxc (``dense_tile_cap``
+    slots). Here passes 1..P-1 are K1's tail (``raster_tail``, one launch):
+    one list of the tiles denser than maxc (``dense_tile_cap`` slots),
+    each continuing its pass-0 keys over [maxc, maxc·passes) of its window
+    and merging its winners into the planes in place — the chained
+    passes' result, since each keeps the lexicographic max of (key,
+    candidate position). What bounds the tail, and how its launch spreads
+    the dense tiles' parts over the card: csrc/raster.cu. A tile the
+    passes' lists would have dropped counts in ``diag.dropped_tiles`` as
+    before; one left off the tail's list gets no tail.
     ``raster_tile_cap``: pass 0 runs only on tiles with candidates or
     conservative overflow-triangle cover. Both compactions are validated
     capacities (overflow → ``diag.dropped_tiles``). ``drop_fields`` prunes
@@ -1153,10 +1268,11 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
       dropped and counted in ``diag.dropped_cap``.
     - ``fine_bins`` (K11, ``raster_fine``): bins at (tile_w / 8)-px
       subtiles over the padded width; pass 0 scans each subtile's own fine
-      window; passes ≥ 1 run K1 over the fine-ordered windows.
+      window; the tail runs over the fine-ordered windows.
     - ``earlyz`` (K9, ``raster_earlyz``, every pass) unless ``fine_bins``
       or the group window is on, or the setup has no ``zub``: windows sort
-      near-first and the winner carries its draw order across passes.
+      near-first and the winner carries its draw order across passes,
+      which stay chained (no tail).
 
     The reference's ``merged_coverage`` (one coverage loop per group of
     tiles, slots sorted by chunk class) has no counterpart: a block here is
@@ -1229,10 +1345,12 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
         okey = torch.full((nt, npx), -1.0, dtype=torch.float32, device=dev)
 
     zkey = init_zkey
-    fields = None
+    planes = None  # (len(out_fields), NT, NPX), rows contiguous
+    idf = out_fields.index("idf")
     dropped_tiles = torch.zeros((), dtype=torch.int32, device=dev)
     dropped_win = torch.zeros((), dtype=torch.int32, device=dev)
-    for p in range(passes):
+    # Pass 0; K9's passes ≥ 1 too, which chain the draw order.
+    for p in range(passes if earlyz else 1):
         nb_p = n_big if p == 0 else zero1
         scatter_ids = None
         if p == 0 and raster_tile_cap is not None and raster_tile_cap <= nt:
@@ -1317,7 +1435,6 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
                 rec_table, big_ids, nb_p, sorted_tri, frame_ids,
                 starts_p.contiguous(), counts_p.contiguous(), zk_in, tiles_x,
                 tile_h, tile_w, out_fields, max_count=maxc)
-        fields_p = dict(zip(out_fields, fouts))
         if p == 0 and scatter_ids is not None:
             # Unlisted tiles keep clear/init depth and zero fields; dead
             # slots drop their writes (scatter target nt).
@@ -1328,37 +1445,56 @@ def raster_fused(rec_table: torch.Tensor, setup: PlanarSetup, width: int,
                 ok = torch.cat([okey, ok_new[:1]])
                 ok[scatter_ids] = ok_new
                 okey = ok[:nt]
-            fields = {}
-            for f, v in fields_p.items():
-                full = torch.zeros((nt + 1, npx), dtype=torch.float32,
-                                   device=dev)
-                full[scatter_ids] = v
-                fields[f] = full[:nt]
+            full = torch.zeros((len(out_fields), nt + 1, npx),
+                               dtype=torch.float32, device=dev)
+            full[:, scatter_ids] = fouts
+            planes = full[:, :nt]
         elif p == 0:
-            zkey, fields = zk_new, fields_p
+            zkey, planes = zk_new, fouts
             if ok_new is not None:
                 okey = ok_new
         else:
             ids_sc = torch.where(slot_live_p, ids.long(),
                                  torch.full_like(ids.long(), nt))
-            hit = fields_p["idf"] >= 0.5
             zk = torch.cat([zkey, zk_new[:1]])
             zk[ids_sc] = zk_new
             zkey = zk[:nt]
-            if ok_new is not None:
-                ok = torch.cat([okey, ok_new[:1]])
-                ok[ids_sc] = ok_new
-                okey = ok[:nt]
-            new_fields = {}
-            for f in fields:
-                full = torch.cat([fields[f], fields[f][:1]])
-                full[ids_sc] = torch.where(hit, fields_p[f],
-                                           fields[f][ids.long()])
-                new_fields[f] = full[:nt]
-            fields = new_fields
+            ok = torch.cat([okey, ok_new[:1]])
+            ok[ids_sc] = ok_new
+            okey = ok[:nt]
+            full = torch.cat([planes, planes[:, :1]], dim=1)
+            full[:, ids_sc] = torch.where(fouts[idf] >= 0.5, fouts,
+                                          planes[:, ids.long()])
+            planes = full[:, :nt]
+    if passes > 1 and not earlyz:
+        # Passes 1..P-1 as K1's tail: one list of the tiles denser than a
+        # window (every later pass's tiles), each scanning the rest of its
+        # window [maxc, min(count, maxc·passes)) from its pass-0 keys and
+        # merging its winners into the planes in place. dropped_tiles
+        # counts what the passes' own lists would have dropped.
+        k = min(dense_tile_cap, nt)  # a larger list holds only dead slots
+        ids, _ = _compact_tile_list(counts > maxc, k)
+        dense = (counts[None, :] > maxc * torch.arange(
+            1, passes, dtype=torch.int32, device=dev)[:, None]).sum(
+                dim=1, dtype=torch.int32)
+        dropped_tiles = dropped_tiles + torch.clamp(dense - k, min=0).sum(
+            dtype=torch.int32)
+        slot_live = torch.arange(k, device=dev) < torch.clamp(dense[0],
+                                                              max=k)
+        tail = maxc * (passes - 1)
+        counts_t = torch.where(
+            slot_live, torch.clamp(counts[ids.long()] - maxc, 0, tail),
+            torch.zeros_like(ids))
+        raster_tail(rec_table, sorted_tri,
+                    ids + row0 * tiles_x if row0 else ids,
+                    (starts[ids.long()] + maxc).contiguous(),
+                    counts_t.contiguous(), zkey, planes, tiles_x, tile_h,
+                    tile_w, out_fields, row0=row0)
+        profiling.count("raster_tail")
     diag = diag._replace(dropped_cap=diag.dropped_cap + dropped_win,
                          dropped_tiles=diag.dropped_tiles + dropped_tiles)
-    return _pixels_from_fields(fields), zkey.contiguous(), diag
+    return (_pixels_from_fields(dict(zip(out_fields, planes))),
+            zkey.contiguous(), diag)
 
 
 def composite_overlay(rec_table: torch.Tensor, setup: PlanarSetup,

@@ -247,6 +247,7 @@ class Kernels(NamedTuple):
     raster_earlyz: Callable  # K9
     raster_gw: Callable  # K10
     raster_fine: Callable  # K11
+    raster_tail: Callable  # K1's tail (passes ≥ 1)
 
 
 # The kernel wrappers (CUDA kernels for CUDA tensors) ...
@@ -254,14 +255,15 @@ KERNELS = Kernels(fused.raster_tiles, fused.overlay_tiles,
                   sort_ops.sort_keys, shade_sampled, shade_tonemap,
                   tq.sample_table_block_kernel, tq.sample_rows_small,
                   tq.sample_mip_block_kernel, fused.raster_tiles_earlyz,
-                  fused.raster_tiles_gw, fused.raster_tiles_fine)
+                  fused.raster_tiles_gw, fused.raster_tiles_fine,
+                  fused.raster_tiles_tail)
 # ... and their plain PyTorch versions on any device (reference renders).
 PLAIN = Kernels(fused.raster_tiles_plain, fused.overlay_tiles_plain,
                 sort_ops.sort_keys_plain, shade_sampled_plain,
                 shade_tonemap_plain, tq.sample_table_block,
                 tq.sample_rows_small_plain, tq.sample_mip_block,
                 fused.raster_tiles_earlyz_plain, fused.raster_tiles_gw_plain,
-                fused.raster_tiles_fine_plain)
+                fused.raster_tiles_fine_plain, fused.raster_tiles_tail_plain)
 
 _TABLES = (tq.QuadTable, tq.BlockTable)
 _MIP_TABLES = (tq.MipBlockMulti, tq.MipQuadMulti)
@@ -375,7 +377,7 @@ def _raster(rec, setup, width, height, settings: RenderSettings,
         earlyz=settings.early_z, band_y0=band_y0,
         raster=kernels.raster, raster_earlyz=kernels.raster_earlyz,
         raster_gw=kernels.raster_gw, raster_fine=kernels.raster_fine,
-        sort=kernels.sort,
+        raster_tail=kernels.raster_tail, sort=kernels.sort,
     )
 
 

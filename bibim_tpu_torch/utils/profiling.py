@@ -3,7 +3,8 @@
 - :func:`stage_scope` times a named stage of the host's work on
   ``time.perf_counter_ns``; :func:`count` adds to a named counter at the
   point where the counted event happens (``host_syncs``: a blocking
-  device→host read or a synchronous pageable host→device copy)
+  device→host read or a synchronous pageable host→device copy;
+  ``raster_tail``: a launch of K1's tail, ``ops.fused.raster_fused``)
 - :func:`next_frame` starts a new frame id (``Session.render`` calls it);
   every span and count records the frame id of its thread
 - :func:`snapshot` copies the records out, oldest first; another thread
@@ -164,6 +165,8 @@ snapshot = RECORDER.snapshot
 # The five stages of ``render_frame``, in the order they run.
 FRAME_STAGES = ("frame.geometry", "frame.raster", "frame.shade",
                 "frame.overlay", "frame.output")
+# The counters :func:`stage_medians` reports a frame.
+FRAME_COUNTERS = ("host_syncs", "raster_tail")
 
 
 def self_ns(records: list) -> dict:
@@ -179,28 +182,29 @@ def self_ns(records: list) -> dict:
 def stage_medians(records: list, frames: int = 60) -> dict:
     """Over the newest ``frames`` ``framegraph.frame`` spans in
     ``records``: the median self ms of each of :data:`FRAME_STAGES` run
-    directly inside them (``<stage>_ms``), and the median ``host_syncs``
-    counted under them."""
+    directly inside them (``<stage>_ms``), and the median count of each
+    of :data:`FRAME_COUNTERS` under them."""
     by_seq = {r.seq: r for r in records}
     roots = {r.seq for r in records
              if r.name == "framegraph.frame" and r.count is None}
     roots = set(sorted(roots)[-frames:])
     own = self_ns(records)
     stage_ns = {s: {} for s in FRAME_STAGES}
-    syncs = dict.fromkeys(roots, 0)
+    counts = {c: dict.fromkeys(roots, 0) for c in FRAME_COUNTERS}
     for r in records:
         if r.count is None:
             if r.name in stage_ns and r.parent in roots:
                 per = stage_ns[r.name]
                 per[r.parent] = per.get(r.parent, 0) + own[r.seq]
-        elif r.name == "host_syncs":
+        elif r.name in counts:
             root = _ancestor(r, roots, by_seq)
             if root is not None:
-                syncs[root] += r.count
+                counts[r.name][root] += r.count
     out = {s.split(".", 1)[1] + "_ms":
            (statistics.median(v.values()) / 1e6 if v else None)
            for s, v in stage_ns.items()}
-    out["host_syncs"] = statistics.median(syncs.values()) if syncs else None
+    for c, per in counts.items():
+        out[c] = statistics.median(per.values()) if per else None
     return out
 
 

@@ -245,6 +245,10 @@ C4_VIEWS = (("bench camera", 0.0, 0.0), ("yaw -25", -25.0, 0.0),
 C4_MODES = (("default", {}), ("early_z", {"early_z": True}),
             ("fine_bins", {"fine_bins": True}))
 C4_MARGIN = 1.05
+# The viewer session's merged caps for the 64 balls (max_candidates,
+# raster_passes: each cap the largest of its autotunes along the
+# benchmark's orbit_row path), at which K1's tail is also timed.
+C4_SESSION_CAPS = (1024, 88)
 # Bounds: NVIDIA's H100 SXM data sheet (3.35 TB/s HBM3, 67 TFLOP/s fp32
 # outside the tensor cores), and the operations each kernel does per unit
 # of work: a candidate × pixel coverage test (5 plane evaluations, the
@@ -294,6 +298,9 @@ KERNEL_INFO = {
     "raster_fine": ("K11 fine-subtile raster",
                     "bibim_tpu_torch/csrc/raster_fine.cu",
                     "bibim_tpu/ops/fused.py:905"),
+    # K1's passes 1..P-1 (raster_fused_pallas's pass loop), one launch.
+    "raster_tail": ("K1 raster", "bibim_tpu_torch/csrc/raster.cu",
+                    "bibim_tpu/ops/fused.py:670"),
 }
 
 
@@ -564,6 +571,9 @@ def capture_kernels(kernels, calls: dict):
             if name == "overlay":
                 # K4 writes its LDR planes in place: keep the input.
                 kept = args[:9] + (args[9].clone(),) + args[10:]
+            elif name == "raster_tail":
+                # So does K1's tail, its keys and planes.
+                kept = tail_inputs(args)
             out = fn(*args, **kw)
             calls.setdefault(name, []).append((kept, kw, out))
             return out
@@ -954,6 +964,140 @@ def window_stats(counts) -> dict:
         window_max=int(counts.max()) if counts.numel() else 0,
         window_mean=float(counts.mean()) if counts.numel() else 0.0,
         live_window_mean=float(live.mean()) if live.numel() else 0.0)
+
+
+def tail_inputs(args) -> tuple:
+    """A K1 tail call's arguments with fresh copies of the keys and planes
+    it merges into in place (args 5 and 6)."""
+    return args[:5] + (args[5].clone(), args[6].clone()) + args[7:]
+
+
+class capture_setups:
+    """Within the block, the triangle setup of every
+    ``ops.fused.raster_fused`` call, by the id of its record table (the
+    first argument of the K1 calls it makes)."""
+
+    def __init__(self, setups: dict):
+        self.setups = setups
+
+    def __enter__(self):
+        from bibim_tpu_torch.ops import fused
+
+        self.fn = fn = fused.raster_fused
+
+        def run(rec, setup, *args, **kw):
+            self.setups[id(rec)] = (rec, setup)
+            return fn(rec, setup, *args, **kw)
+
+        fused.raster_fused = run
+        return self
+
+    def __exit__(self, *exc):
+        from bibim_tpu_torch.ops import fused
+
+        fused.raster_fused = self.fn
+
+
+def tail_bound(args, setup) -> dict:
+    """:func:`bound` of one K1 tail call, counted as
+    ``h100_bench/roofline/k1.py`` counts a raster pass: each tail row
+    tested at the pixels of its triangle's bounding box inside its slot's
+    tile (COVER_OPS) and each pixel a row of the tail won resolved
+    (RESOLVE_OPS); bytes: each row's COVER_CH coverage floats, the record
+    channels of each distinct winning triangle, the initial key at every
+    pixel of a live slot, the key at each pixel the tail won and the
+    planes at each such pixel whose winner is a triangle. Also the rows,
+    live and empty slots and the longest tail."""
+    import torch
+
+    from bibim_tpu_torch.ops import fused
+
+    rec, pair_tri, ids, starts, counts, zkey = args[:6]
+    tiles_x, tile_h, tile_w = args[7:10]
+    out_fields = args[10] if len(args) > 10 else fused._OUT_FIELDS
+    live = counts > 0
+    ids_l, st, cn = ids[live].long(), starts[live].long(), counts[live].long()
+    rows = int(cn.sum())
+    slot = torch.repeat_interleave(torch.arange(cn.numel(), device=cn.device),
+                                   cn)
+    first = torch.cumsum(cn, 0) - cn
+    pos = torch.arange(rows, device=cn.device) - first[slot]
+    tri = pair_tri[st[slot] + pos].long()
+    bx0, by0, bx1, by1 = (b[tri.clamp(min=0)].long() for b in setup.bbox)
+    x0 = (ids_l % tiles_x * tile_w)[slot]
+    y0 = (ids_l // tiles_x * tile_h)[slot]
+    box_px = (torch.clamp(torch.minimum(bx1, x0 + tile_w - 1)
+                          - torch.maximum(bx0, x0) + 1, min=0)
+              * torch.clamp(torch.minimum(by1, y0 + tile_h - 1)
+                            - torch.maximum(by0, y0) + 1, min=0))
+    px, py = fused._pixel_centres(ids_l.int(), tiles_x, tile_h, tile_w)
+    _, best = fused._scan_plain(
+        rec, torch.zeros((0,), dtype=torch.int32, device=rec.device),
+        torch.zeros((1,), dtype=torch.int32, device=rec.device), pair_tri,
+        st.int(), cn.int(), zkey[ids_l], px, py)
+    won = best >= 0
+    covered = won & (rec[best.clamp(min=0).long(), fused._ID] >= 0.5)
+    winners = n_distinct(torch.where(covered, best, torch.full_like(best,
+                                                                   -1)))
+    nbytes = (rows * COVER_CH * 4
+              + winners * field_channels(out_fields) * 4
+              + cn.numel() * tile_h * tile_w * 4 + int(won.sum()) * 4
+              + int(covered.sum()) * len(out_fields) * 4)
+    ops = (int(box_px.sum()) * COVER_OPS
+           + int(covered.sum()) * RESOLVE_OPS)
+    return dict(bound(nbytes, ops), tail_rows=rows,
+                live_slots=int(cn.numel()),
+                empty_slots=int(counts.numel() - cn.numel()),
+                longest=int(cn.max()) if cn.numel() else 0,
+                won_px=int(won.sum()), box_px=int(box_px.sum()))
+
+
+def check_raster_tail(calls, setups, repeats: int = 5) -> dict:
+    """K1's tail on every captured call (arguments as before the call):
+    keys and the id plane bit-equal to its plain version, the other
+    planes within K1's 1e-3, and ``repeats`` launches on fresh copies of
+    the inputs bit-equal to one another (the atomic merge does not depend
+    on the order the parts finish). Then, on the first call, the wrapper
+    ms (CUDA events), the kernel ms (:func:`graph_ms`; replays merge into
+    the planes the first launch left, which gives the same winners and
+    the same work), the plain ms and :func:`tail_bound`."""
+    import torch
+
+    from bibim_tpu_torch.ops import fused
+
+    err = 0.0
+    for args, kw, _ in calls:
+        want = fused.raster_tiles_tail_plain(*tail_inputs(args), **kw)
+        out_fields = args[10] if len(args) > 10 else fused._OUT_FIELDS
+        idf = out_fields.index("idf")
+        first = None
+        for _ in range(repeats):
+            got = fused.raster_tiles_tail(*tail_inputs(args), **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got[0], want[0]) or not torch.equal(
+                    got[1][idf], want[1][idf]):
+                raise AssertionError("K1 tail: zkey / tri_id differ from "
+                                     "its plain version")
+            err = max(err, float((got[1] - want[1]).abs().max()))
+            if err > 1e-3:
+                raise AssertionError(f"K1 tail planes differ by {err}")
+            if first is None:
+                first = got
+            elif not (torch.equal(got[0], first[0])
+                      and torch.equal(got[1], first[1])):
+                raise AssertionError("K1 tail: repeated launches differ")
+    args, kw, _ = calls[0]
+    run = tail_inputs(args)
+    return dict(max_abs_err=err, checked_calls=len(calls),
+                repeats=repeats, planes=len(run[10]) if len(run) > 10
+                else len(fused._OUT_FIELDS),
+                ms=cuda_ms(lambda: fused.raster_tiles_tail(*run, **kw)),
+                kernel_ms=graph_ms(lambda: fused.raster_tiles_tail(*run,
+                                                                   **kw)),
+                plain_ms=cuda_ms(lambda: fused.raster_tiles_tail_plain(
+                    *tail_inputs(args), **kw), 2),
+                library_ms=None,
+                **tail_bound(args, setups[id(args[0])][1]))
 
 
 def k1_reference_ms(args8, tiles, out_fields, max_count) -> dict:
@@ -2268,6 +2412,8 @@ def c4_frames(dev, modes=C4_MODES):
 def run_config4(dev, smi: str, name: str):
     """The instanced path: per view host culling and the autotune of each
     raster mode, the kernel phases, then the counted frames."""
+    import dataclasses
+
     import torch
 
     from bibim_tpu_torch.ops import fused
@@ -2279,18 +2425,23 @@ def run_config4(dev, smi: str, name: str):
 
     # Kernel phases on the frames' own inputs.
     calls: dict = {}
+    setups: dict = {}
     per_frame = []
-    for label, data, vb, s in frames:
-        before = {k: len(v) for k, v in calls.items()}
-        render_frame(data, vb, fp, mats, None, s,
-                     kernels=capture_kernels(KERNELS, calls))
-        per_frame.append({k: len(v) - before.get(k, 0)
-                          for k, v in calls.items()})
+    with capture_setups(setups):
+        for label, data, vb, s in frames:
+            before = {k: len(v) for k, v in calls.items()}
+            render_frame(data, vb, fp, mats, None, s,
+                         kernels=capture_kernels(KERNELS, calls))
+            per_frame.append({k: len(v) - before.get(k, 0)
+                              for k, v in calls.items()})
     torch.cuda.synchronize()
     n_modes = len(C4_MODES)
-    first = calls["raster"][:per_frame[0]["raster"]]
     kres = {
-        "raster": check_raster(first[0], "raster", first[1:]),
+        # Pass 0 of every frame that runs K1 (the default ones).
+        "raster": check_raster(calls["raster"][0], "raster",
+                               calls["raster"][1:]),
+        # Passes 1..P-1 of the default and fine-bin frames.
+        "raster_tail": check_raster_tail(calls["raster_tail"], setups),
         # Every sort of the nine frames: int32 packed keys, and on the
         # 64-instance view's early-z frame int64 keys.
         "sort": check_sorts(calls["sort"]),
@@ -2340,6 +2491,31 @@ def run_config4(dev, smi: str, name: str):
             row.update(raster_bound("raster", a, o))
             print(f"config-4 K1 launch, {label}, pass {p}: "
                   + json.dumps(row))
+    # K1's tail per default frame, and on the same views at the viewer
+    # session's merged caps for 64 balls (88 passes of 1,024): its kernel
+    # ms against its bound, the wrapper and the plain ms.
+    tails = iter(calls["raster_tail"])
+    for (label, data, vb, s), n in zip(frames, per_frame):
+        row_calls = [next(tails) for _ in range(n.get("raster_tail", 0))]
+        if s.early_z or s.fine_bins or not row_calls:
+            continue
+        print(f"config-4 K1 tail, {label}, {s.raster_passes} passes of "
+              f"{s.max_candidates}: "
+              + json.dumps(check_raster_tail(row_calls, setups)))
+        merged = dataclasses.replace(s, max_candidates=C4_SESSION_CAPS[0],
+                                     raster_passes=C4_SESSION_CAPS[1])
+        got: dict = {}
+        with capture_setups(setups):
+            out = render_frame(data, vb, fp, mats, None, merged,
+                               kernels=capture_kernels(KERNELS, got))
+        torch.cuda.synchronize()
+        if any(int(d) for d in out["bin_diag"]):
+            raise AssertionError(f"config-4 {label} at the session caps "
+                                 "dropped geometry")
+        print(f"config-4 K1 tail, {label}, {merged.raster_passes} passes "
+              f"of {merged.max_candidates} (session caps): "
+              + json.dumps(check_raster_tail(got["raster_tail"], setups)))
+        del got
     # K9 per launch (every pass of each early-z frame) and K11 per launch
     # (pass 0 of each fine-bin frame), each beside K1 on the same windows:
     # is a launch held back by its longest window?
@@ -2365,7 +2541,8 @@ def run_config4(dev, smi: str, name: str):
 
     # Main path: counters to 0, the nine frames through render_frame.
     counters = (fused.raster_tiles, sort_keys, shade_sampled,
-                fused.raster_tiles_earlyz, fused.raster_tiles_fine)
+                fused.raster_tiles_earlyz, fused.raster_tiles_fine,
+                fused.raster_tiles_tail)
     for fn in counters:
         fn.launches = 0
     sort_keys.device_launches = 0
@@ -2392,8 +2569,16 @@ def run_config4(dev, smi: str, name: str):
                 "sort": sort_keys.launches,
                 "shade": shade_sampled.launches,
                 "raster_earlyz": fused.raster_tiles_earlyz.launches,
-                "raster_fine": fused.raster_tiles_fine.launches}
+                "raster_fine": fused.raster_tiles_fine.launches,
+                "raster_tail": fused.raster_tiles_tail.launches}
     print("config-4 main-path launches: " + json.dumps(launches))
+    # Each default and fine-bin frame: pass 0 and one tail; early-z
+    # frames keep K9's pass loop.
+    n_tail = sum(not s.early_z and s.raster_passes > 1
+                 for _, _, _, s in frames)
+    if launches["raster_tail"] != n_tail:
+        raise AssertionError(f"{launches['raster_tail']} K1 tail launches "
+                             f"for {n_tail} multi-pass frames")
     print(k3_device_line("config-4 main path:"))
     for k, n in launches.items():
         if n <= 0:
@@ -4428,8 +4613,8 @@ def main() -> int:
     # pair launches: K2 on the routed close-up and the 1080p lossy frame,
     # K6 on the config-5 lossy frame),
     # every kernel of the config-2 path (K2 with the mip groups, K8, K7
-    # routed), then the config-4 path (K1, K3, K2, K9, K11). ``frames``:
-    # the main-path frames its launches count.
+    # routed), then the config-4 path (K1, its tail, K3, K2, K9, K11).
+    # ``frames``: the main-path frames its launches count.
     n2, n4 = len(C2_CAMERA_Z) + len(C2_VIEWS), len(C4_VIEWS) * len(C4_MODES)
     rows = [(k, KERNEL_INFO[k][0] + ", config-1 512² flat", kres1[k],
              launches1[k], 1) for k in kres1]
@@ -4451,8 +4636,9 @@ def main() -> int:
                  launches_p["sample_block_pair"], 1))
     rows += [(k, KERNEL_INFO[k][0] + ", config-2 720p cubes", kres2[k],
               launches2[k], n2) for k in kres2]
-    rows += [(k, KERNEL_INFO[k][0] + ", config-4 1080p x64", kres4[k],
-              launches4[k], n4) for k in kres4]
+    rows += [(k, KERNEL_INFO[k][0] + (", tail" if k == "raster_tail"
+                                      else "") + ", config-4 1080p x64",
+              kres4[k], launches4[k], n4) for k in kres4]
     new_paths = {
         "raster": "new paths: main passes (forward, taps, (T, 3), TBN, "
                   "MeshScene, cubes)",

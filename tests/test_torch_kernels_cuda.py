@@ -289,21 +289,24 @@ def test_raster_kernel_instanced_passes_bit_equal(dev):
                        dense_tile_cap=128,
                        live_tile_cap=128, raster_tile_cap=128,
                        span_mid_cap=4096)
-    calls = []
+    calls, tails = [], []
 
     def capture(*a, **k):
         calls.append((a, k))
         return fused.raster_tiles(*a, **k)
 
     out = render_frame(scene.scene_data(), vb, fp, mats, None, s,
-                       kernels=KERNELS._replace(raster=capture))
+                       kernels=KERNELS._replace(raster=capture,
+                                                raster_tail=_capture_tail(
+                                                    tails)))
     ref = render_frame(scene.scene_data(), vb, fp, mats, None, s,
                        kernels=PLAIN)
     torch.cuda.synchronize()
     for k in range(4):
         assert int(out["bin_diag"][k]) == 0
     assert torch.equal(out["image"], ref["image"])
-    assert len(calls) == 8
+    # Pass 0, then passes 1-7 as one tail launch.
+    assert len(calls) == 1 and len(tails) == 1
     idf = fused._OUT_FIELDS.index("idf")
     for a, k in calls:
         want = fused.raster_tiles_plain(*a, **k)
@@ -313,6 +316,75 @@ def test_raster_kernel_instanced_passes_bit_equal(dev):
             assert torch.equal(zk, want[0]) and torch.equal(f[idf],
                                                             want[1][idf])
             assert float((f - want[1]).abs().max()) <= 1e-3
+    _assert_tail_bit_equal(*tails[0])
+
+
+def _capture_tail(calls: list):
+    """A K1 tail that keeps each call's arguments, its planes cloned
+    before the call writes them in place."""
+    def run(*a, **k):
+        calls.append((_clone_tail_args(a), k))
+        return fused.raster_tiles_tail(*a, **k)
+    return run
+
+
+def _clone_tail_args(a):
+    return a[:5] + (a[5].clone(), a[6].clone()) + a[7:]
+
+
+def _assert_tail_bit_equal(a, k, repeats: int = 1):
+    """The tail on the captured inputs equals its plain version (keys and
+    the id plane bit for bit, the other planes within K1's 1e-3), and
+    ``repeats`` launches give the same bits each."""
+    want = fused.raster_tiles_tail_plain(*_clone_tail_args(a), **k)
+    out_fields = a[10] if len(a) > 10 else k.get("out_fields",
+                                                 fused._OUT_FIELDS)
+    idf = out_fields.index("idf")
+    first = None
+    for _ in range(repeats):
+        got = fused.raster_tiles_tail(*_clone_tail_args(a), **k)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1][idf], want[1][idf])
+        assert float((got[1] - want[1]).abs().max()) <= 1e-3
+        if first is None:
+            first = tuple(t.clone() for t in got)
+        else:
+            assert torch.equal(got[0], first[0])
+            assert torch.equal(got[1], first[1])
+
+
+@pytest.mark.cuda
+def test_raster_tail_config4_views_bit_equal(dev):
+    """K1's tail on config 4's three autotuned 1920×1080 views (64 balls,
+    the default raster mode): each frame launches K1 twice, pass 0 and
+    the tail; the tail equals its plain version on the same inputs, with
+    live slots and slots whose tail is empty, five repeated launches (its
+    atomic merge) give the same bits, and the frame equals the all-plain
+    render."""
+    import chip_smoke
+
+    frames, fp, mats = chip_smoke.c4_frames(dev, modes=(("default", {}),))
+    empty = live = 0
+    for label, data, vb, s in frames:
+        assert s.raster_passes > 1, label
+        tails = []
+        before = fused.raster_tiles.launches, fused.raster_tiles_tail.launches
+        out = render_frame(data, vb, fp, mats, None, s,
+                           kernels=KERNELS._replace(
+                               raster_tail=_capture_tail(tails)))
+        torch.cuda.synchronize()
+        assert fused.raster_tiles.launches - before[0] == 2, label
+        assert fused.raster_tiles_tail.launches - before[1] == 1, label
+        assert all(int(d) == 0 for d in out["bin_diag"]), label
+        ref = render_frame(data, vb, fp, mats, None, s, kernels=PLAIN)
+        assert torch.equal(out["image"], ref["image"]), label
+        (a, k), = tails
+        counts = a[4]
+        empty += int((counts == 0).sum())
+        live += int((counts > 0).sum())
+        _assert_tail_bit_equal(a, k, repeats=5)
+    assert empty > 0 and live > 0
 
 
 @pytest.mark.cuda
@@ -328,6 +400,7 @@ def test_raster_kernel_bit_equal(dev, frame, kw):
     px, zk, diag = fused.raster_fused(rec, setup, W, H, **args)
     px_p, zk_p, diag_p = fused.raster_fused(
         rec, setup, W, H, raster=fused.raster_tiles_plain,
+        raster_tail=fused.raster_tiles_tail_plain,
         sort=sort.sort_keys_plain, **args)
     torch.cuda.synchronize()
     assert fused.raster_tiles.launches > before
@@ -982,6 +1055,7 @@ _PLAIN_RASTERS = dict(raster=fused.raster_tiles_plain,
                       raster_earlyz=fused.raster_tiles_earlyz_plain,
                       raster_gw=fused.raster_tiles_gw_plain,
                       raster_fine=fused.raster_tiles_fine_plain,
+                      raster_tail=fused.raster_tiles_tail_plain,
                       sort=sort.sort_keys_plain)
 
 

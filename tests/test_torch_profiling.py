@@ -162,7 +162,8 @@ def test_counters_are_tagged_with_their_span(clock):
     # Under framegraph.frame: 2 + frame in frame.shade, 1 directly.
     assert got["host_syncs"] == 4
     assert got == {"geometry_ms": 1.0, "raster_ms": 2.0, "shade_ms": 3.0,
-                   "overlay_ms": 4.0, "output_ms": 5.0, "host_syncs": 4}
+                   "overlay_ms": 4.0, "output_ms": 5.0, "host_syncs": 4,
+                   "raster_tail": 0}
     assert profiling.stage_medians(records, frames=1)["host_syncs"] == 5
 
 
@@ -258,6 +259,57 @@ def test_forced_drop_retune_names_the_field(standin, cap, field):
     assert retune.detail == ("dropped", field)
     (root,) = [r for r in records if r.name == "session.frame"]
     assert retune.parent == root.seq
+
+
+@pytest.mark.parametrize("passes,tails", [(3, 1), (1, 0)])
+def test_raster_tail_counted_once_a_multipass_frame(passes, tails):
+    """``raster_tail`` under ``framegraph.frame``: one K1 tail launch on a
+    frame of three raster passes, none on a single-pass frame."""
+    import numpy as np
+
+    from bibim_tpu_torch import math3d as m3
+    from bibim_tpu_torch.ops import texture_quad as tq
+    from bibim_tpu_torch.pipeline import (
+        FrameParams,
+        RenderSettings,
+        ViewBlock,
+        render_frame,
+    )
+    from bibim_tpu_torch.scene.camera import FreeLookCamera
+    from bibim_tpu_torch.scene.meshgen import generate_uv_sphere_mesh
+    from bibim_tpu_torch.scene.scene import SceneData, batch_from_mesh
+    from bibim_tpu_torch.scene.shaderball import (
+        ground_plane_batch,
+        shaderball_lights,
+    )
+
+    w, h = 256, 128
+    mesh = generate_uv_sphere_mesh(1.0, 32, 24)
+    model = np.asarray(m3.translate([0.0, -0.3, 3.0]))
+    scene = SceneData(batches=(batch_from_mesh(mesh, model, device="cpu"),
+                               ground_plane_batch("cpu")),
+                      lights=shaderball_lights("cpu"))
+    cam = FreeLookCamera()
+    vb = ViewBlock(view=torch.as_tensor(cam.get_view_matrix()),
+                   proj=m3.perspective(60.0, w / h, 0.1, 1000.0,
+                                       device="cpu"),
+                   view_pos=torch.as_tensor(cam.pos),
+                   enable_normal_map=torch.tensor(0))
+    mats = tq.build_quad_tables(
+        {slot: np.full((16, 16, 1), 128, np.uint8) for slot in tq.SLOTS},
+        device="cpu")
+    s = RenderSettings(width=w, height=h, outputs="image+diag",
+                       show_gizmo=False, show_lights=False, pair_sampling=0,
+                       max_candidates=64, raster_passes=passes)
+    profiling.next_frame()
+    out = render_frame(scene, vb, FrameParams(torch.tensor(1),
+                                              torch.tensor(1.0)),
+                       mats, None, s)
+    assert all(int(d) == 0 for d in out["bin_diag"])
+    records = _frame_records()
+    assert [r.count for r in records if r.name == "raster_tail"] == \
+        [1] * tails
+    assert profiling.stage_medians(records, frames=1)["raster_tail"] == tails
 
 
 # ---------------------------------------------------------------------------

@@ -136,9 +136,12 @@ class TestViewerServer:
         # The render_frame stages' rolling medians, from the span recorder.
         stages = stats["stages"]
         assert set(stages) == {"geometry_ms", "raster_ms", "shade_ms",
-                               "overlay_ms", "output_ms", "host_syncs"}
-        assert all(stages[k] > 0 for k in stages if k != "host_syncs")
+                               "overlay_ms", "output_ms", "host_syncs",
+                               "raster_tail"}
+        assert all(stages[k] > 0 for k in stages
+                   if k not in ("host_syncs", "raster_tail"))
         assert stages["host_syncs"] == 0  # a CPU session never syncs
+        assert stages["raster_tail"] == 0  # one raster pass a frame
         for body in (b"{not json", b"[1, 2]"):
             with pytest.raises(urllib.error.HTTPError) as err:
                 _post(viewer, body)
