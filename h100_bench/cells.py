@@ -1,9 +1,11 @@
 """Cells, found by name: a cell of ``BENCHMARK.json`` names a
 configuration (``configs/<config>.json``) and a traffic mix
 (``traffic/<traffic>.json``); its per-layer metrics are readers
-``metrics/<metric>.py`` and its traffic's driver ``drivers/<driver>.py``.
-A later cell, mix, configuration or metric is a new file; nothing here
-lists them.
+``metrics/<metric>.py``, its traffic's driver ``drivers/<driver>.py``,
+and the plain reference its configuration names (``"reference"``, by
+default ``render``) ``reference/<name>.py``. A later cell, mix,
+configuration, metric or reference is a new file; nothing here lists
+them.
 """
 
 from __future__ import annotations
@@ -68,11 +70,17 @@ def load_cell(name: str, benchmark=BENCHMARK, dirs=(HERE,)) -> Cell:
                 dirs=tuple(dirs))
 
 
-def load_module(cell: Cell, kind: str, name: str):
-    """The module ``<kind>/<name>.py`` of the cell's directories."""
-    path = _find(cell.dirs, kind, f"{name}.py")
-    spec = importlib.util.spec_from_file_location(
-        f"h100_bench_{kind}_{name.replace('.', '_')}", path)
+def load_module(cell, kind: str, name: str):
+    """The module ``<kind>/<name>.py`` of the cell's directories
+    (``cell`` a :class:`Cell` or the directories themselves), the first
+    that holds one."""
+    dirs = cell.dirs if isinstance(cell, Cell) else cell
+    path = _find(dirs, kind, f"{name}.py")
+    key = f"h100_bench_{kind}_{name.replace('.', '_')}"
+    mod = sys.modules.get(key)
+    if mod is not None and mod.__file__ == str(path):
+        return mod  # loaded once a process (a reference's bind state)
+    spec = importlib.util.spec_from_file_location(key, path)
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)

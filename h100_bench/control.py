@@ -7,9 +7,10 @@
 - the control's: the reference computed in bfloat16 (the precision below
   the float32 the configuration states) put in the program's place, on
   the frames that the first ``--control-seeds`` seeds' runs compared;
-- on the same frames, two faults planted in the reference put in the
-  program's place: the light spheres and the gizmo left out, and a
-  16 x 16 block inverted.
+- on the same frames, faults planted in the reference put in the
+  program's place: each of the reference module's ``FAULTS`` (for the
+  ShaderBall reference the light spheres and the gizmo left out, together
+  and apart), and a 16 x 16 block inverted.
 
     python3 h100_bench/control.py --workload <cell> --seeds 1,2,3 \\
         [--seconds 4] [--control-seeds 3]
@@ -68,9 +69,10 @@ def main(argv=None) -> int:
         program.append(row)
         print(json.dumps(row), flush=True)
         if k < args.control_seeds:
-            ref = harness.make_reference(cell.config, kept["root"], "cuda")
+            ref = harness.make_reference(cell.config, kept["root"], "cuda",
+                                         dirs=cell.dirs)
             low = harness.make_reference(cell.config, kept["root"], "cuda",
-                                         torch.bfloat16)
+                                         torch.bfloat16, dirs=cell.dirs)
             with torch.no_grad():
                 read = check.readings(
                     lambda pose: harness.reference_frame(ref, pose),
@@ -80,24 +82,27 @@ def main(argv=None) -> int:
             control.append(row)
             print(json.dumps(row), flush=True)
             # Faults planted in the reference put in the program's place,
-            # at the cell's own size: the overlays left out, and a 16 x 16
-            # block of each frame inverted where it is produced.
-            bare = harness.make_reference(
-                dict(cell.config, show_lights=False, show_gizmo=False),
-                kept["root"], "cuda")
-            for name, frame in (
-                    ("no_overlays",
-                     lambda pose: harness.reference_frame(bare, pose)[0]),
-                    ("block", lambda pose: inverted_block(
-                        harness.reference_frame(ref, pose)[0]))):
+            # at the cell's own size: each of its module's FAULTS, and a
+            # 16 x 16 block of each frame inverted where it is produced.
+            planted = harness.reference_module(cell.config,
+                                               cell.dirs).FAULTS
+            for name in [*planted, "block"]:
+                bad = ref if name == "block" else harness.make_reference(
+                    dict(cell.config, **planted[name]), kept["root"], "cuda",
+                    dirs=cell.dirs)
                 with torch.no_grad():
+                    frames = [harness.reference_frame(bad, pose)[0]
+                              for pose in kept["poses"]]
+                    if name == "block":
+                        frames = [inverted_block(img) for img in frames]
                     read = check.readings(
                         lambda pose: harness.reference_frame(ref, pose),
-                        [(frame(pose), pose) for pose in kept["poses"]])
+                        list(zip(frames, kept["poses"])))
                 faults.setdefault(name, []).append(read)
                 print(json.dumps({"seed": seed, "side": name, **read}),
                       flush=True)
-            del ref, low, bare
+                del bad
+            del ref, low
             torch.cuda.empty_cache()
     names = list(check.NAMES)
     print(json.dumps({

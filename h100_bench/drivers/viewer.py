@@ -6,7 +6,11 @@ camera is set to the path's pose and ``Session.render`` is called as soon
 as the previous call returned (a closed loop, one client). Set-up renders
 the coarse pass over the path's range (:func:`camera_paths.warmup_poses`)
 so that the caps the window needs exist, then the window runs for the
-given seconds and ends by draining the frames in flight.
+given seconds and ends by draining the frames in flight and waiting for
+the device. An untraced window on a device runs under a CUDA-only
+``torch.profiler`` from its first launch to that wait, for the device's
+busy seconds (``frame_device_ms``); a traced one profiles a segment
+with the host's spans instead.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ class Window:
     spans: list = field(default_factory=list)  # outside the profiled part
     device: tracing.DeviceTrace | None = None
     profiled: range = range(0)
+    # Device-busy seconds of the whole window (untraced runs on a device).
+    device_busy_s: float | None = None
 
 
 def make_session(config: dict, traffic: dict, device: str):
@@ -118,9 +124,9 @@ def run(config: dict, traffic: dict, seed: int, seconds: float,
         for pose in camera_paths.warmup_poses(params) + [path.pose(0)]:
             set_pose(session, pose)
             session.render(dt)
-        if trace and device != "cpu":
+        if device != "cpu":
             # The profiler's own start-up (CUPTI) belongs to set-up.
-            with _profiler():
+            with _profiler(cpu=trace):
                 session.render(dt)
         session.flush()
         log(f"warm-up: {len(session.retunes)} tunes")
@@ -134,6 +140,12 @@ def run(config: dict, traffic: dict, seed: int, seconds: float,
         # Write back what set-up wrote (a stand-in root, the program's
         # asset cache) now, and not in the window.
         os.sync()
+        # An untraced window records the device's work from its first
+        # launch to its last, for the device ms a frame.
+        whole = None
+        if not trace and device != "cpu":
+            whole = _profiler(cpu=False)
+            whole.__enter__()
         t_first = time.perf_counter()
         i = 0
         while True:
@@ -172,6 +184,8 @@ def run(config: dict, traffic: dict, seed: int, seconds: float,
         t0 = time.perf_counter()
         tail = session.readback.flush()
         session.flush()
+        if device != "cpu":
+            torch.cuda.synchronize()
         t1 = time.perf_counter()
         first = i - len(tail)
         calls.append(timeline.Call(t0, t1, None,
@@ -181,6 +195,15 @@ def run(config: dict, traffic: dict, seed: int, seconds: float,
                 dropped.add(f)
             sample.offer(f, img)
         window_s = t1 - t_first
+        busy_s = None
+        if whole is not None:
+            ts = time.perf_counter()
+            whole.__exit__(None, None, None)
+            tr = time.perf_counter()
+            busy_s = tracing.device_busy_s(whole)
+            del whole
+            log(f"device trace of the window: stopped in {tr - ts:.1f} s, "
+                f"read in {time.perf_counter() - tr:.1f} s")
         peak = (torch.cuda.max_memory_allocated(torch.device(device))
                 if device != "cpu" else 0)
         win = Window(calls=calls, dropped=dropped, window_s=window_s,
@@ -188,7 +211,7 @@ def run(config: dict, traffic: dict, seed: int, seconds: float,
                      poses=[path.pose(f) for f in range(i)],
                      sample=sample.items(),
                      retunes=len(session.retunes) - retunes0,
-                     memory_peak_bytes=peak)
+                     memory_peak_bytes=peak, device_busy_s=busy_s)
         if trace:
             win.spans = [s for s in spans.spans
                          if s.frame >= 0 and s.frame not in profiled]
@@ -203,12 +226,13 @@ def run(config: dict, traffic: dict, seed: int, seconds: float,
             setattr(mod, attr, fn)
 
 
-def _profiler():
+def _profiler(cpu: bool = True):
     import torch
 
-    return torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA])
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if cpu:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
+    return torch.profiler.profile(activities=acts)
 
 
 def _stop(prof, spans, seg, i):

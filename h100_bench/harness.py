@@ -21,6 +21,8 @@ CACHE = HERE / ".cache"
 # program's ~135 MB asset cache of it) once and later runs read it, so
 # that a run's set-up writes nothing and disk writes stay small.
 STANDIN_SETS = 4
+# The reference of a configuration without a "reference" key.
+DEFAULT_REFERENCE = "render"
 
 
 @dataclass
@@ -31,7 +33,7 @@ class RunData:
     cell: Cell
     window: object  # the driver's Window
     reference: object  # () -> the cell's plain reference, built once
-    frame: dict  # what the counts read besides the passes
+    frame: dict  # what the counts read besides the passes (ref.facts())
     _rooflines: dict = field(default_factory=dict)
 
     @property
@@ -94,24 +96,25 @@ def reference_frame(ref, pose) -> tuple:
     return img.cpu().numpy(), mask.cpu().numpy()
 
 
-def make_reference(config: dict, root: Path, device: str, dtype=None):
+def reference_module(config: dict, dirs=(HERE,)):
+    """The plain reference module ``config`` names (``"reference"``, by
+    default :data:`DEFAULT_REFERENCE`): ``reference/<name>.py`` of the
+    first of ``dirs`` that holds one. It exposes ``make(config, root,
+    device, dtype)`` and ``FAULTS``, the faults a control plants in it as
+    configuration settings."""
+    return load_module(dirs, "reference",
+                       config.get("reference", DEFAULT_REFERENCE))
+
+
+def make_reference(config: dict, root: Path, device: str, dtype=None,
+                   dirs=(HERE,)):
+    """``config``'s plain reference (:func:`reference_module`) on
+    ``device``, every floating-point step in ``dtype`` (float32 unless
+    given)."""
     import torch
 
-    from h100_bench.reference import scene as ref_scene
-    from h100_bench.reference.render import (
-        FrameInputs,
-        Reference,
-        material_maps,
-    )
-
-    inputs = FrameInputs(
-        ball=writers.ball_mesh(), num_instances=config["num_instances"],
-        maps=material_maps(root, config["material_index"]),
-        lights=ref_scene.shaderball_lights(), gizmo=writers.gizmo_mesh(),
-        width=config["width"], height=config["height"],
-        tone_map=config["tone_map"], exposure=config["exposure"],
-        show_lights=config["show_lights"], show_gizmo=config["show_gizmo"])
-    return Reference(inputs, device, dtype or torch.float32)
+    return reference_module(config, dirs).make(config, root, device,
+                                               dtype or torch.float32)
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
@@ -137,7 +140,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
 
     def reference():
         if "ref" not in refs:
-            refs["ref"] = make_reference(config, root, device)
+            refs["ref"] = make_reference(config, root, device,
+                                         dirs=cell.dirs)
         return refs["ref"]
 
     frames = [(img, win.poses[f]) for f, img in win.sample
@@ -150,24 +154,25 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         keep.update(poses=[pose for _, pose in frames], root=root,
                     readings=read)
     call_ms = sorted((c.t1 - c.t0) * 1e3 for c in win.calls)
+    if win.device_busy_s is not None:
+        log(f"device busy {win.device_busy_s:.4f} s of the window's "
+            f"{win.window_s:.3f} s")
     log(f"window: {tl['attempted']} frames in {win.window_s:.3f} s, "
         f"{tl['failed']} failed, {win.retunes} retunes; compared "
         f"{read['frames_compared']} frames; call ms p10 / p50 / p90 / max "
         + " / ".join(f"{call_ms[int(q * (len(call_ms) - 1))]:.2f}"
-                     for q in (0.1, 0.5, 0.9, 1.0)))
+                     for q in (0.1, 0.5, 0.9, 1.0))
+        + f"; frames that dropped geometry {sorted(win.dropped)}")
 
     units = {m["name"]: m["unit"] for m in cell.end_to_end + cell.per_layer}
     if not trace:
-        values = {"frames_per_s": tl["frames_per_s"],
-                  "frame_p95_ms": tl["frame_p95_ms"], "setup_s": setup_s}
+        values = {"setup_s": setup_s, "frame_device_ms": (
+            1e3 * win.device_busy_s / tl["attempted"]
+            if win.device_busy_s and tl["attempted"] else None)}
         names = [m["name"] for m in cell.end_to_end]
     else:
-        ref = reference()
-        frame = {"lights": len(ref.inp.lights),
-                 "map_sizes": {k: tuple(v.shape[:2])
-                               for k, v in ref.inp.maps.items()}}
         data = RunData(cell=cell, window=win, reference=reference,
-                       frame=frame)
+                       frame=reference().facts())
         values = {m["name"]: load_module(cell, "metrics", m["name"]).read(data)
                   for m in cell.per_layer}
         names = [m["name"] for m in cell.per_layer]

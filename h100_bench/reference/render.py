@@ -25,6 +25,11 @@ Every floating-point step runs in ``dtype`` (float32 for the reference;
 a lower precision for the control). Imports neither the program nor the
 JAX package, and takes only the inputs the benchmark made: meshes, maps,
 lights, frame parameters and camera poses.
+
+The harness builds a configuration's reference through :func:`make`, the
+one every reference module under ``reference/`` exposes, and plants the
+faults of :data:`FAULTS` (configuration settings) in it; a configuration
+without a ``"reference"`` key gets this module's.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 
 from h100_bench.reference import scene as sc
+from h100_bench.standin import writers
 from h100_bench.standin.meshgen import (
     Mesh,
     generate_plane_mesh,
@@ -301,8 +307,11 @@ def q16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float16).to(x.dtype)
 
 
-def ggx(lights: dict, world, n, v, albedo, f0, met, rough):
-    """brdf.frag's light loop → (r, g, b) outgoing radiance."""
+def ggx(lights: dict, world, n, v, albedo, f0, met, rough,
+        vis: dict | None = None):
+    """brdf.frag's light loop → (r, g, b) outgoing radiance; ``vis`` maps
+    a light index to a [0, 1] visibility plane that scales that light's
+    radiance."""
     lo = (torch.zeros_like(met),) * 3
     pi = torch.tensor(PI, dtype=met.dtype, device=met.device)
     for i in range(lights["pos"].shape[0]):
@@ -347,6 +356,8 @@ def ggx(lights: dict, world, n, v, albedo, f0, met, rough):
         g = (ndv / (ndv * (1.0 - kk) + kk)) * (ndl / (ndl * (1.0 - kk) + kk))
         spec_den = 1.0 / torch.clamp(4.0 * ndv * ndl, min=0.001)
         radiance = att * lights["intensity"][i]
+        if vis is not None and i in vis:
+            radiance = radiance * vis[i]
         lo = tuple(lo[c] + ((1.0 - f[c]) * (1.0 - met) * albedo[c] / pi
                             + (d * f[c] * g) * spec_den)
                    * (radiance * lights["color"][i][c]) * ndl
@@ -489,12 +500,23 @@ class Reference:
         n3 = _normalize3(nrm)
         v3 = _normalize3(tuple(view_pos[c] - world[c] for c in range(3)))
         f0 = tuple(0.04 * (1.0 - met) + alb[c] * met for c in range(3))
-        lo = ggx(self.lights, world, n3, v3, alb, f0, met, rough)
-        hdr = tuple(q16(torch.where(valid, 0.03 * alb[c] * ao + lo[c], zero))
+        lo = ggx(self.lights, world, n3, v3, alb, f0, met, rough,
+                 self._visibility(px))
+        amb = self._ambient(world, nrm, view_pos, alb, met, rough, ao)
+        hdr = tuple(q16(torch.where(valid, amb[c] + lo[c], zero))
                     for c in range(3))
         if not self.inp.tone_map:
             return hdr
         return tuple(1.0 - torch.exp(-c * self.inp.exposure) for c in hdr)
+
+    def _visibility(self, px) -> dict | None:
+        """Light index → visibility plane of the resolved pixels ``px``
+        (None: every light unshadowed)."""
+        return None
+
+    def _ambient(self, world, nrm, view_pos, alb, met, rough, ao):
+        """The ambient term from the G-buffer planes: 0.03·albedo·ao."""
+        return tuple(0.03 * alb[c] * ao for c in range(3))
 
     def _spheres(self, ldr, key, view_proj):
         """The light spheres over ``ldr`` where their depth key is at
@@ -589,6 +611,13 @@ class Reference:
         img = torch.clamp(img * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
         return (img, mask) if overlay_mask else img
 
+    def facts(self) -> dict:
+        """What the roofline counts read besides the passes: the number of
+        lights and each sampled map's (height, width)."""
+        return {"lights": len(self.inp.lights),
+                "map_sizes": {k: tuple(v.shape[:2])
+                              for k, v in self.inp.maps.items()}}
+
     def passes(self, pos, yaw: float, pitch: float) -> dict:
         """The raster passes of a pose (what the roofline counts read):
         "main" (setup, winners, uv planes, width, height) and, with the
@@ -603,3 +632,26 @@ class Reference:
             ext = self.inp.gizmo_extent
             out["gizmo"] = dict(setup=gs, tri=gtri, width=ext, height=ext)
         return out
+
+
+# Faults planted in the reference put in the program's place, as
+# configuration settings: what a frame handed back would leave out.
+FAULTS = {"overlays": {"show_lights": False, "show_gizmo": False},
+          "gizmo": {"show_gizmo": False}, "spheres": {"show_lights": False}}
+
+
+def frame_inputs(config: dict, root) -> FrameInputs:
+    """The inputs of a ShaderBall configuration's frame, from the stand-in
+    resource root ``root``."""
+    return FrameInputs(
+        ball=writers.ball_mesh(), num_instances=config["num_instances"],
+        maps=material_maps(root, config["material_index"]),
+        lights=sc.shaderball_lights(), gizmo=writers.gizmo_mesh(),
+        width=config["width"], height=config["height"],
+        tone_map=config["tone_map"], exposure=config["exposure"],
+        show_lights=config["show_lights"], show_gizmo=config["show_gizmo"])
+
+
+def make(config: dict, root, device, dtype=torch.float32) -> Reference:
+    """The reference of ``config``'s frame on ``device`` in ``dtype``."""
+    return Reference(frame_inputs(config, root), device, dtype)

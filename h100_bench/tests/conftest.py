@@ -12,17 +12,20 @@ ROOT = BENCH.parent
 
 
 def small_cell(tmp: Path, config: str, traffic: str, width: int,
-               height: int, path_over=None, warmup=None, **traffic_over):
+               height: int, path_over=None, warmup=None, config_over=None,
+               **traffic_over):
     """A cell ``<config>-small.<traffic>-small`` of ``config`` at
     ``width`` × ``height`` under ``traffic`` with a one-pose warm-up (or
-    ``warmup``), ``path_over`` over its path's parameters, its files in
+    ``warmup``), ``path_over`` over its path's parameters and
+    ``config_over`` over the configuration's settings, its files in
     ``tmp``; returns the loaded cell."""
     from h100_bench import cells
 
     (tmp / "configs").mkdir(exist_ok=True)
     (tmp / "traffic").mkdir(exist_ok=True)
     c = json.loads((BENCH / "configs" / f"{config}.json").read_text())
-    c.update(name=f"{config}-small", width=width, height=height)
+    c.update(name=f"{config}-small", width=width, height=height,
+             **(config_over or {}))
     (tmp / "configs" / f"{config}-small.json").write_text(json.dumps(c))
     t = json.loads((BENCH / "traffic" / f"{traffic}.json").read_text())
     t["path"]["warmup"] = warmup or {k: 1 for k in t["path"]["warmup"]}

@@ -86,28 +86,30 @@ def test_fault_fails_correct(tmp_path, monkeypatch, fault):
     assert result["attempted"] >= 4
     assert checks["frames_compared"]["value"] >= 3
     assert result["correct"] is (fault == "sound"), checks
-    assert set(result["metrics"]) == {"frames_per_s", "frame_p95_ms",
-                                      "setup_s"}
-    assert np.isfinite(result["metrics"]["frames_per_s"]["value"])
+    # The device ms a frame needs a device trace, which the CPU has not.
+    assert set(result["metrics"]) == {"setup_s"}
+    assert np.isfinite(result["metrics"]["setup_s"]["value"])
 
 
 # (cell, pose): the ball with its three light spheres in view; the
 # 64-ball row broadside from 62 units.
-FULL_SIZE = {"shaderball_1080p": ("shaderball_1080p.orbit",
+FULL_SIZE = {"shaderball_1080p": ("shaderball_1080p.closeup",
                                   ((3.0, 1.0, -3.0), 40.0, -20.0)),
              "shaderball64_1080p": ("shaderball64_1080p.orbit_row",
                                     ((63.0, 15.047, -57.888), 0.0, -15.0))}
-# What the frame handed back leaves out, as configuration settings.
-DROPPED = {"sound": {}, "overlays": {"show_lights": False,
-                                     "show_gizmo": False},
-           "gizmo": {"show_gizmo": False}, "spheres": {"show_lights": False},
-           "block": {}}
+# What the frame handed back leaves out, as configuration settings: the
+# faults the cell's reference module plants (FAULTS), besides the sound
+# frame and a block inverted.
+PLANTED = {c: harness.reference_module(cells.load_cell(name).config).FAULTS
+           for c, (name, _) in FULL_SIZE.items()}
+DROPPED = {c: {"sound": {}, **faults, "block": {}}
+           for c, faults in PLANTED.items()}
 
 
 # From 62 units the 64-ball view shows its three spheres at a dozen
 # pixels: its frames hold the gizmo, the spheres only as far as the
 # frame-wide numbers reach, so that pair is not a case.
-FULL_SIZE_CASES = [(c, f) for c in FULL_SIZE for f in DROPPED
+FULL_SIZE_CASES = [(c, f) for c in FULL_SIZE for f in DROPPED[c]
                    if (c, f) != ("shaderball64_1080p", "spheres")]
 
 
@@ -120,7 +122,8 @@ def test_fault_fails_correct_at_full_size(config, fault):
     with torch.no_grad():
         want, overlay = harness.reference_frame(ref, pose)
         got = harness.reference_frame(harness.make_reference(
-            dict(cell.config, **DROPPED[fault]), root, "cpu"), pose)[0]
+            dict(cell.config, **DROPPED[config][fault]), root, "cpu"),
+            pose)[0]
     if fault == "block":  # 16 × 16 pixels, 0.012 % of the frame
         got[540:556, 960:976] = 255 - got[540:556, 960:976]
     read = check.readings(lambda p: (want, overlay), [(got, pose)])

@@ -7,7 +7,7 @@ import re
 import numpy as np
 import pytest
 
-from h100_bench import camera_paths, cells, check, timeline
+from h100_bench import camera_paths, cells, check, harness, timeline
 from h100_bench.tests.conftest import BENCH, ROOT
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -63,14 +63,24 @@ def test_benchmark_json_shape():
 
 
 def test_a_new_cell_is_new_files_only(tmp_path):
-    """A throwaway configuration, mix and metric in a directory of their
-    own load into a cell beside the benchmark's files."""
+    """A throwaway configuration, mix, metric and plain reference in a
+    directory of their own load into a cell beside the benchmark's
+    files."""
     b = bench()
     (tmp_path / "configs").mkdir()
     (tmp_path / "traffic").mkdir()
     (tmp_path / "metrics").mkdir()
+    (tmp_path / "reference").mkdir()
     cfg = json.loads((BENCH / "configs" / "shaderball_1080p.json").read_text())
-    cfg.update(name="extra_720p", width=1280, height=720)
+    cfg.update(name="extra_720p", width=1280, height=720,
+               reference="extra_ref")
+    (tmp_path / "reference" / "extra_ref.py").write_text(
+        "FAULTS = {'dark': {'exposure': 0.0}}\n\n\n"
+        "class Ref:\n"
+        "    def __init__(self, *args):\n"
+        "        self.args = args\n\n\n"
+        "def make(config, root, device, dtype):\n"
+        "    return Ref(config, root, device, dtype)\n")
     (tmp_path / "configs" / "extra_720p.json").write_text(json.dumps(cfg))
     mix = json.loads((BENCH / "traffic" / "orbit.json").read_text())
     mix["path"]["yaw_rate_deg"] = [0.5, 1.0]
@@ -82,7 +92,8 @@ def test_a_new_cell_is_new_files_only(tmp_path):
                            "chips": 1, "why": "x"})
     b["per_layer"].append({"name": "extra.frames", "unit": "count",
                            "better": "lower", "source": "program_counter",
-                           "layer": "host.session", "moves": "frames_per_s",
+                           "layer": "host.session",
+                           "moves": "frame_device_ms",
                            "workloads": ["extra_720p.slow_orbit"]})
     (tmp_path / "B.json").write_text(json.dumps(b))
     cell = cells.load_cell("extra_720p.slow_orbit", tmp_path / "B.json",
@@ -91,9 +102,9 @@ def test_a_new_cell_is_new_files_only(tmp_path):
     assert cell.traffic["path"]["yaw_rate_deg"] == [0.5, 1.0]
     names = [m["name"] for m in cell.per_layer]
     assert "extra.frames" in names and "k1.roofline_pct" not in names
-    # Every cell reports the tail; a metric with a ``workloads`` list
-    # only the cells it names.
-    assert "frame_p95_ms" in [m["name"] for m in cell.end_to_end]
+    # Every cell reports the device ms a frame; a metric with a
+    # ``workloads`` list only the cells it names.
+    assert "frame_device_ms" in [m["name"] for m in cell.end_to_end]
 
     class Win:
         retunes = 3
@@ -102,6 +113,39 @@ def test_a_new_cell_is_new_files_only(tmp_path):
         window = Win()
 
     assert cells.load_module(cell, "metrics", "extra.frames").read(Run()) == 3
+    # The reference the configuration names is the one the harness
+    # builds, and its faults the ones a control plants.
+    ref = harness.make_reference(cell.config, tmp_path, "cpu",
+                                 dirs=cell.dirs)
+    assert type(ref).__module__ == "h100_bench_reference_extra_ref"
+    assert ref.args[0]["name"] == "extra_720p" and ref.args[1:3] == (
+        tmp_path, "cpu")
+    assert harness.reference_module(cell.config, cell.dirs).FAULTS == {
+        "dark": {"exposure": 0.0}}
+
+
+@pytest.mark.parametrize("workload", [w["name"] for w in bench()["workloads"]])
+def test_a_configuration_without_the_key_gets_render(workload):
+    """No ``"reference"`` key: ``reference/render.py``, its ShaderBall
+    reference, its facts and its three overlay faults."""
+    import torch
+
+    cell = cells.load_cell(workload)
+    assert "reference" not in cell.config
+    mod = harness.reference_module(cell.config, cell.dirs)
+    assert mod.__file__ == str(BENCH / "reference" / "render.py")
+    assert mod.FAULTS == {"overlays": {"show_lights": False,
+                                       "show_gizmo": False},
+                          "gizmo": {"show_gizmo": False},
+                          "spheres": {"show_lights": False}}
+    root = harness.prepare_resources(cell.config, 2**31 + 3)
+    ref = harness.make_reference(cell.config, root, "cpu", dirs=cell.dirs)
+    assert isinstance(ref, mod.Reference) and ref.dt == torch.float32
+    assert (ref.inp.width, ref.inp.num_instances) == (
+        cell.config["width"], cell.config["num_instances"])
+    assert ref.facts() == {"lights": 3, "map_sizes": {
+        "albedo": (2048, 2048), "metallic": (16, 16),
+        "roughness": (2048, 2048), "ao": (16, 16)}}
 
 
 @pytest.mark.parametrize("workload", [w["name"] for w in bench()["workloads"]])
@@ -118,7 +162,7 @@ def test_camera_path_is_the_seeds(workload):
     assert a == b
     assert a != c
     # Redrawn every segment: the path's parameters change inside 400
-    # frames of 12- to 30-frame segments.
+    # frames of 6-frame segments.
     if params["kind"] == "orbit":
         radii = {round(sum((x - y) ** 2 for x, y in zip(p[0],
                                                         params["centre"]))
@@ -181,3 +225,43 @@ def test_end_to_end_arithmetic():
     s = timeline.summarize(calls[:-1], set(), window)
     assert s["failed"] == 1 and s["frame_p95_ms"] is None
     assert timeline.nearest_rank(range(1, 101), 0.95) == 95
+
+
+def test_device_busy_is_the_union_of_device_ops():
+    """Overlapping device ops count once, gaps not at all; host-side
+    events and annotations are no device work."""
+    from torch.autograd import DeviceType
+
+    from h100_bench import tracing
+
+    class Ev:
+        def __init__(self, a, b, dev=DeviceType.CUDA, note=False):
+            self.a, self.b, self.dev, self.note = a, b, dev, note
+
+        def start_ns(self):
+            return self.a
+
+        def end_ns(self):
+            return self.b
+
+        def device_type(self):
+            return self.dev
+
+        def is_user_annotation(self):
+            return self.note
+
+    events = [Ev(50, 60), Ev(0, 10), Ev(5, 20), Ev(20, 30), Ev(52, 55),
+              Ev(100, 400, DeviceType.CPU), Ev(0, 1000, note=True)]
+
+    class Prof:
+        class profiler:
+            class kineto_results:
+                @staticmethod
+                def events():
+                    return events
+
+    # [0, 30] and [50, 60].
+    assert tracing.device_busy_s(Prof()) == pytest.approx(40e-9)
+    events[:] = []
+    assert tracing.device_busy_s(Prof()) == 0.0
+

@@ -6,6 +6,8 @@ import ast
 import subprocess
 import sys
 
+import pytest
+
 from h100_bench.tests.conftest import BENCH, ROOT
 
 JAX = {"jax", "jaxlib", "flax", "bibim_tpu"}
@@ -72,6 +74,23 @@ def test_reference_loads_no_program():
             "import h100_bench.reference.render; "
             "print(sorted({m.split('.')[0] for m in sys.modules}))"
             % str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    loaded = set(eval(out))
+    assert not loaded & (JAX | {"bibim_tpu_torch"})
+
+
+@pytest.mark.parametrize("name", sorted(
+    p.stem for p in (BENCH / "reference").glob("*.py")
+    if p.stem not in ("__init__", "render")))
+def test_each_reference_loads_no_program(name):
+    """Every other reference module, loaded as the harness loads it
+    (``cells.load_module``)."""
+    code = ("import sys; sys.path.insert(0, %r); "
+            "from h100_bench import cells; "
+            "mod = cells.load_module([%r], 'reference', %r); "
+            "print(sorted({m.split('.')[0] for m in sys.modules}))"
+            % (str(ROOT), str(BENCH), name))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, timeout=120).stdout
     loaded = set(eval(out))

@@ -126,7 +126,7 @@ def program(monkeypatch):
 
 
 def _readers():
-    cell = cells.load_cell("shaderball_1080p.orbit")
+    cell = cells.load_cell("shaderball_1080p.closeup")
     assert NEW == tuple(m["name"] for m in cell.per_layer[-len(NEW):])
     return {name: cells.load_module(cell, "metrics", name).read
             for name in NEW}

@@ -9,8 +9,10 @@ dispatched and the frames whose host images it handed back.
   dispatched the frame to the end of the call that handed back its image;
   a frame that never came back counts as failed and has no latency, so
   the percentile is given only where every frame came back. The tail
-  wants at least 200 frames in the window, so that ten lie beyond it;
-  ``BENCHMARK.json`` lists the metric only for cells that reach that.
+  wants at least 200 frames in the window, so that ten lie beyond it.
+
+Both follow the speed of the host's CPU (the loop is host-bound), so
+``BENCHMARK.json`` reads them per layer (``viewer.*``) from traced runs.
 - ``failed``: frames whose diagnostics reported dropped geometry, and
   frames that never came back.
 """

@@ -167,6 +167,43 @@ class DeviceTrace:
                 "idle_gaps": [[n, s] for n, s in gaps]}
 
 
+def device_busy_s(prof) -> float:
+    """Seconds in which an operation (kernel, copy, set) ran on the device
+    over a finished ``torch.profiler.profile`` of CUDA activity: the union
+    of the device ops' intervals. Read from the profiler's raw events, so
+    that a window's millions of launches cost seconds, not minutes."""
+    import gc
+
+    import numpy as np
+    from torch.autograd import DeviceType
+
+    cuda = DeviceType.CUDA
+    # Millions of short-lived objects: the collector would walk them all
+    # again and again.
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        iv = [(e.start_ns(), e.end_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == cuda and not e.is_user_annotation()]
+        if not iv:
+            return 0.0
+        a = np.asarray(iv, np.int64)
+        del iv
+    finally:
+        if was:
+            gc.enable()
+    a = a[np.argsort(a[:, 0], kind="stable")]
+    reach = np.maximum.accumulate(a[:, 1])
+    # An interval opens a new busy stretch where it starts after every
+    # earlier one has ended.
+    opens = np.ones(len(a), bool)
+    opens[1:] = a[1:, 0] > reach[:-1]
+    first = np.flatnonzero(opens)
+    last = np.append(first[1:] - 1, len(a) - 1)
+    return float((reach[last] - a[first, 0]).sum()) / 1e9
+
+
 def read_profile(prof, span_names, frames: int,
                  window_s: float) -> DeviceTrace:
     """A :class:`DeviceTrace` from a finished ``torch.profiler.profile``."""
