@@ -207,6 +207,7 @@ def _run_session(args, device) -> int:
                  enable_normal_map=args.normal_map,
                  num_instances=args.instances,
                  aniso_taps=max(1, args.aniso),
+                 enable_shadows=args.shadows, enable_ibl=args.ibl,
                  mesh_path=args.mesh_path or "")
     if args.material is not None:
         ui.selected_material = args.material

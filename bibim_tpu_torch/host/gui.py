@@ -29,6 +29,11 @@ class UiState:
     enable_tone_mapping: bool = False
     enable_tbn: bool = False
     show_hud: bool = False  # in-frame stats text (ImGui-overlay analog)
+    # BASELINE config 5's passes (bench.py bench_stretch_4k): the shadow
+    # map of light 0 (directional) with 2 x 2 PCF, and the split-sum IBL
+    # ambient in place of the constant one.
+    enable_shadows: bool = False
+    enable_ibl: bool = False
     exposure: float = 1.0  # slider 0.1..10
     # N-tap in-level-0 anisotropic sampling (the reference sampler's
     # maxAnisotropy, kept opt-in); 1 = plain bilinear parity.

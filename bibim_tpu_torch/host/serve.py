@@ -136,6 +136,8 @@ _PAGE = """<!doctype html>
   <label>normal map <input id="nm" type="checkbox"></label>
   <label>TBN <input id="tbn" type="checkbox"></label>
   <label>HUD <input id="hud" type="checkbox"></label>
+  <label>shadows <input id="shadows" type="checkbox"></label>
+  <label>IBL <input id="ibl" type="checkbox"></label>
   <label>aniso <select id="aniso">
     <option>1</option><option>2</option><option>4</option>
     <option>8</option><option>16</option>
@@ -188,6 +190,10 @@ el('tbn').addEventListener('change', (e) =>
   post({set: {enable_tbn: e.target.checked}}));
 el('hud').addEventListener('change', (e) =>
   post({set: {show_hud: e.target.checked}}));
+el('shadows').addEventListener('change', (e) =>
+  post({set: {enable_shadows: e.target.checked}}));
+el('ibl').addEventListener('change', (e) =>
+  post({set: {enable_ibl: e.target.checked}}));
 el('inst').addEventListener('change', (e) =>
   post({set: {num_instances: Math.max(1, parseInt(e.target.value) || 1)}}));
 el('aniso').addEventListener('change', (e) =>
@@ -219,6 +225,8 @@ el('showprev').addEventListener('change', updatePreview);
   el('nm').checked = ui.enable_normal_map;
   el('tbn').checked = ui.enable_tbn;
   el('hud').checked = ui.show_hud;
+  el('shadows').checked = ui.enable_shadows;
+  el('ibl').checked = ui.enable_ibl;
   el('inst').value = ui.num_instances;
   el('aniso').value = ui.aniso_taps;
 })();

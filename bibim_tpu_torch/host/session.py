@@ -56,6 +56,7 @@ from bibim_tpu_torch.pipeline import (
 )
 from bibim_tpu_torch.scene.camera import FreeLookCamera
 from bibim_tpu_torch.scene.input import Input
+from bibim_tpu_torch.scene.lights import LightType
 from bibim_tpu_torch.utils.log import log_info
 from bibim_tpu_torch.utils.profiling import FrameStats, next_frame, stage_scope
 
@@ -69,14 +70,18 @@ VIZ_BY_NAME = {
 }
 
 # The caps a retune derives (pipeline.autotune), merged into the previous
-# derivation of the same scene and size by the session's rule (_retune).
+# derivation of the same binding by the session's rule (_retune).
 TUNED_CAPS = ("max_candidates", "raster_passes", "overflow_cap",
               "pair_budget", "live_tile_cap", "raster_tile_cap",
               "overlay_candidates", "overlay_max_tiles",
               "overlay_overflow_cap", "span_cap", "span_mid_cap")
-# Routing choices whose overflow is validated apart (the overflow list,
-# dropped_pairs): always the fresh derivation.
-FRESH_CAPS = ("span_cap", "span_mid_cap")
+# The light pass's caps (autotune.derive_shadow_settings), merged by the
+# same rule where the frame draws shadows.
+SHADOW_CAPS = ("shadow_candidates", "shadow_passes", "shadow_tile_cap",
+               "shadow_query_tile_cap")
+# The toggles that add passes to the frame: each joins the tune key by
+# name while on.
+PASS_TOGGLES = ("enable_shadows", "enable_ibl")
 
 
 def _make_scene(name: str, ui: UiState, device):
@@ -108,15 +113,18 @@ def _make_scene(name: str, ui: UiState, device):
 
 def merge_caps(old: dict | None, derived: RenderSettings) -> dict:
     """The session's retune rule: the :data:`TUNED_CAPS` of a fresh
-    derivation, each grown to the previous derivation's value (None =
-    uncapped, never shrunk to a cap), except :data:`FRESH_CAPS`, taken
-    fresh. Caps only ever grow, so a camera oscillating across a bucket
-    edge cannot thrash."""
-    caps = {k: getattr(derived, k) for k in TUNED_CAPS}
+    derivation, and its :data:`SHADOW_CAPS` where it draws shadows, each
+    grown to the previous derivation's value (None = uncapped, never
+    shrunk to a cap; a ``span_mid_cap`` of None bins without the mid
+    class, which has no cap to overflow). Caps only ever grow, so a
+    camera oscillating across a bucket edge cannot thrash. A derivation
+    at a smaller ``span_cap`` than the session runs is made again at the
+    session's (:meth:`Session._retune`), so that the caps it merges were
+    all sized for the routing it runs."""
+    names = TUNED_CAPS + (SHADOW_CAPS if derived.enable_shadows else ())
+    caps = {k: getattr(derived, k) for k in names}
     if old is not None:
         for k, v in caps.items():
-            if k in FRESH_CAPS:
-                continue
             caps[k] = None if old[k] is None or v is None else max(old[k], v)
     return caps
 
@@ -166,6 +174,8 @@ class Session:
         self._material_set = None
         self._materials: dict = {}  # material index → tables
         self._overlay = None
+        self._ibl = None
+        self._casters: dict = {}  # scene key → shadow_fit_batches
         self._hud_geom = None
         self._proj = None  # (width, height, tensor)
         self.readback = DoubleBufferedReadback(depth=self.readback_depth)
@@ -179,15 +189,17 @@ class Session:
 
     # -- resource binding ---------------------------------------------------
 
-    @property
-    def scene(self):
-        name = self.ui.scene
+    def _scene_key(self) -> tuple:
         # Instance count is part of the scene identity (the viewer's
         # instance selector rebuilds the ShaderBall scene).
-        key = (name,
-               self.ui.num_instances if name == "shaderball" else 0)
+        name = self.ui.scene
+        return (name, self.ui.num_instances if name == "shaderball" else 0)
+
+    @property
+    def scene(self):
+        key = self._scene_key()
         if key not in self._scenes:
-            self._scenes[key] = _make_scene(name, self.ui, self._dev)
+            self._scenes[key] = _make_scene(self.ui.scene, self.ui, self._dev)
         return self._scenes[key]
 
     def material_set(self):
@@ -217,6 +229,33 @@ class Session:
         if self._overlay is None:
             self._overlay = make_overlay_resources(device=self._dev)
         return self._overlay
+
+    def ibl(self):
+        """The IBL light probe (the analytic split-sum fit of the
+        procedural sky, ``ops.ibl.make_ibl_sh``), fit once a session."""
+        if self._ibl is None:
+            from bibim_tpu_torch.ops.ibl import make_ibl_sh
+
+            self._ibl = make_ibl_sh(device=self._dev)
+        return self._ibl
+
+    def _shadow_casters(self):
+        """The bound scene's ``shadow_fit_batches`` (the batches the light
+        frustum is fit to; None: the whole scene), once its light 0, the
+        shadow-casting light, is known to be directional: the light pass
+        is orthographic. Read once a scene binding."""
+        key = self._scene_key()
+        if key not in self._casters:
+            lights = self.scene.scene_data().lights
+            if lights.num_lights and (int(lights.type[0])
+                                      != LightType.DIRECTIONAL):
+                raise ValueError(
+                    "enable_shadows needs light 0 to be directional "
+                    f"(scene {self.ui.scene!r} light 0 has type "
+                    f"{int(lights.type[0])})")
+            self._casters[key] = getattr(self.scene, "shadow_fit_batches",
+                                         None)
+        return self._casters[key]
 
     # -- event handling (SDL_PollEvent analog, main.cpp:1132-1147) ----------
 
@@ -304,6 +343,10 @@ class Session:
             show_tbn=self.ui.enable_tbn,
             show_hud=self.ui.show_hud,
             aniso_taps=self.ui.aniso_taps,
+            enable_shadows=self.ui.enable_shadows,
+            shadow_fit_batches=(self._shadow_casters()
+                                if self.ui.enable_shadows else None),
+            enable_ibl=self.ui.enable_ibl,
             batch_material_ids=getattr(self.scene, "material_ids", None),
             # Compacted shading + the capacity scalars for the drop
             # watcher (they ride the image's readback).
@@ -311,8 +354,11 @@ class Session:
         )
 
     def _tune_key(self):
+        """The binding the caps are derived for: scene, instances, size,
+        and the :data:`PASS_TOGGLES` that are on, by name."""
         return (self.ui.scene, self.ui.num_instances, self.width,
-                self.height)
+                self.height) + tuple(k for k in PASS_TOGGLES
+                                     if getattr(self.ui, k))
 
     def settings(self) -> RenderSettings:
         """The live loop's settings: the UI's toggles with the capacities
@@ -332,12 +378,22 @@ class Session:
         from bibim_tpu_torch.pipeline.autotune import autotune_settings
 
         with stage_scope("session.retune", reason):
-            derived, probe = autotune_settings(
-                scene_data, view_block, self._base_settings(),
-                overlay=self.overlay(),
-            )
             key = self._tune_key()
-            caps = merge_caps(self._tuned.get(key), derived)
+            old = self._tuned.get(key)
+            base = self._base_settings()
+            derived, probe = autotune_settings(
+                scene_data, view_block, base, overlay=self.overlay(),
+            )
+            if old is not None and derived.span_cap < old["span_cap"]:
+                # A derivation's pair budget, overflow list and mid class
+                # hold at its own span_cap: size them at the span the
+                # session runs.
+                derived, probe = autotune_settings(
+                    scene_data, view_block,
+                    dataclasses.replace(base, span_cap=old["span_cap"]),
+                    overlay=self.overlay(), keep_span=True,
+                )
+            caps = merge_caps(old, derived)
             self._tuned[key] = caps
             self.retunes.append((key, dict(caps)))
             log_info("autotuned caps for {}: {} (probe: {} covered tiles, "
@@ -384,7 +440,9 @@ class Session:
                 self._retune(data, view_block, ("first_bind",))
             out = render_frame(
                 data, view_block, self.frame_params(), self.materials(),
-                self.overlay(), self.settings(), hud=self._hud(),
+                self.overlay(), self.settings(),
+                ibl=self.ibl() if self.ui.enable_ibl else None,
+                hud=self._hud(),
             )
             self.stats.tick()
             done = self.readback.submit(

@@ -502,10 +502,13 @@ def _bucket(x: int, floor: int = 64) -> int:
     return -(-x // g) * g
 
 
-def derive_settings(settings, probe: CapProbe, margin: float = 1.25):
+def derive_settings(settings, probe: CapProbe, margin: float = 1.25,
+                    keep_span: bool = False):
     """RenderSettings with capacities derived from a :class:`CapProbe`
     (the JAX package's rules; ``margin`` is headroom for camera motion —
-    an underestimate still fails loudly through BinDiag)."""
+    an underestimate still fails loudly through BinDiag). ``keep_span``
+    keeps ``settings.span_cap`` (the probe's own) instead of searching
+    for a smaller one."""
     mc = _bucket(int(probe.max_candidates * margin), floor=64)
     passes = 1
     if mc > 1024:
@@ -519,7 +522,7 @@ def derive_settings(settings, probe: CapProbe, margin: float = 1.25):
     span_cap = settings.span_cap
     n_big = probe.n_big
     pairs = probe.total_pairs
-    for k, big_k, pairs_k in probe.span_big:
+    for k, big_k, pairs_k in () if keep_span else probe.span_big:
         if (fused.SPAN_DENSE < k < span_cap
                 and big_k <= max(32, probe.n_big + 16)):
             span_cap, n_big, pairs = k, big_k, pairs_k
@@ -592,7 +595,8 @@ def derive_settings(settings, probe: CapProbe, margin: float = 1.25):
 
 def autotune_settings(scene, view_block, settings, margin: float = 1.25,
                       measure_coverage: bool = True, materials=None,
-                      overlay=None, kernels: Kernels = KERNELS):
+                      overlay=None, kernels: Kernels = KERNELS,
+                      keep_span: bool = False):
     """Probe + derive in one call. Returns (settings, probe).
 
     When the derivation picks another span_cap, the bin statistics are
@@ -604,7 +608,9 @@ def autotune_settings(scene, view_block, settings, margin: float = 1.25,
     bound (:func:`derive_overlay_tiles`); ``overlay``, the overlay
     resources, replaces it by the composite's and the gizmo's measured
     caps (:func:`derive_overlay_caps`); with shadows, the light-view
-    probe sizes the shadow pass (:func:`derive_shadow_settings`)."""
+    probe sizes the shadow pass (:func:`derive_shadow_settings`).
+    ``keep_span``: every cap derived at ``settings.span_cap``
+    (:func:`derive_settings`)."""
     esc_probe = None
     if settings.pair_sampling and isinstance(materials, (tuple, list)):
         shapes = tuple((t.height, t.width) for t in materials
@@ -615,7 +621,8 @@ def autotune_settings(scene, view_block, settings, margin: float = 1.25,
                              measure_coverage=measure_coverage,
                              esc_probe=esc_probe if measure_coverage
                              else None, kernels=kernels)
-    derived = derive_settings(settings, probe, margin=margin)
+    derived = derive_settings(settings, probe, margin=margin,
+                              keep_span=keep_span)
     if derived.span_cap != settings.span_cap:
         base2 = dataclasses.replace(settings, span_cap=derived.span_cap)
         probe2 = probe_frame_caps(scene, view_block, base2,

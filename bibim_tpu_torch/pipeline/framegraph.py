@@ -764,6 +764,21 @@ def _pcf_vis(smap: sh.ShadowMap, px, settings: RenderSettings, sh_diag):
     return sh.shadow_factor(smap, px.world, settings.shadow_bias), sh_diag
 
 
+def _light_pass_kernels(kernels: Kernels) -> Kernels:
+    """``kernels`` with each call of the light pass's raster (K1, K9 with
+    early_z, K1's tail) and sort (K3) entry points, one kernel launch each
+    on the card, counted as ``shadow_launches``."""
+    def counted(fn):
+        def call(*args, **kw):
+            profiling.count("shadow_launches")
+            return fn(*args, **kw)
+
+        return call
+
+    return kernels._replace(**{n: counted(getattr(kernels, n)) for n in (
+        "raster", "raster_earlyz", "raster_tail", "sort")})
+
+
 def _shadow_map_any(soup, scene: SceneData, settings: RenderSettings,
                     kernels: Kernels):
     """The shadow map of the shadow-casting light and its pass's BinDiag,
@@ -1079,11 +1094,12 @@ def _forward_hdr(px, materials, lights: Lights, view_block: ViewBlock,
     zero = torch.zeros_like(met)
     ambient = None
     if ibl_on:
-        view_dir = tuple(view_block.view_pos[c] - px.world[c]
-                         for c in range(3))
-        ambient = ibl_ambient(ibl, normal, view_dir, albedo, met, rough, ao,
-                              sampling)
-        ambient = tuple(torch.where(valid, a, zero) for a in ambient)
+        with stage_scope("shade.ibl"):
+            view_dir = tuple(view_block.view_pos[c] - px.world[c]
+                             for c in range(3))
+            ambient = ibl_ambient(ibl, normal, view_dir, albedo, met, rough,
+                                  ao, sampling)
+            ambient = tuple(torch.where(valid, a, zero) for a in ambient)
     if production:
         return None, kernels.shade_gbuffer(
             px.world, normal, albedo, met, rough, ao, valid, lights,
@@ -1247,11 +1263,14 @@ def _shade(px, materials, lights: Lights, view_block: ViewBlock,
         zero = torch.zeros_like(px.depth)
         ambient = None
         if settings.enable_ibl and ibl is not None and not viz:
-            view_dir = tuple(view_block.view_pos[c] - g_pos[c]
-                             for c in range(3))
-            ambient = ibl_ambient(ibl, g_nrm, view_dir, g_alb, g_mrah[0],
-                                  g_mrah[1], g_mrah[2], sampling)
-            ambient = tuple(torch.where(valid, a, zero) for a in ambient)
+            with stage_scope("shade.ibl"):
+                view_dir = tuple(view_block.view_pos[c] - g_pos[c]
+                                 for c in range(3))
+                ambient = ibl_ambient(ibl, g_nrm, view_dir, g_alb,
+                                      g_mrah[0], g_mrah[1], g_mrah[2],
+                                      sampling)
+                ambient = tuple(torch.where(valid, a, zero)
+                                for a in ambient)
         if viz:
             # buffer_visualize.frag: the raw G-buffer rgb is the HDR
             # target (no lighting); MATERIAL_INDEX is gbuffer.frag's
@@ -1312,7 +1331,10 @@ def render_frame(scene: SceneData, view_block: ViewBlock,
     The host's work is recorded (``utils.profiling``) as the span
     ``framegraph.frame`` holding five stages in turn: ``frame.geometry``,
     ``frame.raster``, ``frame.shade``, ``frame.overlay``,
-    ``frame.output``."""
+    ``frame.output``. With shadows, ``frame.shade`` holds the light pass
+    (``shade.shadow_map``; its raster and sort launches counted as
+    ``shadow_launches``) and the PCF visibility (``shade.pcf``); with
+    IBL, the ambient (``shade.ibl``)."""
     with stage_scope("framegraph.frame"):
         return _render_frame(scene, view_block, frame_params, materials,
                              overlay, settings, ibl, kernels, hud)
@@ -1380,8 +1402,11 @@ def _render_frame(scene: SceneData, view_block: ViewBlock,
         light_vis = None
         if (settings.enable_shadows and scene.lights.num_lights > 0
                 and not flat):
-            smap, sh_diag = _shadow_map_any(soup, scene, settings, kernels)
-            vis_plane, sh_diag = _pcf_vis(smap, px, settings, sh_diag)
+            with stage_scope("shade.shadow_map"):
+                smap, sh_diag = _shadow_map_any(
+                    soup, scene, settings, _light_pass_kernels(kernels))
+            with stage_scope("shade.pcf"):
+                vis_plane, sh_diag = _pcf_vis(smap, px, settings, sh_diag)
             light_vis = {settings.shadow_light: vis_plane}
             diags.append(sh_diag)
 

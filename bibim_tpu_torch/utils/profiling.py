@@ -4,7 +4,9 @@
   ``time.perf_counter_ns``; :func:`count` adds to a named counter at the
   point where the counted event happens (``host_syncs``: a blocking
   device→host read or a synchronous pageable host→device copy;
-  ``raster_tail``: a launch of K1's tail, ``ops.fused.raster_fused``)
+  ``raster_tail``: a launch of K1's tail, ``ops.fused.raster_fused``;
+  ``shadow_launches``: a raster or sort launch of the frame's light
+  pass, ``pipeline.framegraph``)
 - :func:`next_frame` starts a new frame id (``Session.render`` calls it);
   every span and count records the frame id of its thread
 - :func:`snapshot` copies the records out, oldest first; another thread

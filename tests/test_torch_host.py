@@ -41,25 +41,34 @@ _UI_SETS = [
 ]
 
 
+# The port's UiState fields the JAX package's does not have: BASELINE
+# config 5's toggles, off by default.
+PORT_ONLY = {"enable_shadows": False, "enable_ibl": False}
+
+
 def test_ui_state_matches_jax(tmp_path):
     from dataclasses import asdict
 
     port, jax = UiState(), JUiState()
-    assert asdict(port) == asdict(jax)
+    assert asdict(port) == {**asdict(jax), **PORT_ONLY}
     for fields in _UI_SETS:
         for k, v in fields.items():
             setattr(port, k, v)
             setattr(jax, k, v)
         port.clamp()
         jax.clamp()
-        assert asdict(port) == asdict(jax)
-    # Each package loads the other's file and clamps it the same way.
+        assert asdict(port) == {**asdict(jax), **PORT_ONLY}
+    # Each package loads the other's file (the port's without the fields
+    # the JAX package lacks) and clamps it the same way.
     port.save(tmp_path / "p.json")
     jax.save(tmp_path / "j.json")
-    assert json.loads((tmp_path / "p.json").read_text()) == json.loads(
-        (tmp_path / "j.json").read_text())
-    assert asdict(JUiState.load(tmp_path / "p.json")) == asdict(
-        UiState.load(tmp_path / "j.json"))
+    saved = json.loads((tmp_path / "p.json").read_text())
+    assert saved == {**json.loads((tmp_path / "j.json").read_text()),
+                     **PORT_ONLY}
+    (tmp_path / "p_shared.json").write_text(json.dumps(
+        {k: v for k, v in saved.items() if k not in PORT_ONLY}))
+    assert {**asdict(JUiState.load(tmp_path / "p_shared.json")),
+            **PORT_ONLY} == asdict(UiState.load(tmp_path / "j.json"))
 
 
 def test_input_matches_jax():

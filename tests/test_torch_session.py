@@ -275,9 +275,10 @@ def test_merge_caps_rule():
                          live_tile_cap=16, raster_tile_cap=None, span_cap=4,
                          span_mid_cap=None, overlay_max_tiles=128)
     caps = merge_caps(old, new)
-    # RenderSettings' default overlay_candidates (384) beats the old 128.
+    # RenderSettings' default overlay_candidates (384) beats the old 128;
+    # every cap grows, the span routing too (None: uncapped, no mid class).
     assert caps == dict(old, overlay_candidates=384, overlay_max_tiles=128,
-                        raster_tile_cap=None, span_cap=4, span_mid_cap=None)
+                        raster_tile_cap=None, span_mid_cap=None)
     assert merge_caps(None, new)["max_candidates"] == 32
 
 

@@ -608,16 +608,25 @@ STANDIN_SIZES = dict(map_size=32, cube_sizes=(32, 64))
 def standin_resources(root, with_jax: bool = True):
     """Point the port's (and, ``with_jax``, the JAX package's) resource
     root at a stand-in root written under ``root``, and their asset caches
-    at ``root/.asset_cache``; the previous roots and cache directories come
-    back afterwards, so that test files sharing a worker see no change.
-    Yields the stand-in's config path."""
+    at ``root/.asset_cache`` (:func:`resource_root`). Yields the
+    stand-in's config path."""
     import chip_smoke
-    from bibim_tpu_torch.assets import asset_cache as pcache
-    from bibim_tpu_torch.utils import config as pconfig
 
     config = chip_smoke.write_standin_resources(root, seed=0,
                                                 **STANDIN_SIZES)
-    cache = Path(root) / ".asset_cache"
+    with resource_root(config, Path(root) / ".asset_cache", with_jax):
+        yield config
+
+
+@contextlib.contextmanager
+def resource_root(config, cache, with_jax: bool = False):
+    """Point the port's (and, ``with_jax``, the JAX package's) resource
+    root at ``config`` and their asset caches at ``cache``; the previous
+    roots and cache directories come back afterwards, so that test files
+    sharing a worker see no change."""
+    from bibim_tpu_torch.assets import asset_cache as pcache
+    from bibim_tpu_torch.utils import config as pconfig
+
     saved = [(pconfig, "_active_root"), (pcache, "CACHE_DIR")]
     if with_jax:
         from bibim_tpu.assets import asset_cache as jcache
